@@ -1,0 +1,59 @@
+"""Architecture registry (port of ``repro.configs.registry``).
+
+Only the configurations this slice serves are ported; each lives in its
+own module (``repro_torch.configs.<id>``, dashes -> underscores) exporting
+``ARCH``.  ``smoke_variant`` is the reduced same-family config the CPU
+tests use.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import importlib
+
+import torch
+
+from repro_torch.models.modules import ModelConfig
+
+
+@dataclasses.dataclass(frozen=True)
+class ArchConfig:
+    arch_id: str
+    family: str                     # dense (the only family served here)
+    model: ModelConfig
+    notes: str = ""
+
+
+def get_arch(arch_id: str, *, smoke: bool = False) -> ArchConfig:
+    try:
+        mod = importlib.import_module(
+            "repro_torch.configs."
+            + arch_id.replace("-", "_").replace(".", "_"))
+    except ModuleNotFoundError as e:
+        raise ValueError(f"architecture {arch_id!r} is not ported") from e
+    arch: ArchConfig = mod.ARCH
+    return smoke_variant(arch) if smoke else arch
+
+
+def production_dtypes(cfg: ModelConfig) -> ModelConfig:
+    return dataclasses.replace(cfg, param_dtype=torch.float32,
+                               compute_dtype=torch.bfloat16)
+
+
+def smoke_variant(arch: ArchConfig) -> ArchConfig:
+    """Reduced same-family config: small widths/depth/vocab, f32."""
+    m = arch.model
+    sm = dataclasses.replace(
+        m,
+        n_layers=min(m.n_layers, 2),
+        d_model=128,
+        n_heads=4,
+        n_kv=max(1, min(m.n_kv, 2 if m.n_kv < m.n_heads else 4)),
+        head_dim=32,
+        d_ff=256,
+        vocab=251,
+        attn=dataclasses.replace(m.attn, window=16, k=16, block_q=16),
+        param_dtype=torch.float32,
+        compute_dtype=torch.float32,
+    )
+    return dataclasses.replace(arch, model=sm)

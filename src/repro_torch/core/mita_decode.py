@@ -1,0 +1,336 @@
+"""Incremental (decode-time) MiTA (port of ``repro.core.mita_decode``).
+
+The landmark/expert structures of causal MiTA depend only on completed
+windows, so they are kept beside the KV cache: every step appends (k, v)
+and adds the query to a running window sum; every ``window`` steps the
+completed window is finalised into a landmark query, a landmark value and
+a top-k expert row set.  Each token then attends the shared landmarks, its
+top-s routed experts and its own window.
+
+Two cache forms, as in the reference:
+  * `MiTADecodeState` — one monolithic cache per request batch (the static
+    path, `launch.serve.static_generate`, and the engine's oracle);
+  * `PagedMiTAState` — one pool per layer shared by all request slots,
+    addressed through per-slot page tables (the serving engine).
+
+Where the reference returns new arrays (with donation), these functions
+update the state tensors IN PLACE and return the state (with ``t``
+replaced where it advances).  States of several layers are stacked on
+axis 0; a layer's state is a tuple of views into the stack, so in-place
+updates land in the stack.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import NamedTuple
+
+import torch
+
+from repro_torch.core import mita as mref
+from repro_torch.core.combine import (Partial, combine, partial_from_logits,
+                                      partial_from_scores)
+from repro_torch.device import NEG_INF
+from repro_torch.kernels import ops
+
+
+class MiTADecodeState(NamedTuple):
+    """Decode-time cache for one attention layer (B batch, Hkv KV heads,
+    C capacity, M = C // window landmarks, K expert width):
+      k_cache, v_cache [B, Hkv, C, d]; lm_q, lm_v [B, Hkv, M, d];
+      expert_idx [B, Hkv, M, K] int32 cache rows; expert_valid
+      [B, Hkv, M, K] bool; q_sum [B, Hkv, d] float32; t [] int32."""
+
+    k_cache: torch.Tensor
+    v_cache: torch.Tensor
+    lm_q: torch.Tensor
+    lm_v: torch.Tensor
+    expert_idx: torch.Tensor
+    expert_valid: torch.Tensor
+    q_sum: torch.Tensor
+    t: torch.Tensor
+
+
+@dataclasses.dataclass(frozen=True)
+class DecodeConfig:
+    window: int          # w — landmark window size
+    k: int               # expert width
+    s: int = 1           # routed experts per query
+    # The serving loop finalises landmarks at window boundaries in its own
+    # step; the last token of each window then routes among j, not j+1,
+    # experts (the reference's external mode).
+    external_finalize: bool = False
+
+
+def window_aligned(n: int, window: int) -> int:
+    """Round a token count up to a whole number of landmark windows."""
+    return ((n + window - 1) // window) * window
+
+
+def init_decode_state(batch: int, n_kv: int, head_dim: int, capacity: int,
+                      cfg: DecodeConfig, dtype=torch.bfloat16,
+                      device=None) -> MiTADecodeState:
+    m_max = capacity // cfg.window
+
+    def z(*shape, dt=dtype):
+        return torch.zeros((batch, n_kv) + shape, dtype=dt, device=device)
+
+    return MiTADecodeState(
+        k_cache=z(capacity, head_dim), v_cache=z(capacity, head_dim),
+        lm_q=z(m_max, head_dim), lm_v=z(m_max, head_dim),
+        expert_idx=z(m_max, cfg.k, dt=torch.int32),
+        expert_valid=z(m_max, cfg.k, dt=torch.bool),
+        q_sum=z(head_dim, dt=torch.float32),
+        t=torch.zeros((), dtype=torch.int32, device=device))
+
+
+def mita_prefill_state(q, k, v, cfg: DecodeConfig,
+                       capacity: int) -> MiTADecodeState:
+    """Decode state from a full-sequence prefill.  q: [B, Hkv, G, N, d];
+    k, v: [B, Hkv, 1, N, d].  Landmarks use the training-path functions so
+    decode continues exactly where causal MiTA leaves off."""
+    b, hkv, _, n, d = q.shape
+    w = cfg.window
+    m_cnt = n // w
+    dtype = k.dtype
+    ql = q.mean(dim=2)                                  # [B, Hkv, N, d]
+    st = init_decode_state(b, hkv, d, capacity, cfg, dtype=dtype,
+                           device=q.device)
+    if m_cnt > 0:
+        mcfg = mref.MiTAConfig(m=m_cnt, k=cfg.k, s=cfg.s, causal=True)
+        q_lm = ql[:, :, : m_cnt * w].reshape(b, hkv, m_cnt, w, d).mean(dim=3)
+        s_kv = mref.landmark_scores(k[:, :, 0, :n], q_lm, mcfg)
+        idx, valid = mref.topk_indices(s_kv, mcfg)
+        v_lm = mref.landmark_values(v[:, :, 0, :n], s_kv)
+        st.lm_q[:, :, :m_cnt] = q_lm.to(dtype)
+        st.lm_v[:, :, :m_cnt] = v_lm.to(dtype)
+        st.expert_idx[:, :, :m_cnt] = idx
+        st.expert_valid[:, :, :m_cnt] = valid
+    st.k_cache[:, :, :n] = k[:, :, 0]
+    st.v_cache[:, :, :n] = v[:, :, 0]
+    st.q_sum.copy_(ql[:, :, m_cnt * w:].sum(dim=2).float())
+    return st._replace(t=torch.tensor(n, dtype=torch.int32, device=q.device))
+
+
+def mita_finalize_if_due(state: MiTADecodeState,
+                         cfg: DecodeConfig) -> MiTADecodeState:
+    """External-finalize step: no-op off a window boundary."""
+    t = int(state.t)
+    if t % cfg.window == 0 and t > 0:
+        _finalize_window(state, cfg, t)
+    return state
+
+
+def _finalize_window(state: MiTADecodeState, cfg: DecodeConfig,
+                     t_new: int) -> None:
+    """Finalise landmark i = t_new//w - 1 from the query sum, in place."""
+    d = state.k_cache.shape[-1]
+    cap = state.k_cache.shape[-2]
+    i = t_new // cfg.window - 1
+    q_lm = (state.q_sum / cfg.window).to(state.k_cache.dtype)
+    scores = torch.einsum("bhnd,bhd->bhn", state.k_cache, q_lm) / math.sqrt(d)
+    visible = torch.arange(cap, device=q_lm.device)[None, None, :] < t_new
+    scores = torch.where(visible, scores.float(), NEG_INF)
+    top_vals, top_idx = mref.topk_first(scores, cfg.k)
+    p = torch.softmax(scores, dim=-1)
+    v_lm = torch.einsum("bhn,bhnd->bhd", p.to(state.v_cache.dtype),
+                        state.v_cache)
+    state.lm_q[:, :, i] = q_lm
+    state.lm_v[:, :, i] = v_lm.to(state.lm_v.dtype)
+    state.expert_idx[:, :, i] = top_idx.to(torch.int32)
+    state.expert_valid[:, :, i] = top_vals > NEG_INF / 2
+    state.q_sum.zero_()
+
+
+def mita_decode_step(state: MiTADecodeState, q, k_new, v_new,
+                     cfg: DecodeConfig):
+    """One decode step.  q: [B, Hkv, G, d]; k_new, v_new: [B, Hkv, d].
+    Returns (out [B, Hkv, G, d], state with t + 1); caches in place."""
+    b, hkv, g, d = q.shape
+    m_max = state.lm_q.shape[-2]
+    w = cfg.window
+    t = int(state.t)
+
+    state.k_cache[:, :, t] = k_new.to(state.k_cache.dtype)
+    state.v_cache[:, :, t] = v_new.to(state.v_cache.dtype)
+    state.q_sum.add_(q.mean(dim=2).float())
+    t_new = t + 1
+    if not cfg.external_finalize and t_new % w == 0:
+        _finalize_window(state, cfg, t_new)
+    m_cnt = t // w if cfg.external_finalize else t_new // w
+    lm_mask = torch.arange(m_max, device=q.device)[None, None, None, :] \
+        < m_cnt
+
+    r = torch.einsum("bhgd,bhmd->bhgm", q, state.lm_q) / math.sqrt(d)
+    r = torch.where(lm_mask, r.float(), NEG_INF)
+    parts: list[Partial] = [partial_from_scores(r, state.lm_v)]
+
+    s_ = min(cfg.s, m_max)
+    top_r, e_idx = mref.topk_first(r, s_)                # [B, Hkv, G, s]
+    e_ok = top_r > NEG_INF / 2
+    flat_e = e_idx.reshape(b, hkv, g * s_)
+    sel = flat_e[..., None].expand(flat_e.shape + (cfg.k,))
+    rows = torch.gather(state.expert_idx, 2, sel).long()
+    rows_valid = torch.gather(state.expert_valid, 2, sel)
+    rows = rows.reshape(b, hkv, g * s_ * cfg.k)
+    idx = rows[..., None].expand(rows.shape + (d,))
+    k_sel = torch.gather(state.k_cache, 2, idx).reshape(b, hkv, g,
+                                                        s_ * cfg.k, d)
+    v_sel = torch.gather(state.v_cache, 2, idx).reshape(b, hkv, g,
+                                                        s_ * cfg.k, d)
+    logits = torch.einsum("bhgd,bhgkd->bhgk", q, k_sel) / math.sqrt(d)
+    mask = (rows_valid.reshape(b, hkv, g, s_, cfg.k)
+            & e_ok[..., None]).reshape(b, hkv, g, s_ * cfg.k)
+    parts.append(partial_from_logits(logits, v_sel, mask=mask))
+
+    # local: the query's own window [(t//w)*w, t]
+    start = (t // w) * w
+    k_loc = state.k_cache[:, :, start:start + w]
+    v_loc = state.v_cache[:, :, start:start + w]
+    loc_logits = torch.einsum("bhgd,bhwd->bhgw", q, k_loc) / math.sqrt(d)
+    loc_mask = (torch.arange(w, device=q.device)[None, None, None, :]
+                + start) < t_new
+    parts.append(partial_from_scores(loc_logits, v_loc, mask=loc_mask))
+    return combine(parts), state._replace(t=state.t + 1)
+
+
+# ----------------------------------------------------------- paged decode --
+#
+# One KV pool per layer shared by every request slot.  A request owns
+# window-aligned pages named by its page-table row; row R of the pool is a
+# write scratch for inactive slots; expert_idx stores GLOBAL pool rows
+# (page_id * window + offset), so the decode gather needs no table lookup.
+
+
+class PagedMiTAState(NamedTuple):
+    """Paged decode cache for one layer, shared across S request slots
+    (R = n_pages * window pool rows, M = pages_per_slot, K expert width):
+      k_pool, v_pool [R + 1, Hkv, d]  (row R: write scratch)
+      lm_q, lm_v [S, Hkv, M, d]; expert_idx [S, Hkv, M, K] int32 global
+      rows; expert_valid [S, Hkv, M, K] bool; q_sum [S, Hkv, d] float32;
+      pre_lm_q [S, Hkv, M, d] and pre_q_sum [S, Hkv, d] float32 — the
+      prompt-window landmark system of chunked prefill (kept for layout
+      parity with the reference; the monolithic path leaves them zero).
+    Per-slot progress, page tables and activity live on the host and are
+    passed into each step."""
+
+    k_pool: torch.Tensor
+    v_pool: torch.Tensor
+    lm_q: torch.Tensor
+    lm_v: torch.Tensor
+    expert_idx: torch.Tensor
+    expert_valid: torch.Tensor
+    q_sum: torch.Tensor
+    pre_lm_q: torch.Tensor
+    pre_q_sum: torch.Tensor
+
+
+def init_paged_state(n_kv: int, head_dim: int, n_pages: int, n_slots: int,
+                     pages_per_slot: int, cfg: DecodeConfig,
+                     dtype=torch.bfloat16, device=None) -> PagedMiTAState:
+    rows = n_pages * cfg.window + 1
+
+    def z(*shape, dt=dtype):
+        return torch.zeros(shape, dtype=dt, device=device)
+
+    return PagedMiTAState(
+        k_pool=z(rows, n_kv, head_dim), v_pool=z(rows, n_kv, head_dim),
+        lm_q=z(n_slots, n_kv, pages_per_slot, head_dim),
+        lm_v=z(n_slots, n_kv, pages_per_slot, head_dim),
+        expert_idx=z(n_slots, n_kv, pages_per_slot, cfg.k, dt=torch.int32),
+        expert_valid=z(n_slots, n_kv, pages_per_slot, cfg.k, dt=torch.bool),
+        q_sum=z(n_slots, n_kv, head_dim, dt=torch.float32),
+        pre_lm_q=z(n_slots, n_kv, pages_per_slot, head_dim),
+        pre_q_sum=z(n_slots, n_kv, head_dim, dt=torch.float32))
+
+
+def _paged_finalize(state: PagedMiTAState, page_table: torch.Tensor,
+                    t_new: torch.Tensor, due: torch.Tensor,
+                    cfg: DecodeConfig) -> PagedMiTAState:
+    """Finalise landmark i = t_new//w - 1 for every slot with due[s], in
+    place (`kernels.ops.paged_finalize`: the CUDA kernel on the card, the
+    plain version on the CPU)."""
+    ops.paged_finalize(state.q_sum, state.lm_q, state.lm_v, state.expert_idx,
+                       state.expert_valid, state.k_pool, state.v_pool,
+                       page_table, t_new, due, window=cfg.window,
+                       k_width=cfg.k)
+    return state
+
+
+def mita_paged_finalize(state: PagedMiTAState, page_table, t, due,
+                        cfg: DecodeConfig) -> PagedMiTAState:
+    """External-finalize entry point: ``due`` comes from the scheduler
+    (active slots whose last completed window is not finalised yet)."""
+    return _paged_finalize(state, page_table, t, due, cfg)
+
+
+def mita_paged_decode_step(state: PagedMiTAState, q, k_new, v_new,
+                           page_table, t, active, cfg: DecodeConfig):
+    """One fused decode step for the whole slot batch.
+
+    q: [S, Hkv, G, d]; k_new, v_new: [S, Hkv, d]; page_table: [S, M] int32;
+    t: [S] int32 tokens already cached; active: [S] bool.  Returns
+    (out [S, Hkv, G, d], state); pools and q_sum are updated in place and
+    the caller advances ``t``.  External finalize: the kernel fuses the
+    append.  Inline finalize: the append and the finalize run first, since
+    the finalize must see the appended row."""
+    w = cfg.window
+    m_max = state.lm_q.shape[-2]
+    s_ = min(cfg.s, m_max)
+    state.q_sum.add_(torch.where(active[:, None, None],
+                                 q.mean(dim=2).float(), 0.0))
+    t_new = t + 1
+    if cfg.external_finalize:
+        m_cnt = t // w
+    else:
+        tl = t.long()
+        cur_page = page_table.long().gather(1, (tl // w)[:, None])[:, 0]
+        scratch = state.k_pool.shape[0] - 1
+        rows_new = torch.where(active, cur_page * w + tl % w, scratch)
+        ops.scatter_pool_rows(state.k_pool, rows_new, k_new)
+        ops.scatter_pool_rows(state.v_pool, rows_new, v_new)
+        due = active & (t_new % w == 0)
+        _paged_finalize(state, page_table, t_new, due, cfg)
+        m_cnt = t_new // w
+    out = ops.paged_decode_attend(
+        q, k_new, v_new, state.lm_q, state.lm_v, state.expert_idx,
+        state.expert_valid, state.k_pool, state.v_pool, page_table, t,
+        active, m_cnt, window=w, n_route=s_,
+        fuse_append=cfg.external_finalize)
+    return out, state
+
+
+def pack_prefill_into_pages(state: PagedMiTAState, pre: MiTADecodeState,
+                            slot: int, pages: torch.Tensor,
+                            cfg: DecodeConfig) -> PagedMiTAState:
+    """Copy a single-request monolithic prefill state (B == 1, capacity
+    C = P_used * w) into ``slot`` and its ``pages`` [P_used], in place.
+    KV rows land at ``pages[c // w] * w + c % w``; expert rows are rebased
+    from cache-local to GLOBAL pool rows.  Only ``slot``'s entries and the
+    rows of ``pages`` are written."""
+    w = cfg.window
+    c_pre = pre.k_cache.shape[-2]
+    if c_pre % w:
+        raise ValueError(f"prefill capacity {c_pre} not window-aligned")
+    p_used = c_pre // w
+    m_max = state.lm_q.shape[-2]
+    m_pre = pre.lm_q.shape[-2]
+    if p_used > m_max or m_pre > m_max:
+        raise ValueError("request needs more pages than a slot owns")
+    pages = pages.long()
+    dst_rows = (pages[:, None] * w
+                + torch.arange(w, device=pages.device)).reshape(-1)
+    state.k_pool[dst_rows] = pre.k_cache[0].transpose(0, 1).to(
+        state.k_pool.dtype)
+    state.v_pool[dst_rows] = pre.v_cache[0].transpose(0, 1).to(
+        state.v_pool.dtype)
+    loc = pre.expert_idx[0].long()                       # [Hkv, M', K]
+    grows = pages[loc // w] * w + loc % w
+    for dst, src in ((state.lm_q, pre.lm_q[0]), (state.lm_v, pre.lm_v[0]),
+                     (state.expert_idx, grows),
+                     (state.expert_valid, pre.expert_valid[0])):
+        dst[slot].zero_()
+        dst[slot, :, :m_pre] = src.to(dst.dtype)
+    state.q_sum[slot] = pre.q_sum[0]
+    return state

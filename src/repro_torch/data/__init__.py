@@ -1,0 +1,5 @@
+"""Data (port of ``repro.data``)."""
+
+from repro_torch.data.pipeline import DataConfig, synthetic_batch
+
+__all__ = ["DataConfig", "synthetic_batch"]

@@ -1,0 +1,153 @@
+"""Fused paged landmark finalize: CUDA kernel + plain PyTorch version.
+
+Port of ``repro.kernels.mita_paged_finalize.mita_paged_finalize_fused``
+(Pallas).  Every ``window`` tokens a slot's open window completes: its
+pooled query becomes a landmark row, and the landmark's scores over the
+slot's whole context give a fresh top-K expert gather (global pool rows)
+and the landmark value (softmax-weighted sum of V).
+
+* `mita_paged_finalize_fused` launches ``csrc/mita_paged_finalize.cu``
+  on CUDA tensors (one block per (slot, KV head)) and adds one to
+  ``LAUNCHES``.
+* `paged_finalize_plain` is the same function in plain PyTorch, following
+  the XLA oracle of ``core.mita_decode._paged_finalize``.
+
+Both commit IN PLACE at window ordinal ``t_new // w - 1`` for ``due``
+slots only and zero their q_sum; the reference returns new arrays
+instead.  Cast points: the plain version casts the softmax weights to the
+pool dtype before the value sum (as XLA does), the kernel keeps them in
+float32 (as the Pallas kernel does); below float32 the two differ within
+the bf16 tolerance.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+
+from repro_torch.core.mita import topk_first
+from repro_torch.device import NEG_INF
+from repro_torch.kernels import _build
+from repro_torch.kernels.ops import gather_pages
+
+LAUNCHES = 0            # kernel launches since the last reset
+SMEM_LIMIT = 227 * 1024
+
+
+def paged_finalize_plain(q_sum, lm_q, lm_v, expert_idx, expert_valid,
+                         k_pool, v_pool, page_table, t_new, due, *,
+                         window: int, k_width: int) -> None:
+    """Plain PyTorch version of the kernel (the XLA oracle), in place."""
+    w = window
+    n_slots, hkv, m_max, _ = expert_idx.shape
+    d = k_pool.shape[-1]
+    ctx = m_max * w
+    tn = t_new.long()
+    owned = (tn + w - 1) // w
+    k_ctx = gather_pages(k_pool, page_table, w, owned=owned)  # [S,ctx,H,d]
+    v_ctx = gather_pages(v_pool, page_table, w, owned=owned)
+    q_lm = (q_sum / w).to(k_pool.dtype)                       # [S, H, d]
+
+    scores = torch.einsum("schd,shd->shc", k_ctx, q_lm) / math.sqrt(d)
+    visible = torch.arange(ctx, device=q_sum.device)[None, None, :] \
+        < tn[:, None, None]
+    scores = torch.where(visible, scores.float(), NEG_INF)
+    top_vals, top_loc = topk_first(scores, k_width)          # [S, H, K]
+    valid = top_vals > NEG_INF / 2
+    ctx_rows = (page_table.long()[:, :, None] * w
+                + torch.arange(w, device=q_sum.device)).reshape(n_slots, ctx)
+    rows = torch.gather(ctx_rows[:, None, :].expand(n_slots, hkv, ctx), -1,
+                        top_loc)
+    p = torch.softmax(scores, dim=-1)
+    v_lm = torch.einsum("shc,schd->shd", p.to(v_pool.dtype), v_ctx)
+
+    i = tn // w - 1
+    sel = due[:, None] & (torch.arange(m_max, device=q_sum.device)[None, :]
+                          == i[:, None])
+    sel4 = sel[:, None, :, None]
+    lm_q.copy_(torch.where(sel4, q_lm[:, :, None, :], lm_q))
+    lm_v.copy_(torch.where(sel4, v_lm[:, :, None, :].to(lm_v.dtype), lm_v))
+    expert_idx.copy_(torch.where(sel4, rows[:, :, None, :].to(
+        expert_idx.dtype), expert_idx))
+    expert_valid.copy_(torch.where(sel4, valid[:, :, None, :],
+                                   expert_valid))
+    q_sum.copy_(torch.where(due[:, None, None], 0.0, q_sum))
+
+
+def _lib():
+    lib = _build.load("mita_paged_finalize")
+    fn = lib.mita_paged_finalize
+    if fn.argtypes is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [i] + [p] * 11 + [i] * 6 + [p]
+        fn.restype = ctypes.c_int
+        sb = lib.mita_paged_finalize_smem_bytes
+        sb.argtypes = [i] * 4
+        sb.restype = ctypes.c_longlong
+    return lib
+
+
+def _check(cond: bool, msg: str) -> None:
+    if not cond:
+        raise ValueError(f"mita_paged_finalize_fused: {msg}")
+
+
+def mita_paged_finalize_fused(q_sum, lm_q, lm_v, expert_idx, expert_valid,
+                              k_pool, v_pool, page_table, t_new, due, *,
+                              window: int, k_width: int) -> None:
+    """Launch the CUDA kernel (in place).
+
+    q_sum: [S, Hkv, d] float32; lm_q/lm_v: [S, Hkv, M, d] in the pool
+    dtype; expert_idx: [S, Hkv, M, K] int32; expert_valid: [S, Hkv, M, K]
+    bool -- all contiguous, updated in place; k_pool/v_pool: [R + 1, Hkv, d]
+    float32 or bfloat16 (read only); page_table: [S, M] int32; t_new: [S]
+    int32 positions after the step; due: [S] bool.
+    """
+    global LAUNCHES
+    dt = k_pool.dtype
+    _check(dt in (torch.float32, torch.bfloat16),
+           f"pool dtype {dt} (float32 or bfloat16 only)")
+    dev = k_pool.device
+    _check(dev.type == "cuda", "needs CUDA tensors")
+    n_slots, hkv, m_slot, d = lm_q.shape
+    k_w = expert_idx.shape[-1]
+    ctx = m_slot * window
+    _check(k_w == k_width, "k_width must match expert_idx")
+    _check(k_w <= ctx, f"k_width {k_w} exceeds the slot context {ctx}")
+    _check(q_sum.dtype == torch.float32 and q_sum.shape == (n_slots, hkv, d),
+           "q_sum must be float32 [S, Hkv, d]")
+    _check(lm_v.shape == lm_q.shape and lm_q.dtype == dt
+           and lm_v.dtype == dt, "landmark shape/dtype")
+    _check(expert_idx.dtype == torch.int32 and expert_valid.dtype
+           == torch.bool and expert_valid.shape == expert_idx.shape,
+           "expert_idx int32 / expert_valid bool")
+    _check(v_pool.shape == k_pool.shape and v_pool.dtype == dt
+           and k_pool.shape[1:] == (hkv, d), "pool shape/dtype")
+    _check(page_table.shape == (n_slots, m_slot), "page_table shape")
+    for x in (q_sum, lm_q, lm_v, expert_idx, expert_valid):
+        _check(x.is_contiguous(), "state tensors must be contiguous "
+               "(updated in place)")
+    for x in (q_sum, lm_q, lm_v, expert_idx, expert_valid, v_pool,
+              page_table, t_new, due):
+        _check(x.device == dev, "all tensors must be on one device")
+    lib = _lib()
+    ws = None
+    if lib.mita_paged_finalize_smem_bytes(d, k_w, ctx, 1) > SMEM_LIMIT:
+        ws = torch.empty(n_slots * hkv * ctx, dtype=torch.float32,
+                         device=dev)
+    keep = [k_pool.contiguous(), v_pool.contiguous(),
+            page_table.to(torch.int32).contiguous(),
+            t_new.to(torch.int32).contiguous(),
+            due.to(torch.bool).contiguous().view(torch.uint8)]
+    err = lib.mita_paged_finalize(
+        0 if dt == torch.float32 else 1, q_sum.data_ptr(), lm_q.data_ptr(),
+        lm_v.data_ptr(), expert_idx.data_ptr(),
+        expert_valid.view(torch.uint8).data_ptr(),
+        *[x.data_ptr() for x in keep],
+        None if ws is None else ws.data_ptr(),
+        n_slots, hkv, m_slot, d, k_w, window,
+        torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(err, "mita_paged_finalize launch")
+    LAUNCHES += 1

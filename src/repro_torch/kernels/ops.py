@@ -1,0 +1,106 @@
+"""Dispatch layer of the port's kernels (port of ``repro.kernels.ops``).
+
+`paged_decode_attend` and `paged_finalize` are the only two points where
+the serving path reaches a kernel.  The tensors decide where it runs:
+
+* all on the CPU  -> the plain PyTorch version beside the kernel;
+* all on CUDA     -> the hand-written CUDA kernel, or an error is raised;
+* mixed devices   -> an error.
+
+Nothing on a CUDA tensor ever falls back to the plain version, so there
+is no fallback counter to keep: the backend's ``*_kernel_fallbacks`` stats
+stay in the schema and read 0.  Each kernel wrapper counts its own
+launches (`launch_counts`).
+
+The page-pool gathers below are shared by the plain versions and the
+model code; pools are [R + 1, Hkv, d] with row = page_id * page + offset
+and the trailing row R a write scratch.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def gather_pool_rows(pool: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
+    """pool [R, Hkv, d]; rows [S, Hkv, n] global row ids -> [S, Hkv, n, d]."""
+    hkv = pool.shape[1]
+    heads = torch.arange(hkv, device=pool.device)[None, :, None]
+    return pool.transpose(0, 1)[heads, rows.long()]
+
+
+def gather_pages(pool: torch.Tensor, page_ids: torch.Tensor, page_size: int,
+                 owned: torch.Tensor | None = None) -> torch.Tensor:
+    """Whole pages in page-table order: pool [R, Hkv, d], page_ids [S, P]
+    -> [S, P * page_size, Hkv, d].  Entries at ordinal >= ``owned[s]`` read
+    the trailing scratch row instead of another request's page."""
+    rows = page_ids.long()[..., None] * page_size \
+        + torch.arange(page_size, device=pool.device)
+    if owned is not None:
+        scratch = pool.shape[0] - 1
+        is_owned = (torch.arange(page_ids.shape[-1], device=pool.device)
+                    [None, :, None] < owned.long()[:, None, None])
+        rows = torch.where(is_owned, rows, scratch)
+    return pool[rows.reshape(rows.shape[:-2] + (-1,))]
+
+
+def scatter_pool_rows(pool: torch.Tensor, rows: torch.Tensor,
+                      new: torch.Tensor) -> torch.Tensor:
+    """Write one row per slot in place: pool [R, Hkv, d], rows [S], new
+    [S, Hkv, d].  Scratch-row duplicates are allowed (inactive slots)."""
+    pool[rows.long()] = new.to(pool.dtype)
+    return pool
+
+
+def _device_of(*tensors: torch.Tensor) -> str:
+    kinds = {x.device.type for x in tensors}
+    if len(kinds) != 1:
+        raise ValueError(f"tensors on mixed devices: {sorted(kinds)}")
+    kind = kinds.pop()
+    if kind not in ("cpu", "cuda"):
+        raise ValueError(f"no kernel or plain path for device {kind!r}")
+    return kind
+
+
+def paged_decode_attend(q, k_new, v_new, lm_q, lm_v, expert_idx,
+                        expert_valid, k_pool, v_pool, page_table, t, active,
+                        m_cnt, *, window: int, n_route: int,
+                        fuse_append: bool) -> torch.Tensor:
+    """Fused decode step: (append +) three-branch attend.  Returns out
+    [S, Hkv, G, d]; with ``fuse_append`` the pools gain the new row in
+    place.  See `kernels.mita_paged_attn.mita_paged_attention`."""
+    from repro_torch.kernels import mita_paged_attn as mpa
+    args = (q, k_new, v_new, lm_q, lm_v, expert_idx, expert_valid, k_pool,
+            v_pool, page_table, t, active, m_cnt)
+    fn = (mpa.mita_paged_attention if _device_of(*args) == "cuda"
+          else mpa.paged_attention_plain)
+    return fn(*args, window=window, n_route=n_route, fuse_append=fuse_append)
+
+
+def paged_finalize(q_sum, lm_q, lm_v, expert_idx, expert_valid, k_pool,
+                   v_pool, page_table, t_new, due, *, window: int,
+                   k_width: int) -> None:
+    """Window finalize for every ``due`` slot, IN PLACE on q_sum, lm_q,
+    lm_v, expert_idx and expert_valid; other slots stay bit-identical.
+    See `kernels.mita_paged_finalize.mita_paged_finalize_fused`."""
+    from repro_torch.kernels import mita_paged_finalize as mpf
+    args = (q_sum, lm_q, lm_v, expert_idx, expert_valid, k_pool, v_pool,
+            page_table, t_new, due)
+    fn = (mpf.mita_paged_finalize_fused if _device_of(*args) == "cuda"
+          else mpf.paged_finalize_plain)
+    fn(*args, window=window, k_width=k_width)
+
+
+def launch_counts() -> dict[str, int]:
+    """Kernel launches per kernel since the last `reset_launch_counts`."""
+    from repro_torch.kernels import mita_paged_attn as mpa
+    from repro_torch.kernels import mita_paged_finalize as mpf
+    return {"mita_paged_attention": mpa.LAUNCHES,
+            "mita_paged_finalize_fused": mpf.LAUNCHES}
+
+
+def reset_launch_counts() -> None:
+    from repro_torch.kernels import mita_paged_attn as mpa
+    from repro_torch.kernels import mita_paged_finalize as mpf
+    mpa.LAUNCHES = 0
+    mpf.LAUNCHES = 0

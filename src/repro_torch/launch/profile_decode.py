@@ -1,0 +1,104 @@
+"""Where a decode step of the continuous engine spends its time.
+
+    PYTHONPATH=src python -m repro_torch.launch.profile_decode \\
+        [--compute-dtype bfloat16|float32] [--steps 20]
+
+Fills the engine's slots with one admission group (qwen3-0.6b, random
+weights from seed 0), warms up, then records ``--steps`` decode steps
+under ``torch.profiler`` (CPU + CUDA).  Prints the wall time per step, the
+share of that time the card was busy (sum of kernel times / wall time),
+and the operators with the largest CUDA and CPU self times; the last line
+is a JSON summary.  Needs a CUDA device unless ``--device cpu``, which
+profiles the plain versions and reports no device time.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import time
+
+import torch
+
+from repro_torch.configs.registry import get_arch
+from repro_torch.core import mita_decode as mdec
+from repro_torch.data import DataConfig, synthetic_batch
+from repro_torch.device import resolve_device
+from repro_torch.models import transformer as tfm
+from repro_torch.serve import EngineConfig, Request, ServingEngine
+
+
+TOP = 25      # operators listed per table
+
+
+def _self_device_us(ev) -> float:
+    for name in ("self_device_time_total", "self_cuda_time_total"):
+        if hasattr(ev, name):
+            return float(getattr(ev, name))
+    return 0.0
+
+
+def main(argv=None) -> dict:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="qwen3-0.6b")
+    ap.add_argument("--smoke", action="store_true")
+    ap.add_argument("--device", default="cuda")
+    ap.add_argument("--compute-dtype", default="bfloat16",
+                    choices=("bfloat16", "float32"))
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=512)
+    ap.add_argument("--steps", type=int, default=20)
+    args = ap.parse_args(argv)
+
+    device = resolve_device(args.device)
+    arch = get_arch(args.arch, smoke=args.smoke)
+    cfg = dataclasses.replace(arch.model,
+                              compute_dtype=getattr(torch, args.compute_dtype))
+    w = cfg.attn.window
+    gen = args.steps + 8
+    params = tfm.lm_init(torch.Generator(device=device).manual_seed(0),
+                         cfg, device)
+    prompts = synthetic_batch(DataConfig(vocab=cfg.vocab,
+                                         seq_len=args.prompt_len,
+                                         global_batch=args.batch), 0)["tokens"]
+    pages = mdec.window_aligned(args.prompt_len + gen, w) // w
+    eng = ServingEngine(params, cfg,
+                        EngineConfig(n_slots=args.batch, pages_per_slot=pages,
+                                     n_pages=2 * args.batch * pages),
+                        device=device)
+    for i in range(args.batch):
+        eng.submit(Request(rid=i, prompt=prompts[i], max_new_tokens=gen))
+    for _ in range(4):                 # admission + warm-up decode steps
+        eng.step()
+    cuda = device.type == "cuda"
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    if cuda:
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
+        torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for _ in range(args.steps):
+            eng.step()
+        if cuda:
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    avgs = prof.key_averages()
+    dev_us = sum(_self_device_us(e) for e in avgs)
+    step_ms = wall / args.steps * 1e3
+    busy = dev_us / 1e3 / (wall * 1e3) if cuda else float("nan")
+    print(f"{args.compute_dtype}: {step_ms:.3f} ms per decode step "
+          f"(batch {args.batch}), device busy {busy:.3f} of the window")
+    if cuda:
+        print(avgs.table(sort_by="self_cuda_time_total", row_limit=TOP))
+    print(avgs.table(sort_by="self_cpu_time_total", row_limit=TOP))
+    summary = {"compute_dtype": args.compute_dtype, "batch": args.batch,
+               "step_ms": step_ms, "device_busy_share": busy,
+               "device_ms_per_step": dev_us / 1e3 / args.steps,
+               "device": (torch.cuda.get_device_name(0) if cuda else "cpu")}
+    print(json.dumps(summary))
+    return summary
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,184 @@
+"""Serving entry point: static batch or the continuous-batching engine
+(port of ``repro.launch.serve``).
+
+  * ``--engine static``     — prefill a fixed batch of equal-length prompts
+    and decode it for ``--gen`` steps (`static_generate`, also the oracle
+    the engine's greedy tokens are held to);
+  * ``--engine continuous`` — `repro_torch.serve.ServingEngine` over the
+    paged MiTA backend, whose decode step runs the paged-decode and
+    paged-finalize CUDA kernels on the card.
+
+Usage:
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-0.6b \\
+      --batch 4 --prompt-len 512 --gen 160 --engine continuous
+  (add ``--smoke --device cpu`` for the reduced config on the CPU)
+
+Weights are random, drawn from seed 0.  Supervision (``Supervisor``)
+and the chunked-prefill options of the reference come in later slices.
+"""
+
+from __future__ import annotations
+
+import argparse
+import time
+from typing import Optional
+
+import numpy as np
+import torch
+
+from repro_torch.configs.registry import get_arch
+from repro_torch.core import mita_decode as mdec
+from repro_torch.data import DataConfig, synthetic_batch
+from repro_torch.device import resolve_device
+from repro_torch.models import transformer as tfm
+from repro_torch.models.modules import ModelConfig
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def static_generate(params, cfg: ModelConfig, prompts: torch.Tensor,
+                    gen: int, temperature: float = 0.0,
+                    capacity: Optional[int] = None,
+                    record_gaps: bool = False):
+    """Fixed-batch prefill + greedy decode.  prompts: [B, N] on the model's
+    device.  Returns (tokens [B, gen] int32 numpy, timings dict).  With
+    ``cfg.attn.external_finalize`` the landmark finalize runs at window
+    boundaries (skipping windows the prefill already finalised).
+    ``record_gaps`` adds ``top2_gap`` [gen, B]: the gap between the two
+    largest logits behind each token (a near-tie marks where float
+    reduction order may flip a greedy token)."""
+    if temperature > 0:
+        raise NotImplementedError(
+            "temperature sampling needs the threefry replica (ROADMAP A.6)")
+    b, n = prompts.shape
+    w = cfg.attn.window
+    capacity = mdec.window_aligned(capacity or n + gen, w)
+    dev = prompts.device
+    gaps = []
+
+    def sample(lg):
+        if record_gaps:
+            top2 = torch.topk(lg.float(), 2, dim=-1).values
+            gaps.append((top2[:, 0] - top2[:, 1]).cpu().numpy())
+        return tfm.sample_tokens(lg)
+
+    with torch.inference_mode():
+        t0 = time.perf_counter()
+        logits, states = tfm.lm_prefill(params, prompts, cfg, capacity)
+        _sync(dev)
+        t_prefill = time.perf_counter() - t0
+        tok = sample(logits)
+        out = [tok]
+        m_done = n // w
+        t0 = time.perf_counter()
+        for i in range(gen - 1):
+            pos = n + i
+            if cfg.attn.external_finalize and pos % w == 0 \
+                    and pos // w > m_done:
+                states = tfm.lm_finalize_states(states, cfg)
+                m_done = pos // w
+            logits, states = tfm.lm_decode_step(params, states, tok, pos,
+                                                cfg)
+            tok = sample(logits)
+            out.append(tok)
+        _sync(dev)
+        t_decode = time.perf_counter() - t0
+    toks = torch.stack(out, dim=1).cpu().numpy().astype(np.int32)
+    tm = {"prefill_s": t_prefill, "decode_s": t_decode}
+    if record_gaps:
+        tm["top2_gap"] = np.stack(gaps)
+    return toks, tm
+
+
+def main(argv=None) -> dict:
+    """Parse ``argv``, serve, print a report; returns the run's summary
+    (throughput, TTFT percentiles, engine stats, generated tokens)."""
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="qwen3-0.6b")
+    ap.add_argument("--smoke", action="store_true")
+    ap.add_argument("--engine", choices=("static", "continuous"),
+                    default="static")
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=128)
+    ap.add_argument("--gen", type=int, default=32)
+    ap.add_argument("--requests", type=int, default=0,
+                    help="continuous: total requests (default 2x batch)")
+    ap.add_argument("--sample-device", choices=("host", "fused"),
+                    default="host",
+                    help="continuous: sample on the host from [S, V] logits "
+                         "or on the device (downloads [S] int32 tokens)")
+    ap.add_argument("--device", default="cuda",
+                    help="cuda (default) or cpu")
+    args = ap.parse_args(argv)
+
+    device = resolve_device(args.device)
+    arch = get_arch(args.arch, smoke=args.smoke)
+    cfg = arch.model
+    w = cfg.attn.window
+    from repro_torch.serve import (EngineConfig, Request, ServingEngine,
+                                   backends)
+
+    gen = torch.Generator(device=device).manual_seed(0)
+    params = tfm.lm_init(gen, cfg, device)
+    dcfg = DataConfig(vocab=cfg.vocab, seq_len=args.prompt_len,
+                      global_batch=max(args.batch, args.requests or 1))
+    prompts = synthetic_batch(dcfg, 0)["tokens"]
+    pages = mdec.window_aligned(args.prompt_len + args.gen, w) // w
+    ecfg = EngineConfig(n_slots=args.batch, pages_per_slot=pages,
+                        n_pages=2 * args.batch * pages,
+                        sample_device=args.sample_device)
+    summary = {"engine": args.engine, "arch": arch.arch_id,
+               "device": str(device)}
+
+    if args.engine == "static":
+        toks, tm = static_generate(
+            params, cfg, torch.as_tensor(prompts[: args.batch],
+                                         device=device), args.gen)
+        tps = args.batch * (args.gen - 1) / max(tm["decode_s"], 1e-9)
+        print(f"prefill: {args.batch}x{args.prompt_len} in "
+              f"{tm['prefill_s']:.3f}s")
+        print(f"decode:  {args.gen - 1} steps, {tm['decode_s']:.3f}s "
+              f"({tps:.1f} tok/s, batch={args.batch})")
+        summary.update(tok_s=tps, tokens=toks)
+    else:
+        n_req = args.requests or 2 * args.batch
+        backend = backends.for_arch(arch, params, ecfg, device=device)
+        eng = ServingEngine(params, cfg, ecfg, backend=backend)
+        reqs = [Request(rid=i, prompt=prompts[i % len(prompts)],
+                        max_new_tokens=args.gen) for i in range(n_req)]
+        _sync(device)
+        start = time.perf_counter()
+        done = eng.run(reqs)
+        _sync(device)
+        dt = time.perf_counter() - start
+        total = sum(len(f.tokens) for f in done)
+        ttft = np.asarray([f.first_token - start - f.arrival for f in done
+                           if f.reason == "complete"])
+        st = eng.stats()
+        p50, p99 = (np.percentile(ttft, [50, 99]) if ttft.size
+                    else (float("nan"), float("nan")))
+        print(f"continuous[{st['backend']}]: {n_req} requests "
+              f"({args.prompt_len}+{args.gen}) in {dt:.3f}s — "
+              f"{total / dt:.1f} tok/s, ttft p50 {p50 * 1e3:.1f} ms "
+              f"p99 {p99 * 1e3:.1f} ms, {eng.steps} fused steps, "
+              f"batch={args.batch}, pages_hw={st['pages_high_water']}, "
+              f"rejected={st['rejected']}")
+        summary.update(
+            requests=n_req, finished=len(done), tokens_out=total,
+            seconds=dt, tok_s=total / dt, ttft_p50_s=float(p50),
+            ttft_p99_s=float(p99), steps=eng.steps, stats=st,
+            reasons=[f.reason for f in done],
+            tokens={f.rid: f.tokens for f in done})
+        toks = np.stack([f.tokens for f in done[:2]]) if done else None
+    if toks is not None:
+        print("sample generations (token ids):")
+        for b in range(min(2, toks.shape[0])):
+            print(f"  [{b}] {toks[b, :16].tolist()}")
+    return summary
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,213 @@
+"""Neural-net primitives of the LM (port of ``repro.models.modules``).
+
+Conventions kept from the reference:
+  * parameters are nested dicts of tensors (``<name>_init`` builds them,
+    ``<name>_apply`` uses them), in ``cfg.param_dtype``; activations run in
+    ``cfg.compute_dtype``; norms and softmax accumulate in float32;
+  * attention tensors are [B, Hkv, G, N, dh] (G query heads per KV group).
+
+Initialisers take an explicit ``torch.Generator`` and ``device``.  They use
+the reference's shapes, dtypes and scales; the random draws differ from
+``jax.random`` (tests share weights through `repro_torch.convert`).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Optional
+
+import torch
+
+from repro_torch.core.mita import MiTAConfig, mita_attention
+from repro_torch.core.mita_sparse import mita_attention_sparse
+
+Params = dict[str, Any]
+
+
+@dataclasses.dataclass(frozen=True)
+class AttnConfig:
+    """Attention backend selection + MiTA hyper-parameters (the fields this
+    slice reads; the TPU dispatch switches have no counterpart here)."""
+    backend: str = "mita"     # mita | mita_ref
+    window: int = 128
+    k: int = 128
+    s: int = 1
+    causal: bool = True
+    impl: str = "sorted"
+    block_q: int = 128
+    expert_span: int = 4
+    landmark: str = "pool1d"
+    landmark_per_group: bool = True
+    route_per_group: bool = False
+    external_finalize: bool = False
+
+    def mita_cfg(self, n: int, bidir: bool = False) -> MiTAConfig:
+        m = max(1, n // self.window)
+        return MiTAConfig(
+            m=m, k=min(self.k, n), s=min(self.s, m),
+            causal=self.causal and not bidir, landmark=self.landmark,
+            route_per_group=self.route_per_group)
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    name: str = "model"
+    n_layers: int = 4
+    d_model: int = 256
+    n_heads: int = 4
+    n_kv: int = 4
+    d_ff: int = 1024
+    vocab: int = 1024
+    head_dim: int = 0          # 0 -> d_model // n_heads
+    rope_theta: float = 1e6
+    qk_norm: bool = False
+    norm_eps: float = 1e-6
+    tie_embeddings: bool = False
+    attn: AttnConfig = dataclasses.field(default_factory=AttnConfig)
+    n_experts: int = 0         # MoE is not ported: > 0 raises
+    param_dtype: Any = torch.float32
+    compute_dtype: Any = torch.float32
+
+    @property
+    def dh(self) -> int:
+        return self.head_dim or self.d_model // self.n_heads
+
+    @property
+    def group(self) -> int:
+        return self.n_heads // self.n_kv
+
+
+# ------------------------------------------------------------ primitives ---
+
+def _normal(gen: torch.Generator, shape, scale, dtype, device):
+    x = torch.randn(shape, generator=gen, dtype=torch.float32,
+                    device=gen.device)
+    return (x * scale).to(device=device, dtype=dtype)
+
+
+def dense_init(gen, d_in: int, d_out: int, dtype, device) -> torch.Tensor:
+    return _normal(gen, (d_in, d_out), 1.0 / math.sqrt(d_in), dtype, device)
+
+
+def rms_norm(x: torch.Tensor, scale: torch.Tensor,
+             eps: float = 1e-6) -> torch.Tensor:
+    dtype = x.dtype
+    x = x.float()
+    var = (x * x).mean(dim=-1, keepdim=True)
+    return ((x * torch.rsqrt(var + eps)) * (1.0 + scale.float())).to(dtype)
+
+
+def rope(x: torch.Tensor, positions: torch.Tensor,
+         theta: float) -> torch.Tensor:
+    """Rotary embedding. x: [..., N, dh]; positions: [N] or broadcastable
+    to x's leading dims + [N]."""
+    dh = x.shape[-1]
+    half = dh // 2
+    freqs = theta ** (-torch.arange(0, half, dtype=torch.float32,
+                                    device=x.device) / half)
+    angles = positions[..., :, None].float() * freqs
+    cos, sin = torch.cos(angles), torch.sin(angles)
+    x1, x2 = x[..., :half], x[..., half:]
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# -------------------------------------------------------------- attention ---
+
+def attention_init(gen, cfg: ModelConfig, device) -> Params:
+    d, h, kv, dh = cfg.d_model, cfg.n_heads, cfg.n_kv, cfg.dh
+    pd = cfg.param_dtype
+    p = {"wq": dense_init(gen, d, h * dh, pd, device),
+         "wk": dense_init(gen, d, kv * dh, pd, device),
+         "wv": dense_init(gen, d, kv * dh, pd, device),
+         "wo": dense_init(gen, h * dh, d, pd, device)}
+    if cfg.qk_norm:
+        p["q_norm"] = torch.zeros((dh,), dtype=pd, device=device)
+        p["k_norm"] = torch.zeros((dh,), dtype=pd, device=device)
+    return p
+
+
+def _qkv(params: Params, x: torch.Tensor, cfg: ModelConfig,
+         positions: torch.Tensor):
+    """Project to [B,Hkv,G,N,dh] query and [B,Hkv,1,N,dh] key/value."""
+    b, n, _ = x.shape
+    kv, g, dh = cfg.n_kv, cfg.group, cfg.dh
+    ct = cfg.compute_dtype
+    q = (x @ params["wq"].to(ct)).reshape(b, n, kv, g, dh)
+    k = (x @ params["wk"].to(ct)).reshape(b, n, kv, 1, dh)
+    v = (x @ params["wv"].to(ct)).reshape(b, n, kv, 1, dh)
+    q = torch.movedim(q, 1, 3)
+    k = torch.movedim(k, 1, 3)
+    v = torch.movedim(v, 1, 3)
+    if cfg.qk_norm:
+        q = rms_norm(q, params["q_norm"], cfg.norm_eps)
+        k = rms_norm(k, params["k_norm"], cfg.norm_eps)
+    q = rope(q, positions, cfg.rope_theta)
+    k = rope(k, positions, cfg.rope_theta)
+    return q, k, v
+
+
+def attention_apply(params: Params, x: torch.Tensor, cfg: ModelConfig,
+                    positions: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Full-sequence causal MiTA attention (prefill).  x: [B, N, D]."""
+    b, n, _ = x.shape
+    a = cfg.attn
+    if positions is None:
+        positions = torch.arange(n, device=x.device)
+    q, k, v = _qkv(params, x, cfg, positions)
+    if a.backend not in ("mita", "mita_ref"):
+        raise NotImplementedError(
+            f"attention backend {a.backend!r} is not ported (ROADMAP A.9)")
+    mcfg = a.mita_cfg(n)
+    q_lm = q.mean(dim=2, keepdim=True) if (
+        a.landmark_per_group and cfg.group > 1) else None
+    if a.backend == "mita_ref":
+        o = mita_attention(q, k, v, mcfg, q_landmarks=q_lm)
+    else:
+        bq = min(a.block_q, a.window * mcfg.s, n * mcfg.s)
+        o = mita_attention_sparse(
+            q, k, v, mcfg, impl=a.impl, block_q=bq,
+            expert_span=min(a.expert_span, mcfg.m), q_landmarks=q_lm)
+    o = torch.movedim(o, 3, 1).reshape(b, n, cfg.n_heads * cfg.dh)
+    return o @ params["wo"].to(cfg.compute_dtype)
+
+
+# -------------------------------------------------------------------- ffn ---
+
+def swiglu_init(gen, cfg: ModelConfig, device) -> Params:
+    pd = cfg.param_dtype
+    return {"wi": dense_init(gen, cfg.d_model, cfg.d_ff, pd, device),
+            "wg": dense_init(gen, cfg.d_model, cfg.d_ff, pd, device),
+            "wo": dense_init(gen, cfg.d_ff, cfg.d_model, pd, device)}
+
+
+def swiglu_apply(params: Params, x: torch.Tensor,
+                 cfg: ModelConfig) -> torch.Tensor:
+    ct = cfg.compute_dtype
+    h = torch.nn.functional.silu(x @ params["wg"].to(ct)) \
+        * (x @ params["wi"].to(ct))
+    return h @ params["wo"].to(ct)
+
+
+# ------------------------------------------------------------- embeddings ---
+
+def embedding_init(gen, cfg: ModelConfig, device) -> Params:
+    p = {"tok": _normal(gen, (cfg.vocab, cfg.d_model), 0.02,
+                        cfg.param_dtype, device)}
+    if not cfg.tie_embeddings:
+        p["head"] = dense_init(gen, cfg.d_model, cfg.vocab, cfg.param_dtype,
+                               device)
+    return p
+
+
+def embed(params: Params, tokens: torch.Tensor,
+          cfg: ModelConfig) -> torch.Tensor:
+    return params["tok"][tokens.long()].to(cfg.compute_dtype)
+
+
+def unembed(params: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    ct = cfg.compute_dtype
+    if cfg.tie_embeddings:
+        return x @ params["tok"].to(ct).T
+    return x @ params["head"].to(ct)

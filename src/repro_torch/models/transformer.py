@@ -1,0 +1,288 @@
+"""Decoder-only MiTA transformer LM (port of ``repro.models.transformer``,
+dense FFN only).
+
+Parameters are the reference's pytree as a nested dict of tensors, with
+per-layer parameters stacked on axis 0; the reference's ``lax.scan`` over
+layers is a Python loop over that axis.  Decode states are stacked the same
+way, and each layer works on views of its slice (updates are in place).
+
+Entry points: ``lm_forward`` and ``lm_prefill`` (full sequence),
+``lm_decode_step`` + ``lm_finalize_states`` (the static path's monolithic
+caches), ``lm_paged_decode_step`` (the serving engine's paged pools).
+"""
+
+from __future__ import annotations
+
+from typing import Any, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.core import mita_decode as mdec
+from repro_torch.models import modules as nn
+
+Params = dict[str, Any]
+
+
+def _no_moe(cfg: nn.ModelConfig) -> None:
+    if cfg.n_experts:
+        raise NotImplementedError(
+            "MoE FFN layers are not ported yet (ROADMAP A.12)")
+
+
+def layer_params(tree, i: int):
+    """Layer ``i`` of a tree of stacked per-layer tensors (views)."""
+    if isinstance(tree, dict):
+        return {k: layer_params(v, i) for k, v in tree.items()}
+    return tree[i]
+
+
+def layer_state(states, i: int):
+    """Layer ``i`` of stacked decode states: a state of views."""
+    return type(states)(*(x[i] for x in states))
+
+
+def _stack_states(per_layer: list):
+    return type(per_layer[0])(*(torch.stack(xs) for xs in zip(*per_layer)))
+
+
+# ------------------------------------------------------------------ block ---
+
+def block_init(gen, cfg: nn.ModelConfig, device) -> Params:
+    _no_moe(cfg)
+    pd = cfg.param_dtype
+    return {"ln1": torch.zeros((cfg.d_model,), dtype=pd, device=device),
+            "ln2": torch.zeros((cfg.d_model,), dtype=pd, device=device),
+            "attn": nn.attention_init(gen, cfg, device),
+            "ffn": nn.swiglu_init(gen, cfg, device)}
+
+
+def block_apply(params: Params, x, cfg: nn.ModelConfig, positions):
+    h = nn.attention_apply(params["attn"], nn.rms_norm(x, params["ln1"]),
+                           cfg, positions)
+    x = x + h
+    return x + nn.swiglu_apply(params["ffn"], nn.rms_norm(x, params["ln2"]),
+                               cfg)
+
+
+def lm_init(gen: torch.Generator, cfg: nn.ModelConfig,
+            device="cuda") -> Params:
+    """Random parameters with the reference's shapes, dtypes and init
+    scales (``transformer.lm_init``), drawn from ``gen``."""
+    _no_moe(cfg)
+    emb = nn.embedding_init(gen, cfg, device)
+    blocks = [block_init(gen, cfg, device) for _ in range(cfg.n_layers)]
+
+    def stack(trees):
+        if isinstance(trees[0], dict):
+            return {k: stack([t[k] for t in trees]) for k in trees[0]}
+        return torch.stack(trees)
+
+    return {"emb": emb, "blocks": stack(blocks),
+            "ln_f": torch.zeros((cfg.d_model,), dtype=cfg.param_dtype,
+                                device=device)}
+
+
+def lm_backbone(params: Params, x, cfg: nn.ModelConfig, positions=None):
+    """Run the layer stack on embeddings x: [B, N, D]."""
+    if positions is None:
+        positions = torch.arange(x.shape[1], device=x.device)
+    for i in range(cfg.n_layers):
+        x = block_apply(layer_params(params["blocks"], i), x, cfg, positions)
+    return nn.rms_norm(x, params["ln_f"])
+
+
+def lm_forward(params: Params, tokens, cfg: nn.ModelConfig):
+    """tokens: [B, N] -> logits [B, N, V]."""
+    _no_moe(cfg)
+    x = nn.embed(params["emb"], tokens, cfg)
+    return nn.unembed(params["emb"], lm_backbone(params, x, cfg), cfg)
+
+
+def _decode_cfg(cfg: nn.ModelConfig) -> mdec.DecodeConfig:
+    return mdec.DecodeConfig(window=cfg.attn.window, k=cfg.attn.k,
+                             s=cfg.attn.s,
+                             external_finalize=cfg.attn.external_finalize)
+
+
+def lm_prefill(params: Params, tokens, cfg: nn.ModelConfig, capacity: int):
+    """Forward over the prompt, building per-layer decode states.
+    Returns (last_logits [B, V], stacked states)."""
+    _no_moe(cfg)
+    n = tokens.shape[1]
+    positions = torch.arange(n, device=tokens.device)
+    x = nn.embed(params["emb"], tokens, cfg)
+    dcfg = _decode_cfg(cfg)
+    states = []
+    for i in range(cfg.n_layers):
+        lp = layer_params(params["blocks"], i)
+        q, k, v = nn._qkv(lp["attn"], nn.rms_norm(x, lp["ln1"]), cfg,
+                          positions)
+        states.append(mdec.mita_prefill_state(q, k, v, dcfg, capacity))
+        x = block_apply(lp, x, cfg, positions)
+    x = nn.rms_norm(x, params["ln_f"])
+    return nn.unembed(params["emb"], x[:, -1], cfg), _stack_states(states)
+
+
+# ----------------------------------------------------------------- decode ---
+
+def init_decode_states(cfg: nn.ModelConfig, batch: int, capacity: int,
+                       device="cuda"):
+    one = [mdec.init_decode_state(batch, cfg.n_kv, cfg.dh, capacity,
+                                  _decode_cfg(cfg), dtype=cfg.compute_dtype,
+                                  device=device)
+           for _ in range(cfg.n_layers)]
+    return _stack_states(one)
+
+
+def lm_finalize_states(states, cfg: nn.ModelConfig):
+    """External-mode landmark finalize for every layer (in place)."""
+    dcfg = _decode_cfg(cfg)
+    for i in range(cfg.n_layers):
+        mdec.mita_finalize_if_due(layer_state(states, i), dcfg)
+    return states
+
+
+def _project(params: Params, x, cfg: nn.ModelConfig, pos):
+    """One-token q [S, Hkv, G, dh], k/v [S, Hkv, dh] at positions ``pos``
+    (a scalar or [S])."""
+    b = x.shape[0]
+    kv, g, dh = cfg.n_kv, cfg.group, cfg.dh
+    ct = cfg.compute_dtype
+    q = (x @ params["wq"].to(ct)).reshape(b, kv, g, dh)
+    k = (x @ params["wk"].to(ct)).reshape(b, kv, dh)
+    v = (x @ params["wv"].to(ct)).reshape(b, kv, dh)
+    if cfg.qk_norm:
+        q = nn.rms_norm(q, params["q_norm"], cfg.norm_eps)
+        k = nn.rms_norm(k, params["k_norm"], cfg.norm_eps)
+    if pos.ndim == 0:
+        q = nn.rope(q[..., None, :], pos[None], cfg.rope_theta)[..., 0, :]
+        k = nn.rope(k[..., None, :], pos[None], cfg.rope_theta)[..., 0, :]
+    else:
+        q = nn.rope(q[..., None, :], pos[:, None, None, None],
+                    cfg.rope_theta)[..., 0, :]
+        k = nn.rope(k[..., None, :], pos[:, None, None],
+                    cfg.rope_theta)[..., 0, :]
+    return q, k, v
+
+
+def attention_decode(params: Params, x, state, cfg: nn.ModelConfig, pos):
+    """One-token attention on a monolithic cache. x: [B, D]; pos scalar."""
+    q, k, v = _project(params, x, cfg, pos)
+    o, state = mdec.mita_decode_step(state, q, k, v, _decode_cfg(cfg))
+    o = o.reshape(x.shape[0], cfg.n_heads * cfg.dh)
+    return o @ params["wo"].to(cfg.compute_dtype), state
+
+
+def _ffn_residual(params: Params, x, cfg: nn.ModelConfig):
+    return x + nn.swiglu_apply(params["ffn"], nn.rms_norm(x, params["ln2"]),
+                               cfg)
+
+
+def block_decode(params: Params, x, state, cfg: nn.ModelConfig, pos):
+    h, state = attention_decode(params["attn"],
+                                nn.rms_norm(x, params["ln1"]), state, cfg,
+                                pos)
+    return _ffn_residual(params, x + h, cfg), state
+
+
+def lm_decode_step(params: Params, states, token, pos, cfg: nn.ModelConfig):
+    """token: [B]; pos: scalar position.  Returns (logits [B, V], states
+    with t + 1); the caches are updated in place."""
+    _no_moe(cfg)
+    pos = torch.as_tensor(pos, device=token.device)
+    x = nn.embed(params["emb"], token, cfg)
+    for i in range(cfg.n_layers):
+        x, _ = block_decode(layer_params(params["blocks"], i), x,
+                            layer_state(states, i), cfg, pos)
+    logits = nn.unembed(params["emb"], nn.rms_norm(x, params["ln_f"]), cfg)
+    return logits, states._replace(t=states.t + 1)
+
+
+# ---------------------------------------------------------- paged decode ---
+
+def init_paged_states(cfg: nn.ModelConfig, n_slots: int, n_pages: int,
+                      pages_per_slot: int, device="cuda"):
+    """Stacked per-layer paged pools (layer axis 0)."""
+    if cfg.attn.backend not in ("mita", "mita_ref"):
+        raise ValueError("paged decode states require a MiTA attention "
+                         "backend (the pool layout is landmark/expert aware)")
+    one = [mdec.init_paged_state(cfg.n_kv, cfg.dh, n_pages, n_slots,
+                                 pages_per_slot, _decode_cfg(cfg),
+                                 dtype=cfg.compute_dtype, device=device)
+           for _ in range(cfg.n_layers)]
+    return _stack_states(one)
+
+
+def attention_decode_paged(params: Params, x, state, cfg: nn.ModelConfig,
+                           pos, page_table, active):
+    """One-token attention over the paged pool. x: [S, D]; pos: [S]."""
+    q, k, v = _project(params, x, cfg, pos)
+    o, state = mdec.mita_paged_decode_step(state, q, k, v, page_table, pos,
+                                           active, _decode_cfg(cfg))
+    o = o.reshape(x.shape[0], cfg.n_heads * cfg.dh)
+    return o @ params["wo"].to(cfg.compute_dtype), state
+
+
+def block_decode_paged(params: Params, x, state, cfg: nn.ModelConfig, pos,
+                       page_table, active):
+    h, state = attention_decode_paged(
+        params["attn"], nn.rms_norm(x, params["ln1"]), state, cfg, pos,
+        page_table, active)
+    return _ffn_residual(params, x + h, cfg), state
+
+
+def sample_tokens(logits, temperature=None) -> torch.Tensor:
+    """Greedy first-index argmax per slot ([S, V] -> [S] int32), NaN read
+    as +inf so a NaN row picks its first NaN, like ``np.argmax``.
+    ``temperature`` > 0 needs the threefry sampler, not ported yet."""
+    if temperature is not None and (np.asarray(temperature) > 0).any():
+        raise NotImplementedError(
+            "temperature sampling needs the threefry / fold_in / gumbel "
+            "replica (ROADMAP A.6); only greedy decoding is ported")
+    v = logits.shape[-1]
+    x = torch.where(torch.isnan(logits), torch.inf, logits)
+    mx = x.amax(dim=-1, keepdim=True)
+    ids = torch.arange(v, dtype=torch.int32, device=logits.device)
+    return torch.where(x == mx, ids, v).amin(dim=-1).to(torch.int32)
+
+
+def lm_paged_decode_step(params: Params, states, token, pos, page_table,
+                         active, cfg: nn.ModelConfig,
+                         due: Optional[np.ndarray] = None,
+                         temperature: Optional[np.ndarray] = None):
+    """token, pos: [S]; page_table: [S, M]; active: [S] bool.  Returns
+    (logits [S, V], states), or, with the per-slot host ``temperature``
+    set, (tokens [S] int32, states) sampled on the device (greedy only).
+    Pools update in place.
+
+    ``due`` (external finalize): HOST [S] bool — slots whose last completed
+    window still needs its landmark.  The branch is taken once per step in
+    Python on this host value, never by reading a device flag per layer."""
+    _no_moe(cfg)
+    dcfg = _decode_cfg(cfg)
+    due_dev = None
+    if due is not None and np.asarray(due).any():
+        due_dev = torch.as_tensor(np.asarray(due, bool), device=token.device)
+    x = nn.embed(params["emb"], token, cfg)
+    for i in range(cfg.n_layers):
+        st = layer_state(states, i)
+        if due_dev is not None:
+            mdec.mita_paged_finalize(st, page_table, pos, due_dev, dcfg)
+        x, _ = block_decode_paged(layer_params(params["blocks"], i), x, st,
+                                  cfg, pos, page_table, active)
+    logits = nn.unembed(params["emb"], nn.rms_norm(x, params["ln_f"]), cfg)
+    if temperature is None:
+        return logits, states
+    return sample_tokens(logits, temperature), states
+
+
+def pack_prefill_into_states(states, prefill_states, slot: int, pages,
+                             cfg: nn.ModelConfig):
+    """Copy per-layer single-request prefill states into a slot's pages."""
+    dcfg = _decode_cfg(cfg)
+    for i in range(cfg.n_layers):
+        mdec.pack_prefill_into_pages(layer_state(states, i),
+                                     layer_state(prefill_states, i), slot,
+                                     pages, dcfg)
+    return states

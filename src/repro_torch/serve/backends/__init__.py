@@ -1,0 +1,130 @@
+"""Serving backends: the `DecodeBackend` protocol behind the scheduler
+(port of ``repro.serve.backends``).
+
+The engine owns requests, slots, pages and time; a backend owns the model
+parameters, the per-slot decode state and every device operation.  This
+slice ports the protocol surface the monolithic-prefill engine calls:
+
+  * ``pages_needed(n)``, ``validate_prompt(n, path)``;
+  * ``prefill_group(...)``, ``slot_filled(slot, n)``, ``decode_step(...)``,
+    ``invalidate()``;
+  * ``stats()`` and ``static_reference(...)`` (the oracle the engine's
+    greedy tokens must equal).
+
+Chunked prefill, the prefix cache and speculation raise
+``NotImplementedError`` until the next slice ports them (ROADMAP B.3).
+"""
+
+from __future__ import annotations
+
+from typing import Any
+
+import numpy as np
+
+from repro_torch.core.mita_decode import window_aligned
+
+ENGINE_STAT_KEYS = frozenset({
+    "backend", "steps", "chunks", "prefill_dispatches", "preemptions",
+    "pages_high_water", "reserve_dips", "prefix_cache_hits",
+    "prefix_cache_misses", "pages_shared", "prefix_tokens_reused",
+    "prefix_cache_pages", "prefix_cache_evictions",
+    "spec_drafted", "spec_accepted", "spec_rollbacks",
+    "rejected", "deadline_expired", "retries", "quarantined",
+    "degradation_level",
+})
+BACKEND_STAT_KEYS = frozenset({
+    "decode_dispatches", "prefill_kernel_fallbacks",
+    "paged_kernel_fallbacks", "finalize_kernel_fallbacks",
+})
+STATS_SCHEMA = ENGINE_STAT_KEYS | BACKEND_STAT_KEYS
+
+NEXT_SLICE = ("not ported yet: chunked prefill, preemption, the prefix "
+              "cache and speculative decoding come with the chunk-prefill "
+              "kernel in the next slice (ROADMAP B.3)")
+
+
+def sample_host(logits, rid: int, index: int, temperature: float) -> int:
+    """The host sampling rule: greedy first-index argmax.  Temperature
+    sampling needs the threefry replica (ROADMAP A.6)."""
+    if temperature > 0.0:
+        raise NotImplementedError(
+            "temperature sampling needs the threefry / fold_in / gumbel "
+            "replica (ROADMAP A.6); only greedy decoding is ported")
+    return int(np.argmax(logits))
+
+
+class BackendBase:
+    """Shared defaults: window-quantised page math, no-op lifecycle hooks.
+    Subclasses set ``name`` and ``window`` and implement prefill/decode."""
+
+    name = "backend"
+
+    def __init__(self, params: Any, cfg: Any, ecfg: Any):
+        self.params = params
+        self.ecfg = ecfg
+        self.decode_dispatches = 0
+        self._dirty = True
+
+    def pages_needed(self, n_tokens: int) -> int:
+        return window_aligned(n_tokens, self.window) // self.window
+
+    def validate_prompt(self, n: int, path: str) -> None:
+        pass
+
+    def slot_filled(self, slot: int, n_tokens: int) -> None:
+        pass
+
+    def prefill_chunk(self, *args, **kwargs):
+        raise NotImplementedError(f"{self.name} prefill_chunk: {NEXT_SLICE}")
+
+    def prefill_chunks(self, *args, **kwargs):
+        raise NotImplementedError(f"{self.name} prefill_chunks: {NEXT_SLICE}")
+
+    def prefix_snapshot(self, slot: int, n_windows: int) -> list:
+        raise NotImplementedError(f"{self.name} prefix cache: {NEXT_SLICE}")
+
+    def attach_prefix(self, slot: int, payloads: list) -> None:
+        raise NotImplementedError(f"{self.name} prefix cache: {NEXT_SLICE}")
+
+    def draft_steps(self, *args, **kwargs):
+        raise NotImplementedError(f"{self.name} speculation: {NEXT_SLICE}")
+
+    def verify_step(self, *args, **kwargs):
+        raise NotImplementedError(f"{self.name} speculation: {NEXT_SLICE}")
+
+    def rollback(self, commits, active) -> None:
+        raise NotImplementedError(f"{self.name} speculation: {NEXT_SLICE}")
+
+    def invalidate(self) -> None:
+        self._dirty = True
+
+    def stats(self) -> dict:
+        # nothing falls back to a plain path on the card, so the fallback
+        # counters of the schema are always 0
+        return {"decode_dispatches": self.decode_dispatches,
+                "prefill_kernel_fallbacks": 0,
+                "paged_kernel_fallbacks": 0,
+                "finalize_kernel_fallbacks": 0}
+
+
+def resolve(params: Any, cfg: Any, ecfg: Any, device=None) -> BackendBase:
+    """Default backend for a bare `ModelConfig`: the paged MiTA backend."""
+    attn = getattr(getattr(cfg, "attn", None), "backend", None)
+    if attn in ("mita", "mita_ref"):
+        from repro_torch.serve.backends.mita import MiTABackend
+        return MiTABackend(params, cfg, ecfg, device=device)
+    raise ValueError(f"no serving backend for attention backend {attn!r}")
+
+
+def for_arch(arch: Any, params: Any, ecfg: Any, device=None) -> BackendBase:
+    """Backend for a registry `ArchConfig` (dense family only so far)."""
+    if arch.family == "dense":
+        from repro_torch.serve.backends.mita import MiTABackend
+        return MiTABackend(params, arch.model, ecfg, device=device)
+    raise NotImplementedError(
+        f"family {arch.family!r} has no ported serving backend "
+        "(ROADMAP A.10 / A.12)")
+
+
+__all__ = ["BackendBase", "resolve", "for_arch", "sample_host",
+           "ENGINE_STAT_KEYS", "BACKEND_STAT_KEYS", "STATS_SCHEMA"]

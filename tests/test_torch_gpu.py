@@ -1,0 +1,150 @@
+"""The port's CUDA kernels against their plain PyTorch versions on the card
+(marker ``gpu``).  This file imports neither JAX nor the JAX package, so
+it runs where only PyTorch is installed:
+
+    PYTHONPATH=src python -m pytest --noconftest -q -m gpu tests/test_torch_gpu.py
+
+Without a CUDA device every test skips (decided in a fixture).
+Tolerances: 1e-5 (float32 pools) and 2e-2 (bfloat16 pools), absolute and
+relative.  With bfloat16 pools the plain version runs on float32 copies of
+the same bfloat16 values: the kernel computes in float32, and the plain
+version's bfloat16 products would round scores enough to flip routing and
+top-k decisions.  Pools outside the scratch row are exact, and so are the
+finalize's expert rows with float32 pools.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core import mita_decode as mdec
+from repro_torch.kernels import mita_paged_attn as mpa
+from repro_torch.kernels import mita_paged_finalize as mpf
+from repro_torch.kernels import ops
+
+W, K = 8, 8
+TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+FIN_FIELDS = ("lm_q", "lm_v", "expert_idx", "expert_valid", "q_sum")
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+def _state(seed, dtype, dev, s_n=4, m_slot=4, hkv=2, d=16, g=2):
+    rng = np.random.default_rng(seed)
+    n_pages = s_n * m_slot + 2
+    table = rng.permutation(n_pages)[: s_n * m_slot].reshape(s_n, m_slot)
+    cfg = mdec.DecodeConfig(window=W, k=K, external_finalize=True)
+    st = mdec.init_paged_state(hkv, d, n_pages, s_n, m_slot, cfg, dtype, dev)
+
+    def rnd(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32)).to(dev)
+
+    for x in (st.k_pool, st.v_pool, st.lm_q, st.lm_v, st.q_sum):
+        x.copy_(rnd(*x.shape))
+    st.expert_idx.copy_(torch.from_numpy(
+        table[:, None, :, None] * W
+        + rng.integers(0, W, size=(s_n, hkv, m_slot, K))))
+    st.expert_valid.copy_(torch.from_numpy(
+        rng.random((s_n, hkv, m_slot, K)) > 0.3))
+    pt = torch.from_numpy(table.astype(np.int32)).to(dev)
+    q, kn, vn = (rnd(s_n, hkv, g, d).to(dtype), rnd(s_n, hkv, d).to(dtype),
+                 rnd(s_n, hkv, d).to(dtype))
+    return st, pt, q, kn, vn
+
+
+def _clone(st, dtype=None):
+    """Copy of a state; ``dtype`` recasts the floating fields (the plain
+    reference of a bfloat16 run computes on float32 copies)."""
+    return type(st)(*(x.to(dtype, copy=True)
+                      if dtype is not None and x.is_floating_point()
+                      else x.clone() for x in st))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n_route,fuse", [(1, True), (2, True), (1, False)])
+def test_paged_attention_kernel_vs_plain(cuda_device, dtype, n_route, fuse):
+    st, pt, q, kn, vn = _state(11, dtype, cuda_device)
+    t = torch.tensor([5, 17, 0, 31], dtype=torch.int32, device=cuda_device)
+    act = torch.tensor([True, True, False, True], device=cuda_device)
+    if not fuse:    # the caller appends first, as the inline mode does
+        rows = torch.where(act, pt[torch.arange(4), t // W].long() * W
+                           + t % W, st.k_pool.shape[0] - 1)
+        st.k_pool[rows], st.v_pool[rows] = kn, vn
+    a, b = _clone(st, torch.float32), _clone(st)
+    args = lambda s, x: (x(q), x(kn), x(vn), s.lm_q,  # noqa: E731
+                         s.lm_v, s.expert_idx, s.expert_valid, s.k_pool,
+                         s.v_pool, pt, t, act, t // W)
+    ref = mpa.paged_attention_plain(*args(a, lambda x: x.float()), window=W,
+                                    n_route=n_route, fuse_append=fuse)
+    ops.reset_launch_counts()
+    out = ops.paged_decode_attend(*args(b, lambda x: x), window=W,
+                                  n_route=n_route, fuse_append=fuse)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["mita_paged_attention"] == 1
+    tol = TOL[dtype]
+    torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=tol)
+    assert torch.equal(a.k_pool[:-1], b.k_pool[:-1].float())
+    assert torch.equal(a.v_pool[:-1], b.v_pool[:-1].float())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("t_new,due", [
+    ((8, 16, 0, 29), (True, True, False, False)),
+    ((32, 8, 24, 5), (True, True, True, False)),
+])
+def test_finalize_kernel_vs_plain(cuda_device, dtype, t_new, due):
+    st, pt, _, _, _ = _state(9, dtype, cuda_device)
+    td = torch.tensor(t_new, dtype=torch.int32, device=cuda_device)
+    dd = torch.tensor(due, device=cuda_device)
+    a, b = _clone(st, torch.float32), _clone(st)
+    fargs = lambda s: (s.q_sum, s.lm_q, s.lm_v, s.expert_idx,  # noqa: E731
+                       s.expert_valid, s.k_pool, s.v_pool, pt, td, dd)
+    mpf.paged_finalize_plain(*fargs(a), window=W, k_width=K)
+    ops.reset_launch_counts()
+    ops.paged_finalize(*fargs(b), window=W, k_width=K)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["mita_paged_finalize_fused"] == 1
+    tol = TOL[dtype]
+    for f in ("lm_q", "lm_v", "q_sum"):
+        torch.testing.assert_close(getattr(b, f).float(),
+                                   getattr(a, f).float(), atol=tol, rtol=tol)
+    if dtype == torch.float32:   # bf16 rounds q_lm before scoring
+        assert torch.equal(b.expert_idx, a.expert_idx)
+        assert torch.equal(b.expert_valid, a.expert_valid)
+    nd = ~dd
+    for f in FIN_FIELDS:
+        assert torch.equal(getattr(b, f)[nd], getattr(st, f)[nd]), f
+
+
+@pytest.mark.gpu
+def test_finalize_kernel_workspace_path(cuda_device):
+    """A context whose score row exceeds the shared memory a block can use
+    runs through the workspace path and still matches the plain version."""
+    dtype = torch.float32
+    st, pt, _, _, _ = _state(5, dtype, cuda_device, s_n=2, m_slot=4, d=16)
+    w_big = 16384                    # ctx = 4 * 16384 floats = 256 KiB
+    n_pages = pt.max().item() + 1
+    rows = n_pages * w_big + 1
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    kp = torch.randn((rows, 2, 16), generator=g, device=cuda_device)
+    vp = torch.randn((rows, 2, 16), generator=g, device=cuda_device)
+    st = st._replace(k_pool=kp, v_pool=vp)
+    td = torch.tensor([2 * w_big, 3 * w_big], dtype=torch.int32,
+                      device=cuda_device)
+    dd = torch.tensor([True, True], device=cuda_device)
+    a, b = _clone(st), _clone(st)
+    for fn, s in ((mpf.paged_finalize_plain, a),
+                  (mpf.mita_paged_finalize_fused, b)):
+        fn(s.q_sum, s.lm_q, s.lm_v, s.expert_idx, s.expert_valid, s.k_pool,
+           s.v_pool, pt, td, dd, window=w_big, k_width=K)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(b.lm_v, a.lm_v, atol=1e-5, rtol=1e-5)
+    assert torch.equal(b.expert_idx, a.expert_idx)
