@@ -6,20 +6,31 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
   1. environment: card name and power limit, torch / CUDA versions, the
      kernels' build (seconds, and each kernel's registers / shared memory /
      spills from ``ptxas -v``);
-  2. kernel vs plain: both CUDA kernels against their plain PyTorch
-     versions at the serving shapes of qwen3-0.6b (S=4, Hkv=8, G=2, d=128,
-     w=K=128, M=6), float32 and bfloat16 pools, shuffled page table, ragged
-     t, an inactive and a non-due slot; timed with CUDA events;
-  3. parity serve: qwen3-0.6b at full width and depth in float32 (TF32
-     off), random weights from a seed, 8 requests (batch 4, prompt 512,
-     gen 160) through the continuous engine, every greedy token held to
-     the static path's (a divergence is accepted only where the static
-     path's two best logits lie within 1e-3);
-  4. production serve: the same trace at the production dtypes (bf16
-     compute) through ``repro_torch.launch.serve.main``, with the kernel
-     launch counters set to 0 just before and read just after;
-  5. summary: one JSON line of per-kernel results, then the final line
-     ``{"ok": true, "device": {...}}``.
+  2. kernel vs plain, at the serving shapes of qwen3-0.6b (S=P=4, Hkv=8,
+     G=2, d=128, w=K=128, M=6), float32 and bfloat16 pools, shuffled page
+     tables, timed with CUDA events:
+       * paged decode and paged finalize (ragged t, an inactive and a
+         non-due slot);
+       * chunk prefill (nc=256): a fresh, a resumed, a non-aligned
+         (n_train 320) and an inactive row, then two recompute rows
+         (n_train < t0 + n_valid) and a fresh non-aligned row; outputs,
+         pools, both landmark systems, both query sums and the expert rows
+         (exact in float32);
+  3. parity (float32, TF32 off, 28 layers, random weights from a seed):
+     8 requests (batch 4, prompt 512, gen 160) through the monolithic and
+     the chunked (prefill chunk 256) engine, and 4 requests of the
+     non-aligned prompt length 96 through the chunked engine, every greedy
+     token held to the static path's (a divergence is accepted only where
+     the static path's two best logits lie within 1e-3); a preemption
+     round trip (the victim's tokens equal its unpreempted run) and a
+     prefix-cache run (hits >= 1, tokens equal to the cold engine);
+  4. production serves: the same trace at the production dtypes (bf16
+     compute) through ``repro_torch.launch.serve.main``, monolithic and
+     then chunked (``--prefill-chunk 256``, the slice's main path), the
+     kernel launch counters set to 0 just before each and read just after
+     (chunk launches = 28 layers x prefill dispatches);
+  5. summary: one JSON line of per-kernel results (launches from the
+     chunked serve), then the final line ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, printing no result, when no CUDA device is present or the
 repository's ``src/`` is missing.
@@ -28,7 +39,6 @@ repository's ``src/`` is missing.
 from __future__ import annotations
 
 import json
-import math
 import subprocess
 import sys
 import time
@@ -86,7 +96,8 @@ def phase_env():
     _build.build_all()
     print(f"build: {time.perf_counter() - t0:.2f} s "
           f"(per source {_build.BUILD_SECONDS})")
-    for stem in ("mita_paged_attn", "mita_paged_finalize"):
+    for stem in ("mita_paged_attn", "mita_paged_finalize",
+                 "mita_chunk_prefill"):
         for line in _build.ptxas_report(stem).splitlines():
             if any(k in line for k in ("Used", "spill", "Compiling entry")):
                 print(f"ptxas[{stem}] {line.strip()}")
@@ -276,13 +287,203 @@ def phase_kernels():
     return res
 
 
+# ------------------------------------------------------- phase 2 (chunk) ---
+
+NC = 256                            # prefill chunk of the serving cell
+# rows of the two chunk calls: (t0, n_valid, n_train, active)
+CHUNK_SETS = {
+    # a fresh chunk, a resumed chunk, the last chunk of a non-aligned
+    # prompt (n_train 320: m = 2, w' = 160) and an inactive row
+    "serve": [(0, 256, 512, True), (256, 256, 512, True),
+              (256, 64, 320, True), (256, 256, 512, False)],
+    # preemption recompute (prompt 300 + generated, and prompt 384 +
+    # generated), a fresh non-aligned chunk and an inactive row
+    "recompute": [(256, 256, 300, True), (256, 256, 384, True),
+                  (0, 256, 320, True), (0, 0, 1, False)],
+}
+
+
+def chunk_inputs(dtype, rows, seed):
+    """Random compact row state over a shuffled page table, at the serving
+    shapes of qwen3-0.6b (P=4, Hkv=8, G=2, nc=256, d=128, M=6, K=128)."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    dev = "cuda"
+    p_rows = len(rows)
+    n_pages = 2 * p_rows * M
+    table = torch.randperm(n_pages, generator=g, device=dev)[
+        : p_rows * M].reshape(p_rows, M).to(torch.int32)
+
+    def rnd(*shape, scale=1.0, dt=dtype):
+        return (torch.randn(shape, generator=g, device=dev) * scale).to(dt)
+
+    st = dict(
+        lm_q=rnd(p_rows, HKV, M, D), lm_v=rnd(p_rows, HKV, M, D),
+        expert_idx=(table.long()[:, None, :, None] * W + torch.randint(
+            0, W, (p_rows, HKV, M, K), generator=g, device=dev)).to(
+                torch.int32),
+        expert_valid=torch.rand((p_rows, HKV, M, K), generator=g,
+                                device=dev) > 0.2,
+        q_sum=rnd(p_rows, HKV, D, scale=W, dt=torch.float32),
+        pre_lm_q=rnd(p_rows, HKV, M, D),
+        pre_q_sum=rnd(p_rows, HKV, D, scale=W, dt=torch.float32))
+    rows_total = n_pages * W + 1
+    pools = (rnd(rows_total, HKV, D), rnd(rows_total, HKV, D))
+    q = rnd(p_rows, HKV, G, NC, D)
+    k = rnd(p_rows, HKV, NC, D)
+    v = rnd(p_rows, HKV, NC, D)
+    t0, nv, ntr, act = (torch.tensor(c, device=dev) for c in zip(*rows))
+    sched = (table, t0.to(torch.int32), nv.to(torch.int32),
+             ntr.to(torch.int32), act.to(torch.bool))
+    return q, k, v, st, pools, sched
+
+
+def chunk_bound(rows, dtype):
+    """Least bytes and operations of one chunk call on these rows: each
+    input the function needs read once (the chunk, the context rows before
+    t0, the rows' state), each output written once (appended rows, the
+    output, the state); operations of the landmarks the chunk builds and
+    of every valid position's shared, routed and local branches."""
+    es = torch.tensor([], dtype=dtype).element_size()
+    state = 2 * HKV * (3 * M * D * es + M * K * 5 + 2 * D * 4)
+    nbytes = 0
+    ops = 0
+    for t0, nv, ntr, act in rows:
+        if not act:
+            continue
+        new_end = t0 + nv
+        m_tr = ntr // W
+        m_a = max(m_tr, 1)
+        w_a = max(ntr // m_a, 1)
+        nbytes += HKV * (G * nv * D * es * 2       # q in, out
+                         + 2 * nv * D * es * 2     # k, v in; pool rows out
+                         + 2 * t0 * D * es) + state
+        for li in range(M):
+            ends_b = (li + 1) * w_a if li < m_tr else (li + 1) * W
+            if t0 < ends_b <= new_end:              # B commit
+                ops += HKV * 4 * ends_b * D
+            ends_a = (li + 1) * w_a
+            if li < m_a and ends_a <= min(new_end, ntr):   # A products
+                ops += HKV * 4 * ends_a * D
+        for pos in range(t0, new_end):
+            tr = pos < ntr
+            if tr:
+                n_lm = sum(1 for li in range(m_a) if (li + 1) * w_a <= pos + 1)
+                start = (pos // w_a) * w_a
+            else:
+                n_lm = sum(1 for li in range(M) if (li + 1) * W <= pos)
+                start = (pos // W) * W
+            keys = n_lm + (K if n_lm else 0) + (pos - start + 1)
+            ops += HKV * G * 4 * D * keys
+    return nbytes, ops
+
+
+def phase_chunk_kernel():
+    """The chunk-prefill kernel against `chunk_prefill_plain` on both row
+    sets, float32 and bfloat16 pools; timed on the "serve" set."""
+    from repro_torch.kernels import mita_chunk_prefill as mcp
+    fields = ("lm_q", "lm_v", "expert_idx", "expert_valid", "q_sum",
+              "pre_lm_q", "pre_q_sum")
+    kw = dict(window=W, k_width=K, n_route=1, external_finalize=True)
+    res = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        tol = TOL[dtype]
+        errs, mism = [], 0
+        for si, (name, rows) in enumerate(CHUNK_SETS.items()):
+            q, k, v, st, pools, sched = chunk_inputs(dtype, rows, 10 + si)
+            f32 = {n: (x.float() if x.is_floating_point() else x.clone())
+                   for n, x in st.items()}
+            ka, va = (x.float() for x in pools)
+            # float32 copies; landmark queries rounded as the kernel rounds
+            ref = mcp.chunk_prefill_plain(
+                q.float(), k.float(), v.float(), *f32.values(), ka, va,
+                *sched, **kw, round_dtype=dtype)
+            kb, vb = (x.clone() for x in pools)
+            got = mcp.mita_chunk_prefill_fused(
+                q, k, v, *st.values(), kb, vb, *sched, **kw)
+            torch.cuda.synchronize()
+            act = sched[4].cpu().numpy()
+            for r, (t0, nv, ntr, a) in enumerate(rows):
+                if not a:
+                    if got[0][r].abs().max().item() != 0:
+                        fail(f"chunk kernel {name}: inactive row output")
+                    continue
+                a, b = ref[0][r, :, :, :nv].float(), got[0][r, :, :, :nv]
+                errs.append((b.float() - a).abs().max().item())
+                if not torch.allclose(b.float(), a, atol=tol, rtol=tol):
+                    fail(f"chunk kernel {name} {dtype} row {r} output "
+                         f"max_abs_err {errs[-1]}")
+            for pool_a, pool_b, pn in ((ka, kb, "k_pool"), (va, vb, "v_pool")):
+                if not torch.equal(pool_a[:-1], pool_b[:-1].float()):
+                    fail(f"chunk kernel {name} {dtype} {pn} rows differ")
+            for i, f in enumerate(fields):
+                a, b = ref[1 + i], got[1 + i]
+                if f in ("expert_idx", "expert_valid"):
+                    n_bad = int((a.int() != b.int()).sum())
+                    if dtype == torch.float32 and n_bad:
+                        fail(f"chunk kernel {name} {f}: {n_bad} differ")
+                    mism += n_bad if f == "expert_idx" else 0
+                else:
+                    errs.append((a.float() - b.float()).abs().max().item())
+                    if not torch.allclose(b.float(), a.float(), atol=tol,
+                                          rtol=tol):
+                        fail(f"chunk kernel {name} {dtype} {f} max_abs_err "
+                             f"{errs[-1]}")
+                for r in np.nonzero(~act)[0]:
+                    if not torch.equal(b[r].to(st[f].dtype), st[f][r]):
+                        fail(f"chunk kernel {name}: inactive row {f} changed")
+            if name == "serve":
+                kern = lambda: mcp.mita_chunk_prefill_fused(  # noqa: E731
+                    q, k, v, *st.values(), kb, vb, *sched, **kw)
+                plain = lambda: mcp.chunk_prefill_plain(  # noqa: E731
+                    q, k, v, *st.values(), kb, vb, *sched, **kw)
+                ms, pms = cuda_ms(kern, iters=20), cuda_ms(plain, iters=5)
+                bms, by = bound_ms(*chunk_bound(rows, dtype), dtype)
+        err = max(errs)
+        res[dtype] = dict(max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=bms,
+                          bound_by=by, tol=tol, idx_mismatch=mism)
+        print(f"mita_chunk_prefill_fused {dtype}: max_abs_err {err:.3e} "
+              f"(tol {tol}), expert-row mismatches {mism}, kernel {ms:.4f} "
+              f"ms, plain {pms:.4f} ms, bound {bms:.5f} ms ({by})")
+    return res
+
+
 # ------------------------------------------------------------ phase 3 ------
 
+def check_vs_static(params, scfg, done, prompts, gen, capacity, batch,
+                    what):
+    """Hold every request's greedy tokens to `static_generate` on the same
+    prompts, ``batch`` at a time; a divergence is accepted only where the
+    static path's two best logits lie within PARITY_GAP.  Returns the
+    number of near-tie divergences."""
+    from repro_torch.launch.serve import static_generate
+    diverged = 0
+    for g0 in range(0, len(prompts), batch):
+        ref, tm = static_generate(
+            params, scfg, torch.as_tensor(np.stack(prompts[g0:g0 + batch]),
+                                          device="cuda"),
+            gen, capacity=capacity, record_gaps=True)
+        for row in range(ref.shape[0]):
+            diff = np.nonzero(done[g0 + row].tokens != ref[row])[0]
+            if diff.size == 0:
+                continue
+            i = int(diff[0])
+            gap = float(tm["top2_gap"][i, row])
+            print(f"parity ({what}): request {g0 + row} diverges at token "
+                  f"{i}, static top-two gap {gap:.3e}")
+            if gap >= PARITY_GAP:
+                fail(f"{what}: request {g0 + row} diverges at token {i} "
+                     f"where the static top-two gap {gap} >= {PARITY_GAP}")
+            diverged += 1
+    return diverged
+
+
 def phase_parity():
+    """float32 (TF32 off), 28 layers: the monolithic and the chunked engine
+    against the static path, a preemption round trip and a prefix-cache
+    run against their plain runs."""
     import dataclasses
     from repro_torch.configs.registry import get_arch
     from repro_torch.data import DataConfig, synthetic_batch
-    from repro_torch.launch.serve import static_generate
     from repro_torch.models import transformer as tfm
     from repro_torch.serve import EngineConfig, Request, ServingEngine
 
@@ -291,50 +492,106 @@ def phase_parity():
     batch, n, gen, n_req = 4, 512, 160, 8
     params = tfm.lm_init(torch.Generator(device="cuda").manual_seed(0), cfg,
                          "cuda")
-    prompts = synthetic_batch(DataConfig(vocab=cfg.vocab, seq_len=n,
-                                         global_batch=n_req), 0)["tokens"]
+    prompts = list(synthetic_batch(DataConfig(
+        vocab=cfg.vocab, seq_len=n, global_batch=n_req), 0)["tokens"])
     pages = -(-(n + gen) // W)
-    ecfg = EngineConfig(n_slots=batch, pages_per_slot=pages,
-                        n_pages=2 * batch * pages)
-    eng = ServingEngine(params, cfg, ecfg, device="cuda")
-    t0 = time.perf_counter()
-    done = eng.run([Request(rid=i, prompt=prompts[i], max_new_tokens=gen)
-                    for i in range(n_req)])
-    torch.cuda.synchronize()
-    t_eng = time.perf_counter() - t0
-    if [f.reason for f in done] != ["complete"] * n_req:
-        fail(f"parity serve reasons {[f.reason for f in done]}")
-    scfg = eng.backend.cfg            # the engine's finalize mode
-    worst, diverged = math.inf, 0
-    for g0 in range(0, n_req, batch):
-        ref, tm = static_generate(
-            params, scfg, torch.as_tensor(prompts[g0:g0 + batch],
-                                          device="cuda"),
-            gen, capacity=pages * W, record_gaps=True)
-        for row in range(batch):
-            ours = done[g0 + row].tokens
-            diff = np.nonzero(ours != ref[row])[0]
-            if diff.size == 0:
-                continue
-            i = int(diff[0])
-            gap = float(tm["top2_gap"][i, row])
-            print(f"parity: request {g0 + row} diverges at token {i}, "
-                  f"static top-two gap {gap:.3e}")
-            if gap >= PARITY_GAP:
-                fail(f"request {g0 + row} diverges at token {i} where the "
-                     f"static top-two gap {gap} >= {PARITY_GAP}")
-            diverged += 1
-            worst = min(worst, gap)
-    print(f"parity serve (float32, {cfg.n_layers} layers): {n_req} "
-          f"requests x {gen} tokens in {t_eng:.2f} s, {diverged} near-tie "
-          f"divergences, tokens otherwise identical to static_generate")
+
+    def serve(reqs, **kw):
+        ecfg = EngineConfig(n_slots=batch, pages_per_slot=pages,
+                            n_pages=2 * batch * pages, **kw)
+        eng = ServingEngine(params, cfg, ecfg, device="cuda")
+        t0 = time.perf_counter()
+        done = eng.run(reqs)
+        torch.cuda.synchronize()
+        if [f.reason for f in done] != ["complete"] * len(reqs):
+            fail(f"parity serve {kw} reasons {[f.reason for f in done]}")
+        return eng, done, time.perf_counter() - t0
+
+    # monolithic and chunked prefill, prompt 512
+    reqs = [Request(rid=i, prompt=prompts[i], max_new_tokens=gen)
+            for i in range(n_req)]
+    for kw in ({}, {"prefill_chunk": 256}):
+        eng, done, dt = serve(reqs, **kw)
+        what = "chunked 256" if kw else "monolithic"
+        div = check_vs_static(params, eng.backend.cfg, done, prompts, gen,
+                              pages * W, batch, what)
+        print(f"parity serve (float32, {cfg.n_layers} layers, {what}): "
+              f"{n_req} requests x {gen} tokens in {dt:.2f} s, {div} "
+              f"near-tie divergences, tokens otherwise identical to "
+              f"static_generate; stats chunks={eng.stats()['chunks']} "
+              f"prefill_dispatches={eng.stats()['prefill_dispatches']}")
+
+    # a non-aligned prompt length the static path serves (96: m = 1, w' =
+    # 96 < K) through the chunk program
+    short = [p[:96] for p in prompts[:batch]]
+    eng, done, dt = serve([Request(rid=i, prompt=p, max_new_tokens=gen)
+                           for i, p in enumerate(short)], prefill_chunk=256)
+    div = check_vs_static(params, eng.backend.cfg, done, short, gen,
+                          pages * W, batch, "chunked, prompt 96")
+    print(f"parity serve (float32, chunked, prompt 96): {batch} requests x "
+          f"{gen} tokens in {dt:.2f} s, {div} near-tie divergences")
+
+    # preemption: a low-priority request evicted mid-decode by two
+    # high-priority arrivals, rebuilt by recompute-from-prompt
+    pcfg = EngineConfig(n_slots=2, pages_per_slot=pages, n_pages=pages + 2,
+                        prefill_chunk=256)
+    victim = prompts[0]
+    ref = ServingEngine(params, cfg, pcfg, device="cuda").run(
+        [Request(rid=0, prompt=victim, max_new_tokens=gen)])[0].tokens
+    eng = ServingEngine(params, cfg, pcfg, device="cuda")
+    eng.submit(Request(rid=0, prompt=victim, max_new_tokens=gen))
+    for _ in range(8):
+        eng.step()
+    for i in (1, 2):
+        eng.submit(Request(rid=i, prompt=prompts[i][:256], max_new_tokens=32,
+                           priority=5))
+    while eng.step():
+        pass
+    got = next(f for f in eng.finished if f.rid == 0)
+    if eng.stats()["preemptions"] < 1 or got.preemptions < 1:
+        fail("preemption run: no preemption happened")
+    if not np.array_equal(got.tokens, ref):
+        i = int(np.nonzero(got.tokens != ref)[0][0])
+        fail(f"preemption run: the victim's tokens differ from its "
+             f"unpreempted run at token {i}")
+    print(f"preemption run (float32): preemptions "
+          f"{eng.stats()['preemptions']}, the victim's {gen} tokens equal "
+          f"its unpreempted run")
+
+    # prefix cache: B shares A's first 256 tokens and arrives after A's
+    # prefill; the cached engine must emit the cold engine's tokens
+    b_prompt = np.concatenate([prompts[0][:256], prompts[1][256:]])
+    outs = []
+    for cached in (False, True):
+        eng = ServingEngine(params, cfg, EngineConfig(
+            n_slots=2, pages_per_slot=pages, n_pages=4 * pages,
+            prefill_chunk=256, prefix_cache=cached), device="cuda")
+        eng.submit(Request(rid=0, prompt=prompts[0], max_new_tokens=32))
+        while eng.prefilling or not eng.active.any():
+            eng.step()
+        eng.submit(Request(rid=1, prompt=b_prompt, max_new_tokens=32))
+        while eng.step():
+            pass
+        outs.append({f.rid: f.tokens for f in eng.finished})
+    st = eng.stats()
+    if st["prefix_cache_hits"] < 1:
+        fail(f"prefix-cache run: no hit ({st})")
+    for rid in (0, 1):
+        if not np.array_equal(outs[0][rid], outs[1][rid]):
+            fail(f"prefix-cache run: request {rid} tokens differ from the "
+                 "cold engine")
+    print(f"prefix-cache run (float32): hits {st['prefix_cache_hits']}, "
+          f"tokens reused {st['prefix_tokens_reused']}, tokens equal to the "
+          f"cold engine")
     del params, eng
     torch.cuda.empty_cache()
 
 
 # ------------------------------------------------------------ phase 4 ------
 
-def phase_production(card: str):
+def production_serve(card: str, extra: list, what: str):
+    """The bf16 trace through `repro_torch.launch.serve.main`, launch
+    counters set to 0 just before and read just after."""
     from repro_torch.configs.registry import get_arch
     from repro_torch.kernels import ops
     from repro_torch.launch.serve import main
@@ -345,25 +602,43 @@ def phase_production(card: str):
     ops.reset_launch_counts()
     summary = main(["--engine", "continuous", "--batch", "4",
                     "--prompt-len", "512", "--gen", "160", "--requests",
-                    "8", "--device", "cuda"])
+                    "8", "--device", "cuda", *extra])
     torch.cuda.synchronize()
     launches = ops.launch_counts()
     peak = torch.cuda.max_memory_allocated()
     if summary["finished"] != 8 or set(summary["reasons"]) != {"complete"}:
-        fail(f"production serve finished {summary['reasons']}")
+        fail(f"{what} serve finished {summary['reasons']}")
     for rid, toks in summary["tokens"].items():
         if len(toks) != 160 or toks.min() < 0 or toks.max() >= vocab:
-            fail(f"production serve request {rid} tokens malformed")
-    if not all(v > 0 for v in launches.values()):
-        fail(f"a kernel of the main path never launched: {launches}")
+            fail(f"{what} serve request {rid} tokens malformed")
     if launches["mita_paged_attention"] != n_layers * summary["steps"]:
         fail(f"decode launches {launches['mita_paged_attention']} != "
              f"{n_layers} layers x {summary['steps']} steps")
-    print(f"production serve ({card}): {summary['tok_s']:.1f} tok/s, "
+    if launches["mita_paged_finalize_fused"] <= 0:
+        fail(f"{what} serve never launched the finalize kernel")
+    print(f"{what} serve ({card}): {summary['tok_s']:.1f} tok/s, "
           f"TTFT p50 {summary['ttft_p50_s'] * 1e3:.1f} ms p99 "
           f"{summary['ttft_p99_s'] * 1e3:.1f} ms, {summary['steps']} "
-          f"steps, max_memory_allocated {peak / 2**30:.2f} GiB, "
+          f"steps, {summary['stats']['prefill_dispatches']} prefill "
+          f"dispatches, max_memory_allocated {peak / 2**30:.2f} GiB, "
           f"launches {launches}")
+    return summary, launches
+
+
+def phase_production(card: str):
+    """Monolithic, then chunked (prefill chunk 256): the chunked serve is
+    the slice's main path, whose launch counts the summary reports."""
+    from repro_torch.configs.registry import get_arch
+    n_layers = get_arch("qwen3-0.6b").model.n_layers
+    _, mono = production_serve(card, [], "production monolithic")
+    if mono["mita_chunk_prefill_fused"] != 0:
+        fail(f"the monolithic serve launched the chunk kernel: {mono}")
+    summary, launches = production_serve(
+        card, ["--prefill-chunk", "256"], "production chunked")
+    disp = summary["stats"]["prefill_dispatches"]
+    if not 0 < launches["mita_chunk_prefill_fused"] == n_layers * disp:
+        fail(f"chunk launches {launches['mita_chunk_prefill_fused']} != "
+             f"{n_layers} layers x {disp} prefill dispatches (> 0)")
     return launches
 
 
@@ -381,6 +656,7 @@ def main() -> int:
 
     card = phase_env()
     kern = phase_kernels()
+    kern["chunk"] = phase_chunk_kernel()
     phase_parity()
     launches = phase_production(card)
 
@@ -392,7 +668,10 @@ def main() -> int:
              "src/repro/kernels/mita_paged_attn.py:217"),
             ("fin", "mita_paged_finalize_fused",
              "src/repro_torch/csrc/mita_paged_finalize.cu",
-             "src/repro/kernels/mita_paged_finalize.py:119")):
+             "src/repro/kernels/mita_paged_finalize.py:119"),
+            ("chunk", "mita_chunk_prefill_fused",
+             "src/repro_torch/csrc/mita_chunk_prefill.cu",
+             "src/repro/kernels/mita_chunk_prefill.py:428")):
         r, r32 = kern[key][bf], kern[key][torch.float32]
         rows.append({
             "name": name, "route": "cuda", "source": src_file,

@@ -334,3 +334,60 @@ def pack_prefill_into_pages(state: PagedMiTAState, pre: MiTADecodeState,
         dst[slot, :, :m_pre] = src.to(dst.dtype)
     state.q_sum[slot] = pre.q_sum[0]
     return state
+
+
+# ------------------------------------------------- batched chunked prefill --
+#
+# `mita_batched_chunk_prefill` advances one chunk for EVERY prefilling slot
+# in one dispatch: which slots advance, their resume points, chunk validity
+# and the training/decode boundary are data ([P] vectors).  It serves
+# non-window-aligned prompts too, replicating the monolithic head's n//m
+# quirk with two landmark systems per slot: "A" (the training forward's
+# w'-sized prompt windows, `pre_lm_q`/`pre_q_sum`) for prompt positions and
+# "B" (the decode cache, `lm_q`/`q_sum`) for the decode state and for
+# generated positions of a preemption recompute, which see landmarks with
+# decode-time availability.  For window-aligned prompts the two coincide.
+
+
+def _quirk_windows(n_train: torch.Tensor, w: int):
+    """Per-slot prompt landmark structure (m_train, m_a, w_a): the decode
+    cache's w-sized prompt windows, and the training forward's
+    ``m_a = max(1, m_train)`` landmarks over ``w_a = n_train // m_a``-sized
+    windows (w_a == w for window-aligned prompts).  Safe for n_train == 0."""
+    m_train = n_train // w
+    m_a = torch.clamp(m_train, min=1)
+    w_a = torch.clamp(n_train // m_a, min=1)
+    return m_train, m_a, w_a
+
+
+def mita_batched_chunk_prefill(state: PagedMiTAState, q, k, v, page_table,
+                               slots, t0, n_valid, n_train, active,
+                               cfg: DecodeConfig):
+    """Prefill one chunk for every active row in one call.
+
+    q: [P, Hkv, G, nc, d] chunk queries (RoPE'd at ``t0[p] + arange(nc)``);
+    k, v: [P, Hkv, nc, d]; page_table: [P, M] int32, the rows' slots' page
+    tables (pages covering positions < t0 + n_valid allocated); slots: [P]
+    UNIQUE slot ids; t0 / n_valid / n_train: [P] int32 resume point, valid
+    tokens and original prompt length; active: [P] bool.  Inactive rows
+    leave their slot's state and every owned page bit-identical.
+
+    Returns (out [P, Hkv, G, nc, d], state): the rows' slot state is
+    gathered by ``slots``, updated by `kernels.ops.batched_chunk_prefill`
+    (the CUDA kernel on the card, the plain version on the CPU) and
+    scattered back; the pools are appended to in place."""
+    m_slot = page_table.shape[1]
+    idx = slots.long()
+    rows = [x[idx] for x in (state.lm_q, state.lm_v, state.expert_idx,
+                             state.expert_valid, state.q_sum,
+                             state.pre_lm_q, state.pre_q_sum)]
+    (out, lm_q, lm_v, ei, ev, qs, plm, pqs) = ops.batched_chunk_prefill(
+        q, k, v, *rows, state.k_pool, state.v_pool, page_table, t0,
+        n_valid, n_train, active, window=cfg.window, k_width=cfg.k,
+        n_route=min(cfg.s, m_slot), external_finalize=cfg.external_finalize)
+    for dst, src in ((state.lm_q, lm_q), (state.lm_v, lm_v),
+                     (state.expert_idx, ei), (state.expert_valid, ev),
+                     (state.q_sum, qs), (state.pre_lm_q, plm),
+                     (state.pre_q_sum, pqs)):
+        dst[idx] = src.to(dst.dtype)
+    return out, state

@@ -1,7 +1,8 @@
 """Dispatch layer of the port's kernels (port of ``repro.kernels.ops``).
 
-`paged_decode_attend` and `paged_finalize` are the only two points where
-the serving path reaches a kernel.  The tensors decide where it runs:
+`paged_decode_attend`, `paged_finalize` and `batched_chunk_prefill` are
+the only points where the serving path reaches a kernel.  The tensors
+decide where it runs:
 
 * all on the CPU  -> the plain PyTorch version beside the kernel;
 * all on CUDA     -> the hand-written CUDA kernel, or an error is raised;
@@ -91,16 +92,40 @@ def paged_finalize(q_sum, lm_q, lm_v, expert_idx, expert_valid, k_pool,
     fn(*args, window=window, k_width=k_width)
 
 
-def launch_counts() -> dict[str, int]:
-    """Kernel launches per kernel since the last `reset_launch_counts`."""
+def batched_chunk_prefill(q, k, v, lm_q, lm_v, expert_idx, expert_valid,
+                          q_sum, pre_lm_q, pre_q_sum, k_pool, v_pool,
+                          page_table, t0, n_valid, n_train, active, *,
+                          window: int, k_width: int, n_route: int,
+                          external_finalize: bool):
+    """One prefill chunk for every row: appends to the pools in place and
+    returns (out, lm_q, lm_v, expert_idx, expert_valid, q_sum, pre_lm_q,
+    pre_q_sum) for the rows' compact state (``expert_valid`` is int32 from
+    the kernel, bool from the plain version).  The kernel chooses its own
+    tiling; nothing here sizes it.  See
+    `kernels.mita_chunk_prefill.mita_chunk_prefill_fused`."""
+    from repro_torch.kernels import mita_chunk_prefill as mcp
+    args = (q, k, v, lm_q, lm_v, expert_idx, expert_valid, q_sum, pre_lm_q,
+            pre_q_sum, k_pool, v_pool, page_table, t0, n_valid, n_train,
+            active)
+    fn = (mcp.mita_chunk_prefill_fused if _device_of(*args) == "cuda"
+          else mcp.chunk_prefill_plain)
+    return fn(*args, window=window, k_width=k_width, n_route=n_route,
+              external_finalize=external_finalize)
+
+
+def _kernel_modules():
+    from repro_torch.kernels import mita_chunk_prefill as mcp
     from repro_torch.kernels import mita_paged_attn as mpa
     from repro_torch.kernels import mita_paged_finalize as mpf
-    return {"mita_paged_attention": mpa.LAUNCHES,
-            "mita_paged_finalize_fused": mpf.LAUNCHES}
+    return {"mita_paged_attention": mpa, "mita_paged_finalize_fused": mpf,
+            "mita_chunk_prefill_fused": mcp}
+
+
+def launch_counts() -> dict[str, int]:
+    """Kernel launches per kernel since the last `reset_launch_counts`."""
+    return {name: mod.LAUNCHES for name, mod in _kernel_modules().items()}
 
 
 def reset_launch_counts() -> None:
-    from repro_torch.kernels import mita_paged_attn as mpa
-    from repro_torch.kernels import mita_paged_finalize as mpf
-    mpa.LAUNCHES = 0
-    mpf.LAUNCHES = 0
+    for mod in _kernel_modules().values():
+        mod.LAUNCHES = 0

@@ -1,15 +1,19 @@
-"""Where a decode step of the continuous engine spends its time.
+"""Where a decode step (or a chunked-prefill dispatch) of the continuous
+engine spends its time.
 
     PYTHONPATH=src python -m repro_torch.launch.profile_decode \\
-        [--compute-dtype bfloat16|float32] [--steps 20]
+        [--compute-dtype bfloat16|float32] [--steps 20] [--prefill-chunk 256]
 
 Fills the engine's slots with one admission group (qwen3-0.6b, random
 weights from seed 0), warms up, then records ``--steps`` decode steps
-under ``torch.profiler`` (CPU + CUDA).  Prints the wall time per step, the
-share of that time the card was busy (sum of kernel times / wall time),
-and the operators with the largest CUDA and CPU self times; the last line
-is a JSON summary.  Needs a CUDA device unless ``--device cpu``, which
-profiles the plain versions and reports no device time.
+under ``torch.profiler`` (CPU + CUDA).  With ``--prefill-chunk N`` it
+records instead the chunked-prefill dispatches that admit one group of
+``--batch`` prompts (after a warm-up group), and reports per dispatch.
+Prints the wall time per step, the share of that time the card was busy
+(sum of kernel times / wall time), and the operators with the largest
+CUDA and CPU self times; the last line is a JSON summary.  Needs a CUDA
+device unless ``--device cpu``, which profiles the plain versions and
+reports no device time.
 """
 
 from __future__ import annotations
@@ -49,6 +53,7 @@ def main(argv=None) -> dict:
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=512)
     ap.add_argument("--steps", type=int, default=20)
+    ap.add_argument("--prefill-chunk", type=int, default=0)
     args = ap.parse_args(argv)
 
     device = resolve_device(args.device)
@@ -65,11 +70,16 @@ def main(argv=None) -> dict:
     pages = mdec.window_aligned(args.prompt_len + gen, w) // w
     eng = ServingEngine(params, cfg,
                         EngineConfig(n_slots=args.batch, pages_per_slot=pages,
-                                     n_pages=2 * args.batch * pages),
+                                     n_pages=2 * args.batch * pages,
+                                     prefill_chunk=args.prefill_chunk),
                         device=device)
+    chunked = args.prefill_chunk > 0
+    if chunked:                        # a warm-up group, then a fresh one
+        eng.run([Request(rid=100 + i, prompt=prompts[i], max_new_tokens=1)
+                 for i in range(args.batch)])
     for i in range(args.batch):
         eng.submit(Request(rid=i, prompt=prompts[i], max_new_tokens=gen))
-    for _ in range(4):                 # admission + warm-up decode steps
+    for _ in range(0 if chunked else 4):   # admission + warm-up decode
         eng.step()
     cuda = device.type == "cuda"
     acts = [torch.profiler.ProfilerActivity.CPU]
@@ -78,23 +88,34 @@ def main(argv=None) -> dict:
         torch.cuda.synchronize()
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
-        for _ in range(args.steps):
-            eng.step()
+        if chunked:                    # prefill dispatches only, no decode
+            before = eng.prefill_dispatches
+            while eng.waiting or eng.prefilling:
+                eng._admit(time.perf_counter())
+                eng._advance_prefill(time.perf_counter())
+            n = eng.prefill_dispatches - before
+        else:
+            for _ in range(args.steps):
+                eng.step()
+            n = args.steps
         if cuda:
             torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     avgs = prof.key_averages()
     dev_us = sum(_self_device_us(e) for e in avgs)
-    step_ms = wall / args.steps * 1e3
+    step_ms = wall / n * 1e3
     busy = dev_us / 1e3 / (wall * 1e3) if cuda else float("nan")
-    print(f"{args.compute_dtype}: {step_ms:.3f} ms per decode step "
-          f"(batch {args.batch}), device busy {busy:.3f} of the window")
+    what = "prefill dispatch" if chunked else "decode step"
+    print(f"{args.compute_dtype}: {step_ms:.3f} ms per {what} "
+          f"(batch {args.batch}, {n} in the window), device busy "
+          f"{busy:.3f} of the window")
     if cuda:
         print(avgs.table(sort_by="self_cuda_time_total", row_limit=TOP))
     print(avgs.table(sort_by="self_cpu_time_total", row_limit=TOP))
     summary = {"compute_dtype": args.compute_dtype, "batch": args.batch,
-               "step_ms": step_ms, "device_busy_share": busy,
-               "device_ms_per_step": dev_us / 1e3 / args.steps,
+               "prefill_chunk": args.prefill_chunk, "per": what,
+               "count": n, "step_ms": step_ms, "device_busy_share": busy,
+               "device_ms_per_step": dev_us / 1e3 / n,
                "device": (torch.cuda.get_device_name(0) if cuda else "cpu")}
     print(json.dumps(summary))
     return summary

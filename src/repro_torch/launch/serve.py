@@ -6,15 +6,19 @@
     the engine's greedy tokens are held to);
   * ``--engine continuous`` — `repro_torch.serve.ServingEngine` over the
     paged MiTA backend, whose decode step runs the paged-decode and
-    paged-finalize CUDA kernels on the card.
+    paged-finalize CUDA kernels on the card; with ``--prefill-chunk N``
+    prompts are admitted by batched chunked prefill (the chunk-prefill
+    CUDA kernel), with priority preemption and optionally the prefix
+    cache.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-0.6b \\
-      --batch 4 --prompt-len 512 --gen 160 --engine continuous
+      --batch 4 --prompt-len 512 --gen 160 --engine continuous \\
+      [--prefill-chunk 256 [--prefix-cache]]
   (add ``--smoke --device cpu`` for the reduced config on the CPU)
 
-Weights are random, drawn from seed 0.  Supervision (``Supervisor``)
-and the chunked-prefill options of the reference come in later slices.
+Weights are random, drawn from seed 0.  Supervision (``Supervisor``),
+speculative decoding and temperature sampling come in later slices.
 """
 
 from __future__ import annotations
@@ -110,9 +114,24 @@ def main(argv=None) -> dict:
                     default="host",
                     help="continuous: sample on the host from [S, V] logits "
                          "or on the device (downloads [S] int32 tokens)")
+    ap.add_argument("--prefill-chunk", type=int, default=0,
+                    help="continuous: chunked-prefill length in tokens "
+                         "(multiple of the window; 0 = monolithic prefill)")
+    ap.add_argument("--priority", type=int, default=0,
+                    help="continuous: priority class for the generated "
+                         "requests (higher wins admission/preemption)")
+    ap.add_argument("--reserve-pages", type=int, default=0,
+                    help="continuous: pages reserved for decode appends")
+    ap.add_argument("--prefix-cache", action="store_true",
+                    help="continuous+chunked: radix cache of committed "
+                         "window-aligned prompt prefixes — repeated "
+                         "prompts attach cached pages by reference and "
+                         "skip straight to the first unshared chunk")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu")
     args = ap.parse_args(argv)
+    if args.prefix_cache and not args.prefill_chunk:
+        ap.error("--prefix-cache requires --prefill-chunk > 0")
 
     device = resolve_device(args.device)
     arch = get_arch(args.arch, smoke=args.smoke)
@@ -129,7 +148,10 @@ def main(argv=None) -> dict:
     pages = mdec.window_aligned(args.prompt_len + args.gen, w) // w
     ecfg = EngineConfig(n_slots=args.batch, pages_per_slot=pages,
                         n_pages=2 * args.batch * pages,
-                        sample_device=args.sample_device)
+                        prefill_chunk=args.prefill_chunk,
+                        reserve_pages=args.reserve_pages,
+                        sample_device=args.sample_device,
+                        prefix_cache=args.prefix_cache)
     summary = {"engine": args.engine, "arch": arch.arch_id,
                "device": str(device)}
 
@@ -148,7 +170,8 @@ def main(argv=None) -> dict:
         backend = backends.for_arch(arch, params, ecfg, device=device)
         eng = ServingEngine(params, cfg, ecfg, backend=backend)
         reqs = [Request(rid=i, prompt=prompts[i % len(prompts)],
-                        max_new_tokens=args.gen) for i in range(n_req)]
+                        max_new_tokens=args.gen, priority=args.priority)
+                for i in range(n_req)]
         _sync(device)
         start = time.perf_counter()
         done = eng.run(reqs)
@@ -164,7 +187,11 @@ def main(argv=None) -> dict:
               f"({args.prompt_len}+{args.gen}) in {dt:.3f}s — "
               f"{total / dt:.1f} tok/s, ttft p50 {p50 * 1e3:.1f} ms "
               f"p99 {p99 * 1e3:.1f} ms, {eng.steps} fused steps, "
-              f"batch={args.batch}, pages_hw={st['pages_high_water']}, "
+              f"batch={args.batch}, chunks={st['chunks']} in "
+              f"{st['prefill_dispatches']} dispatches, "
+              f"preemptions={st['preemptions']}, "
+              f"pages_hw={st['pages_high_water']}, "
+              f"prefix_hits={st['prefix_cache_hits']}, "
               f"rejected={st['rejected']}")
         summary.update(
             requests=n_req, finished=len(done), tokens_out=total,

@@ -8,7 +8,8 @@ way, and each layer works on views of its slice (updates are in place).
 
 Entry points: ``lm_forward`` and ``lm_prefill`` (full sequence),
 ``lm_decode_step`` + ``lm_finalize_states`` (the static path's monolithic
-caches), ``lm_paged_decode_step`` (the serving engine's paged pools).
+caches), ``lm_paged_decode_step`` and ``lm_prefill_chunks`` (the serving
+engine's paged pools).
 """
 
 from __future__ import annotations
@@ -275,6 +276,48 @@ def lm_paged_decode_step(params: Params, states, token, pos, page_table,
     if temperature is None:
         return logits, states
     return sample_tokens(logits, temperature), states
+
+
+def _chunk_block_body(lp: Params, h, st, cfg: nn.ModelConfig, positions,
+                      rows: tuple):
+    """Per-layer body of the chunk-prefill forward: norm -> qkv -> batched
+    paged chunk attention over ``rows`` = (page_table, slots, t0, n_valid,
+    n_train, job_active) -> output projection -> FFN residual.  The
+    layer's state ``st`` is updated in place."""
+    b, nc, _ = h.shape
+    q, k, v = nn._qkv(lp["attn"], nn.rms_norm(h, lp["ln1"]), cfg, positions)
+    o, _ = mdec.mita_batched_chunk_prefill(st, q, k[:, :, 0], v[:, :, 0],
+                                           *rows, _decode_cfg(cfg))
+    o = torch.movedim(o, 3, 1).reshape(b, nc, cfg.n_heads * cfg.dh)
+    h = h + o @ lp["attn"]["wo"].to(cfg.compute_dtype)
+    return _ffn_residual(lp, h, cfg)
+
+
+def lm_prefill_chunks(params: Params, states, tokens, job_active,
+                      page_table, slots, t0, n_valid, n_train,
+                      cfg: nn.ModelConfig):
+    """Prefill one chunk for EVERY active prefilling row in one call.
+
+    tokens: [P, nc] int32 (zero-padded past each row's ``n_valid``);
+    job_active: [P] bool; page_table: [P, M] int32; slots: [P] UNIQUE slot
+    ids; t0 / n_valid / n_train: [P] int32 (see
+    `core.mita_decode.mita_batched_chunk_prefill`).  Returns (logits
+    [P, V] at each row's position ``t0 + n_valid - 1``, states); the
+    stacked pools and the rows' slot state are updated in place, one
+    chunk-prefill call per layer."""
+    _no_moe(cfg)
+    nc = tokens.shape[1]
+    pos = t0.long()[:, None] + torch.arange(nc, device=tokens.device)
+    x = nn.embed(params["emb"], tokens, cfg)
+    rows = (page_table, slots, t0, n_valid, n_train, job_active)
+    for i in range(cfg.n_layers):
+        x = _chunk_block_body(layer_params(params["blocks"], i), x,
+                              layer_state(states, i), cfg,
+                              pos[:, None, None, :], rows)
+    x = nn.rms_norm(x, params["ln_f"])
+    last = torch.clamp(n_valid.long() - 1, min=0)
+    x = x[torch.arange(x.shape[0], device=x.device), last]
+    return nn.unembed(params["emb"], x, cfg), states
 
 
 def pack_prefill_into_states(states, prefill_states, slot: int, pages,

@@ -3,16 +3,22 @@
 
 The engine owns requests, slots, pages and time; a backend owns the model
 parameters, the per-slot decode state and every device operation.  This
-slice ports the protocol surface the monolithic-prefill engine calls:
+port carries the protocol surface the engine calls in its monolithic and
+chunked modes:
 
-  * ``pages_needed(n)``, ``validate_prompt(n, path)``;
-  * ``prefill_group(...)``, ``slot_filled(slot, n)``, ``decode_step(...)``,
-    ``invalidate()``;
+  * ``pages_needed(n)``, ``chunkable(n, batched)``,
+    ``validate_prompt(n, path)``;
+  * ``prefill_group(...)`` (monolithic) and ``prefill_chunks(...)``
+    (batched chunked prefill), ``decode_step(...)``;
+  * the slot lifecycle: ``alloc_slot``, ``slot_filled(slot, n,
+    snapshot=None)``, ``retire``, ``preempt_snapshot``, ``invalidate``;
+  * the prefix cache: ``supports_prefix_cache``, ``prefix_snapshot``,
+    ``attach_prefix``;
   * ``stats()`` and ``static_reference(...)`` (the oracle the engine's
     greedy tokens must equal).
 
-Chunked prefill, the prefix cache and speculation raise
-``NotImplementedError`` until the next slice ports them (ROADMAP B.3).
+Per-job chunk prefill and speculation raise ``NotImplementedError``: they
+are not ported yet (ROADMAP).
 """
 
 from __future__ import annotations
@@ -38,9 +44,7 @@ BACKEND_STAT_KEYS = frozenset({
 })
 STATS_SCHEMA = ENGINE_STAT_KEYS | BACKEND_STAT_KEYS
 
-NEXT_SLICE = ("not ported yet: chunked prefill, preemption, the prefix "
-              "cache and speculative decoding come with the chunk-prefill "
-              "kernel in the next slice (ROADMAP B.3)")
+NOT_PORTED = "not ported yet (ROADMAP, next slice)"
 
 
 def sample_host(logits, rid: int, index: int, temperature: float) -> int:
@@ -58,6 +62,7 @@ class BackendBase:
     Subclasses set ``name`` and ``window`` and implement prefill/decode."""
 
     name = "backend"
+    supports_prefix_cache = False
 
     def __init__(self, params: Any, cfg: Any, ecfg: Any):
         self.params = params
@@ -68,32 +73,48 @@ class BackendBase:
     def pages_needed(self, n_tokens: int) -> int:
         return window_aligned(n_tokens, self.window) // self.window
 
+    def chunkable(self, n_train: int, batched: bool) -> bool:
+        return True
+
     def validate_prompt(self, n: int, path: str) -> None:
         pass
 
-    def slot_filled(self, slot: int, n_tokens: int) -> None:
+    def alloc_slot(self, slot: int) -> None:
         pass
 
+    def slot_filled(self, slot: int, n_tokens: int,
+                    snapshot: Any = None) -> None:
+        pass
+
+    def retire(self, slot: int) -> None:
+        pass
+
+    def preempt_snapshot(self, slot: int) -> Any:
+        return None
+
     def prefill_chunk(self, *args, **kwargs):
-        raise NotImplementedError(f"{self.name} prefill_chunk: {NEXT_SLICE}")
+        raise NotImplementedError(
+            f"{self.name} per-job prefill_chunk: {NOT_PORTED}")
 
     def prefill_chunks(self, *args, **kwargs):
-        raise NotImplementedError(f"{self.name} prefill_chunks: {NEXT_SLICE}")
+        raise NotImplementedError(f"{self.name} prefill_chunks: {NOT_PORTED}")
 
     def prefix_snapshot(self, slot: int, n_windows: int) -> list:
-        raise NotImplementedError(f"{self.name} prefix cache: {NEXT_SLICE}")
+        raise NotImplementedError(
+            f"{self.name} backend does not support the prefix cache")
 
     def attach_prefix(self, slot: int, payloads: list) -> None:
-        raise NotImplementedError(f"{self.name} prefix cache: {NEXT_SLICE}")
+        raise NotImplementedError(
+            f"{self.name} backend does not support the prefix cache")
 
     def draft_steps(self, *args, **kwargs):
-        raise NotImplementedError(f"{self.name} speculation: {NEXT_SLICE}")
+        raise NotImplementedError(f"{self.name} speculation: {NOT_PORTED}")
 
     def verify_step(self, *args, **kwargs):
-        raise NotImplementedError(f"{self.name} speculation: {NEXT_SLICE}")
+        raise NotImplementedError(f"{self.name} speculation: {NOT_PORTED}")
 
     def rollback(self, commits, active) -> None:
-        raise NotImplementedError(f"{self.name} speculation: {NEXT_SLICE}")
+        raise NotImplementedError(f"{self.name} speculation: {NOT_PORTED}")
 
     def invalidate(self) -> None:
         self._dirty = True

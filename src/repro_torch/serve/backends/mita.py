@@ -1,13 +1,14 @@
-"""Paged MiTA serving backend (port of ``repro.serve.backends.mita``,
-monolithic-prefill path).
+"""Paged MiTA serving backend (port of ``repro.serve.backends.mita``).
 
 Owns the stacked per-layer paged pools (`core.mita_decode.PagedMiTAState`),
 the per-slot finalised-landmark count ``m_done`` and the device copies of
 the scheduler tensors.  Per engine step it runs at most:
 
-  * `prefill_group` — prefill of an admission group, packed into the
-    group's slots and pages;
-  * `decode_step`   — one fused step for the whole slot batch; in external
+  * `prefill_group`  — monolithic prefill of an admission group, packed
+    into the group's slots and pages (``prefill_chunk`` = 0);
+  * `prefill_chunks` — one chunk for every prefilling slot in one call
+    (batched chunked prefill: the chunk-prefill CUDA kernel on the card);
+  * `decode_step`    — one fused step for the whole slot batch; in external
     finalize mode the window-boundary finalize runs inside it for the
     slots that are due, decided on the host (``due`` is known there) so
     no layer waits on a device flag.
@@ -40,6 +41,7 @@ class MiTABackend(BackendBase):
     """Paged MiTA decode caches behind the `DecodeBackend` protocol."""
 
     name = "mita"
+    supports_prefix_cache = True
 
     def __init__(self, params: Any, cfg: ModelConfig, ecfg: Any,
                  device=None):
@@ -62,17 +64,27 @@ class MiTABackend(BackendBase):
 
     # ------------------------------------------------------------ sizing --
 
+    def chunkable(self, n_train: int, batched: bool) -> bool:
+        """The batched chunk program serves any prompt (the n//m landmark
+        quirk is per-slot data); the per-job program (not ported) would
+        need window-aligned prompts."""
+        return batched or n_train % self.window == 0
+
     def validate_prompt(self, n: int, path: str) -> None:
         """Reject prompt lengths the prefill cannot serve, before any
         scheduler state changes: the landmark pooling needs
-        n % (n // w) == 0 and the sorted routed branch needs whole query
-        blocks (N*s % block_q == 0) — the same checks the reference makes
-        by tracing the prefill."""
-        if path != "monolithic":
-            raise NotImplementedError(
-                "chunked prefill is not ported yet (ROADMAP B.3)")
+        n % (n // w) == 0 and the monolithic sorted routed branch needs
+        whole query blocks (N*s % block_q == 0) — the same checks the
+        reference makes by tracing the prefill."""
         a = self.cfg.attn
         m = max(1, n // a.window)
+        if path != "monolithic":
+            if n % m:
+                raise ValueError(
+                    f"prompt length {n} is not servable by the chunked "
+                    f"prefill path (window {a.window}): the training-path "
+                    "landmark pooling needs n % (n // window) == 0")
+            return
         if n % m:
             raise ValueError(
                 f"prompt length {n} is not servable by the {a.backend!r} "
@@ -108,11 +120,71 @@ class MiTABackend(BackendBase):
                                              pages, self.cfg)
             return logits.float().cpu().numpy()
 
+    def prefill_chunks(self, slot_ids: list[int], toks: np.ndarray,
+                       job_active: np.ndarray, page_table: np.ndarray,
+                       t0: np.ndarray, n_valid: np.ndarray,
+                       n_train: np.ndarray) -> np.ndarray:
+        """One chunk for every row (rows are jobs; padding rows carry
+        distinct idle slot ids and ``job_active`` False).  Returns the
+        rows' logits [P, V] at their last valid position."""
+        dev = self.device
+
+        def up(x, dt=torch.int32):
+            return torch.as_tensor(np.asarray(x), dtype=dt, device=dev)
+
+        with torch.inference_mode():
+            logits, self.states = tfm.lm_prefill_chunks(
+                self.params, self.states, up(toks),
+                up(job_active, torch.bool), up(page_table), up(slot_ids),
+                up(t0), up(n_valid), up(n_train), self.cfg)
+            return logits.float().cpu().numpy()
+
     # ------------------------------------------------------ slot lifecycle --
 
-    def slot_filled(self, slot: int, n_tokens: int) -> None:
+    def slot_filled(self, slot: int, n_tokens: int,
+                    snapshot: Any = None) -> None:
         self.m_done[slot] = n_tokens // self.window
         self._dirty = True
+
+    def preempt_snapshot(self, slot: int) -> Any:
+        # recompute-from-prompt rebuilds the paged state exactly (the chunk
+        # program replicates decode-time landmark availability past the
+        # original prompt): nothing to save
+        return None
+
+    # --------------------------------------------------------- prefix cache --
+
+    def prefix_snapshot(self, slot: int, n_windows: int) -> list:
+        """Host copies of the slot's first ``n_windows`` per-window summary
+        rows: one (lm_q, lm_v, expert_idx, expert_valid) tuple per window,
+        each [L, Hkv, ...].  Expert rows are GLOBAL pool rows into the
+        prefix's own pages, valid for every later holder of those pages."""
+        st = self.states
+        with torch.inference_mode():
+            rows = [x[:, slot, :, :n_windows].clone().cpu()
+                    for x in (st.lm_q, st.lm_v, st.expert_idx,
+                              st.expert_valid)]
+        return [tuple(x[:, :, i].clone() for x in rows)
+                for i in range(n_windows)]
+
+    def attach_prefix(self, slot: int, payloads: list) -> None:
+        """Make ``slot`` look as if it had chunk-prefilled the cached
+        windows itself: summary rows installed (rows past the prefix
+        zeroed), ``pre_lm_q`` mirroring ``lm_q`` (aligned prompts share
+        one landmark grid) and both query sums zeroed (a window-aligned
+        resume point closes every window)."""
+        st = self.states
+        n = len(payloads)
+        with torch.inference_mode():
+            for dst, j in ((st.lm_q, 0), (st.lm_v, 1), (st.expert_idx, 2),
+                           (st.expert_valid, 3), (st.pre_lm_q, 0)):
+                dst[:, slot].zero_()
+                if n:
+                    dst[:, slot, :, :n] = torch.stack(
+                        [p[j] for p in payloads], dim=2).to(
+                            device=dst.device, dtype=dst.dtype)
+            st.q_sum[:, slot].zero_()
+            st.pre_q_sum[:, slot].zero_()
 
     # ------------------------------------------------------------- decode --
 

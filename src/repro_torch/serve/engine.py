@@ -1,20 +1,29 @@
-"""Continuous-batching serving engine (port of ``repro.serve.engine``,
-monolithic-prefill path).
+"""Continuous-batching serving engine (port of ``repro.serve.engine``).
 
-The scheduler is plain host Python: admission, the priority queue, page
-accounting, sampling bookkeeping, deadlines and stats; every device
-operation goes through a `DecodeBackend` (`repro_torch.serve.backends`).
-Per engine step the backend is asked for at most two dispatches:
+The scheduler is plain host Python: admission, the priority queue,
+preemption, chunked-prefill pacing, page accounting, the prefix cache,
+sampling bookkeeping, deadlines and stats; every device operation goes
+through a `DecodeBackend` (`repro_torch.serve.backends`).  Per engine step
+the backend is asked for at most two dispatches:
 
-  * ``prefill_group`` — monolithic prefill of an admission group (same
-    prompt length, power-of-two group size) packed into its slots;
-  * ``decode_step``   — ONE fused step for the whole slot batch regardless
+  * ``prefill_group``  — monolithic prefill of an admission group (same
+    prompt length, power-of-two group size) packed into its slots
+    (``prefill_chunk`` = 0);
+  * ``prefill_chunks`` — ONE call advancing every prefilling slot by one
+    chunk (``prefill_chunk`` > 0, batched mode): long prompts admit
+    incrementally, interleaved with the decode batch;
+  * ``decode_step``    — ONE fused step for the whole slot batch regardless
     of per-request progress (positions, page tables and activity are data).
 
+Chunked mode also enables priority preemption: under page pressure the
+lowest-priority victim is evicted (its pages released) and later rebuilt
+by chunk-prefilling prompt + generated-so-far (recompute-from-prompt), and
+the optional radix prefix cache (`serve.prefix_cache`).
+
 Greedy tokens are exact w.r.t. the backend's static reference: a request
-decoded here emits the tokens it would emit in a fixed batch.  Chunked
-prefill with preemption, the prefix cache and speculative decoding are the
-next slice (ROADMAP B.3); `EngineConfig` rejects them.
+decoded here emits the tokens it would emit in a fixed batch, preempted or
+not.  Speculative decoding and the per-job prefill mode are not ported
+yet; `EngineConfig` rejects them.
 """
 
 from __future__ import annotations
@@ -59,6 +68,7 @@ class FinishedRequest:
     first_token: float
     finished: float
     token_times: list[float] = dataclasses.field(default_factory=list)
+    preemptions: int = 0
     cancelled: bool = False
     reason: str = "complete"
 
@@ -69,8 +79,14 @@ FINISH_REASONS = ("complete", "cancelled", "deadline_expired", "rejected")
 @dataclasses.dataclass(frozen=True)
 class EngineConfig:
     """Slot/page budget and scheduling knobs (the reference's fields).
-    ``prefill_chunk``, ``spec_k`` and ``prefix_cache`` must stay off until
-    the next slice ports them."""
+
+    ``prefill_chunk`` = 0 keeps monolithic prefill (full page budget up
+    front, no preemption); > 0 (a multiple of the backend's window)
+    enables batched chunked prefill AND priority preemption.
+    ``reserve_pages`` may only be claimed by decode appends.
+    ``prefix_cache`` (chunked mode only) keeps a radix cache of committed
+    window-aligned prompt prefixes.  ``spec_k`` > 0 and
+    ``prefill_mode="per-job"`` are not ported yet."""
     n_slots: int = 8
     n_pages: int = 64
     pages_per_slot: int = 8
@@ -78,19 +94,19 @@ class EngineConfig:
     prefill_chunk: int = 0
     reserve_pages: int = 0
     sample_device: str = "host"     # host | fused
+    prefill_mode: str = "batched"   # batched (per-job is not ported)
     prefix_cache: bool = False
     spec_k: int = 0
 
     def __post_init__(self):
-        for name, on in (("prefill_chunk > 0", self.prefill_chunk > 0),
-                         ("spec_k > 0", self.spec_k > 0),
-                         ("prefix_cache=True", self.prefix_cache)):
+        for name, on in (("spec_k > 0", self.spec_k > 0),
+                         ("prefill_mode='per-job'",
+                          self.prefill_mode == "per-job")):
             if on:
                 raise NotImplementedError(
-                    f"EngineConfig {name} is not ported yet: chunked "
-                    "prefill, preemption, the prefix cache and speculative "
-                    "decoding come in the next slice of the port, with the "
-                    "chunk-prefill kernel (ROADMAP B.3)")
+                    f"EngineConfig {name} is not ported yet: speculative "
+                    "decoding and the per-job chunk prefill come in a later "
+                    "slice of the port (ROADMAP)")
 
 
 class _PageAllocator:
@@ -161,19 +177,40 @@ class _PageAllocator:
                 self.free.append(p)
 
 
+
+
 @dataclasses.dataclass(eq=False)
 class _WaitEntry:
-    """Queue entry ordered by (priority desc, submit order)."""
+    """Queue entry ordered by (priority desc, submit order).  ``resume``
+    holds (tokens, times, meta) of a preempted request awaiting its
+    recompute; ``snapshot`` is the backend's `preempt_snapshot` payload;
+    ``evictions`` counts its preemptions; ``first_admit`` stamps its FIRST
+    admission, which a re-admitted victim keeps."""
     req: Request
     seq: int
+    resume: Optional[tuple] = None
+    snapshot: Any = None
+    evictions: int = 0
+    first_admit: Optional[float] = None
 
     @property
     def key(self):
         return (-self.req.priority, self.seq)
 
 
+@dataclasses.dataclass(eq=False)
+class _PrefillJob:
+    """A request mid chunked prefill: owns a slot and a growing page set,
+    but is not in the decode batch until its last chunk lands."""
+    entry: _WaitEntry
+    toks: np.ndarray                # prompt [+ generated-so-far] to pack
+    n_train: int                    # original prompt length (semantics)
+    admit_time: float
+    done: int = 0                   # tokens packed so far (next chunk's t0)
+
+
 class ServingEngine:
-    """Admit/retire requests each step; keep the fused decode batch full."""
+    """Admit/evict requests each step; keep the fused decode batch full."""
 
     def __init__(self, params: Any, cfg: Any,
                  ecfg: EngineConfig = EngineConfig(),
@@ -187,12 +224,22 @@ class ServingEngine:
             raise ValueError("reserve_pages must be >= 0")
         if ecfg.sample_device not in ("host", "fused"):
             raise ValueError(f"unknown sample_device {ecfg.sample_device!r}")
+        if ecfg.prefill_mode != "batched":
+            raise ValueError(f"unknown prefill_mode {ecfg.prefill_mode!r}")
+        if ecfg.prefix_cache and not ecfg.prefill_chunk:
+            raise ValueError("prefix_cache requires chunked prefill "
+                             "(prefill_chunk > 0): cache hits resume the "
+                             "chunk program at the first unshared chunk")
         self.backend = (backend if backend is not None
                         else _backends.resolve(params, cfg, ecfg, device))
         self.params = params
         self.cfg = cfg
         self.ecfg = ecfg
         self.w = self.backend.window
+        if ecfg.prefill_chunk and (ecfg.prefill_chunk < 0
+                                   or ecfg.prefill_chunk % self.w):
+            raise ValueError("prefill_chunk must be a positive multiple of "
+                             f"the backend window ({self.w})")
 
         s, m = ecfg.n_slots, ecfg.pages_per_slot
         self.alloc = _PageAllocator(ecfg.n_pages, ecfg.reserve_pages)
@@ -205,16 +252,36 @@ class ServingEngine:
         self.sample_idx = np.zeros(s, np.int32)
         self.free_slots: list[int] = list(range(s))
         self.slot_req: dict[int, Request] = {}
+        self.slot_entry: dict[int, _WaitEntry] = {}
         self.slot_pages: dict[int, list[int]] = {}
         self.slot_out: dict[int, list[int]] = {}
         self.slot_times: dict[int, list[float]] = {}
         self.slot_meta: dict[int, tuple[float, float]] = {}
+        self.slot_seq: dict[int, int] = {}    # admission recency (victims)
+        self.slot_npre: dict[int, int] = {}   # preemptions suffered so far
+        self.prefilling: dict[int, _PrefillJob] = {}
         self.waiting: list[_WaitEntry] = []
         self.finished: list[FinishedRequest] = []
         self.steps = 0
+        self.n_preemptions = 0
+        self.n_chunks = 0
         self.prefill_dispatches = 0
         self._seq = 0
         self._inflight: set[int] = set()
+
+        # prefix cache (opt-in; off for backends with nothing page-resident
+        # to reuse) and its counters, zero when disabled
+        self.cache = None
+        if ecfg.prefix_cache and getattr(self.backend,
+                                         "supports_prefix_cache", False):
+            from repro_torch.serve.prefix_cache import RadixPrefixCache
+            self.cache = RadixPrefixCache(self.alloc, self.w)
+        self.n_prefix_hits = 0
+        self.n_prefix_misses = 0
+        self.n_pages_shared = 0
+        self.n_prefix_tokens_reused = 0
+        self.prefix_hits: dict[int, int] = {}  # rid -> tokens reused
+
         self.n_rejected = 0
         self.n_deadline_expired = 0
         self._deadline: dict[int, float] = {}
@@ -231,14 +298,21 @@ class ServingEngine:
 
     def stats(self) -> dict[str, Any]:
         """Scheduler counters merged with the backend's; every key of
-        `backends.STATS_SCHEMA` (features of later slices read 0)."""
+        `backends.STATS_SCHEMA` (speculation and supervision read 0)."""
         s = {"backend": self.backend.name, "steps": self.steps,
-             "chunks": 0, "prefill_dispatches": self.prefill_dispatches,
-             "preemptions": 0, "pages_high_water": self.alloc.high_water,
+             "chunks": self.n_chunks,
+             "prefill_dispatches": self.prefill_dispatches,
+             "preemptions": self.n_preemptions,
+             "pages_high_water": self.alloc.high_water,
              "reserve_dips": self.alloc.reserve_dips,
-             "prefix_cache_hits": 0, "prefix_cache_misses": 0,
-             "pages_shared": 0, "prefix_tokens_reused": 0,
-             "prefix_cache_pages": 0, "prefix_cache_evictions": 0,
+             "prefix_cache_hits": self.n_prefix_hits,
+             "prefix_cache_misses": self.n_prefix_misses,
+             "pages_shared": self.n_pages_shared,
+             "prefix_tokens_reused": self.n_prefix_tokens_reused,
+             "prefix_cache_pages": (self.cache.n_pages
+                                    if self.cache is not None else 0),
+             "prefix_cache_evictions": (self.cache.evictions
+                                        if self.cache is not None else 0),
              "spec_drafted": 0, "spec_accepted": 0, "spec_rollbacks": 0,
              "rejected": self.n_rejected,
              "deadline_expired": self.n_deadline_expired,
@@ -263,8 +337,7 @@ class ServingEngine:
             return False
         self._inflight.add(req.rid)
         self._seq += 1
-        bisect.insort(self.waiting, _WaitEntry(req=req, seq=self._seq),
-                      key=lambda e: e.key)
+        self._enqueue(_WaitEntry(req=req, seq=self._seq))
         if req.deadline_ms is not None:
             self._deadline[req.rid] = (time.perf_counter()
                                        + req.deadline_ms / 1e3)
@@ -276,7 +349,16 @@ class ServingEngine:
                 f"request {req.rid} needs {self.pages_needed(req)} pages; a "
                 f"slot owns {self.ecfg.pages_per_slot} "
                 f"(max context {self.ecfg.pages_per_slot * self.w})")
-        self.backend.validate_prompt(len(req.prompt), "monolithic")
+        n = len(req.prompt)
+        if not self.ecfg.prefill_chunk:
+            self.backend.validate_prompt(n, "monolithic")
+        elif self.backend.chunkable(n, True):
+            self.backend.validate_prompt(n, "chunked")
+        else:
+            raise ValueError(
+                f"prompt length {n} is not servable: the "
+                f"{self.backend.name} backend cannot start it through the "
+                "batched chunk program")
 
     def _reject(self, req: Request, why: str) -> None:
         self.n_rejected += 1
@@ -285,6 +367,9 @@ class ServingEngine:
             rid=req.rid, tokens=np.zeros(0, np.int32), arrival=req.arrival,
             admitted=0.0, first_token=0.0, finished=time.perf_counter(),
             reason="rejected"))
+
+    def _enqueue(self, entry: _WaitEntry) -> None:
+        bisect.insort(self.waiting, entry, key=lambda e: e.key)
 
     def _emit(self, slot: int, tok: int, now: float) -> None:
         self.slot_out[slot].append(tok)
@@ -295,38 +380,66 @@ class ServingEngine:
         if reason is None:
             reason = "cancelled" if cancelled else "complete"
         req = self.slot_req.pop(slot)
+        self.slot_entry.pop(slot)
         out = self.slot_out.pop(slot)
         times = self.slot_times.pop(slot)
         admitted, ttft = self.slot_meta.pop(slot)
         self.alloc.release(self.slot_pages.pop(slot))
+        self.slot_seq.pop(slot)
+        npre = self.slot_npre.pop(slot)
         self.active[slot] = False
         self.t[slot] = 0
         self.page_table[slot] = 0     # unused entries must stay in-bounds
         self.slot_temp[slot] = 0.0
         self.free_slots.append(slot)
+        self.backend.retire(slot)
         self.backend.invalidate()
         self._inflight.discard(req.rid)
         self.finished.append(FinishedRequest(
             rid=req.rid, tokens=np.asarray(out, np.int32),
             arrival=req.arrival, admitted=admitted, first_token=ttft,
-            finished=now, token_times=times, cancelled=cancelled,
-            reason=reason))
+            finished=now, token_times=times, preemptions=npre,
+            cancelled=cancelled, reason=reason))
 
     def cancel(self, rid: int, reason: str = "cancelled") -> bool:
-        """Kill an in-flight request, waiting or decoding, releasing its
-        slot and pages at once.  Returns False if ``rid`` is not in
-        flight."""
+        """Kill an in-flight request in any state (waiting, preempted and
+        waiting, mid chunked prefill, decoding), releasing its slot and
+        page references at once; the FinishedRequest carries the tokens
+        already emitted.  Returns False if ``rid`` is not in flight."""
         now = time.perf_counter()
         for entry in self.waiting:
             if entry.req.rid == rid:
                 self.waiting.remove(entry)
+                out, times, meta = entry.resume or \
+                    ([], [], (entry.first_admit or 0.0, 0.0))
                 self._inflight.discard(rid)
                 self.finished.append(FinishedRequest(
-                    rid=rid, tokens=np.zeros(0, np.int32),
-                    arrival=entry.req.arrival, admitted=0.0,
-                    first_token=0.0, finished=now, cancelled=True,
-                    reason=reason))
+                    rid=rid, tokens=np.asarray(out, np.int32),
+                    arrival=entry.req.arrival, admitted=meta[0],
+                    first_token=meta[1], finished=now,
+                    token_times=list(times), preemptions=entry.evictions,
+                    cancelled=True, reason=reason))
                 return True
+        for slot, job in self.prefilling.items():
+            if job.entry.req.rid != rid:
+                continue
+            entry = job.entry
+            del self.prefilling[slot]
+            self.alloc.release(self.slot_pages.pop(slot))
+            self.slot_seq.pop(slot)
+            self.page_table[slot] = 0
+            self.free_slots.append(slot)
+            self.backend.retire(slot)
+            self.backend.invalidate()
+            self._inflight.discard(rid)
+            out, times, meta = entry.resume or \
+                ([], [], (job.admit_time, 0.0))
+            self.finished.append(FinishedRequest(
+                rid=rid, tokens=np.asarray(out, np.int32),
+                arrival=entry.req.arrival, admitted=meta[0],
+                first_token=meta[1], finished=now, token_times=list(times),
+                preemptions=entry.evictions, cancelled=True, reason=reason))
+            return True
         for slot, req in self.slot_req.items():
             if req.rid == rid:
                 self._retire(slot, now, cancelled=True, reason=reason)
@@ -345,7 +458,165 @@ class ServingEngine:
                 if self.cancel(rid, reason="deadline_expired"):
                     self.n_deadline_expired += 1
 
+    # ---------------------------------------------------------- preemption --
+
+    def _pick_victim(self, below: Optional[int] = None) -> Optional[int]:
+        """Lowest-priority occupied slot, ties toward the most recently
+        admitted (its recompute loses the least work).  ``below`` keeps
+        only strictly lower priorities (admission never thrashes equals)."""
+        cands = [(job.entry.req.priority, self.slot_seq[s], s)
+                 for s, job in self.prefilling.items()]
+        cands += [(req.priority, self.slot_seq[s], s)
+                  for s, req in self.slot_req.items()]
+        if below is not None:
+            cands = [c for c in cands if c[0] < below]
+        if not cands:
+            return None
+        cands.sort(key=lambda c: (c[0], -c[1]))
+        return cands[0][2]
+
+    def _preempt(self, slot: int) -> None:
+        """Evict ``slot``: release its pages and requeue its request.  A
+        decoding victim keeps its emitted tokens and stamps and is rebuilt
+        by recompute-from-prompt; a prefilling victim restarts."""
+        self.n_preemptions += 1
+        self.alloc.release(self.slot_pages.pop(slot))
+        self.page_table[slot] = 0
+        self.slot_seq.pop(slot)
+        job = self.prefilling.pop(slot, None)
+        if job is not None:
+            entry = job.entry
+        else:
+            entry = self.slot_entry.pop(slot)
+            self.slot_req.pop(slot)
+            out = self.slot_out.pop(slot)
+            times = self.slot_times.pop(slot)
+            meta = self.slot_meta.pop(slot)
+            self.slot_npre.pop(slot)
+            entry.resume = (out, times, meta)
+            entry.snapshot = self.backend.preempt_snapshot(slot)
+            self.active[slot] = False
+            self.t[slot] = 0
+            self.slot_temp[slot] = 0.0
+            self.backend.invalidate()
+        entry.evictions += 1
+        self.free_slots.append(slot)
+        self._enqueue(entry)
+
+    def _reclaim_cache(self, pages: int, reserved: bool = False) -> None:
+        """Drop cached prefix nodes (LRU leaf first) until ``pages`` are
+        allocatable or the cache is empty — before any live victim."""
+        if self.cache is None:
+            return
+        while (not self.alloc.can_alloc(pages, reserved)
+               and self.cache.evict_one()):
+            pass
+
+    def _preempt_for(self, priority: int, pages: int,
+                     need_slot: bool = False) -> None:
+        """Evict strictly-lower-priority victims until ``pages`` are
+        allocatable (and a slot is free, if asked) or none remain."""
+        self._reclaim_cache(pages)
+        while ((need_slot and not self.free_slots)
+               or not self.alloc.can_alloc(pages)):
+            victim = self._pick_victim(below=priority)
+            if victim is None:
+                return
+            self._preempt(victim)
+            self._reclaim_cache(pages)
+
     # ----------------------------------------------------------- admission --
+
+    def _admit(self, now: float) -> None:
+        if self.ecfg.prefill_chunk:
+            self._admit_chunked(now)
+        else:
+            self._admit_grouped(now)
+
+    def _entry_total(self, entry: _WaitEntry) -> int:
+        """Tokens the prefill of this entry packs: the prompt, plus (for a
+        preempted victim) everything it emitted short of the last token,
+        which re-enters through decode."""
+        n_train = len(entry.req.prompt)
+        return n_train if entry.resume is None \
+            else n_train + len(entry.resume[0]) - 1
+
+    def _match_prefix(self, entry: _WaitEntry) -> list:
+        """Cached nodes this entry can attach: the longest cached prefix of
+        a window-aligned prompt, quantised DOWN to a chunk boundary (every
+        remaining chunk then covers the span a cold run's would, so the
+        hit is exact), leaving at least one token to prefill."""
+        if self.cache is None:
+            return []
+        n_train = len(entry.req.prompt)
+        if n_train % self.w:
+            return []
+        limit = min(n_train, self._entry_total(entry) - 1) // self.w
+        if limit <= 0:
+            return []
+        nodes = self.cache.match(entry.req.prompt, limit)
+        chunk_w = self.ecfg.prefill_chunk // self.w
+        return nodes[: (len(nodes) // chunk_w) * chunk_w]
+
+    def _first_chunk_pages(self, entry: _WaitEntry,
+                           shared_pages: int = 0) -> int:
+        """NEW pages the first prefill dispatch of this entry needs beyond
+        ``shared_pages`` attached from the prefix cache."""
+        t0 = shared_pages * self.w
+        first = min(self.ecfg.prefill_chunk, self._entry_total(entry) - t0)
+        return self.backend.pages_needed(t0 + first) - shared_pages
+
+    def _admit_chunked(self, now: float) -> None:
+        """Chunked admission: one request at a time, first-chunk pages
+        only.  A higher-priority arrival preempts the lowest strictly-lower
+        victim when slots or pages run short.  With the prefix cache on,
+        matched pages attach by reference and the job starts at the first
+        unshared chunk."""
+        while self.waiting:
+            entry = self.waiting[0]
+            nodes = self._match_prefix(entry)
+            first = self._first_chunk_pages(entry, len(nodes))
+            if not self.free_slots or not self.alloc.can_alloc(first):
+                self._preempt_for(entry.req.priority, first, need_slot=True)
+                # relief may have evicted matched cache nodes: re-match
+                nodes = self._match_prefix(entry)
+                first = self._first_chunk_pages(entry, len(nodes))
+                if not self.free_slots or not self.alloc.can_alloc(first):
+                    return
+            self.waiting.pop(0)
+            slot = self.free_slots.pop()
+            toks = np.asarray(entry.req.prompt, np.int32)
+            if entry.resume is not None:
+                toks = np.concatenate(
+                    [toks, np.asarray(entry.resume[0][:-1], np.int32)])
+            if entry.first_admit is None:
+                entry.first_admit = now
+            shared = len(nodes) * self.w
+            self.prefilling[slot] = _PrefillJob(
+                entry=entry, toks=toks, n_train=len(entry.req.prompt),
+                admit_time=entry.first_admit, done=shared)
+            self.backend.alloc_slot(slot)
+            shared_pages = [nd.page for nd in nodes]
+            if shared_pages:
+                self.alloc.retain(shared_pages)
+                self.backend.attach_prefix(slot,
+                                           [nd.payload for nd in nodes])
+                self.n_prefix_hits += 1
+                self.n_pages_shared += len(shared_pages)
+                self.n_prefix_tokens_reused += shared
+                self.prefix_hits[entry.req.rid] = shared
+            elif self.cache is not None:
+                self.n_prefix_misses += 1
+                self.prefix_hits.setdefault(entry.req.rid, 0)
+            # claim the first dispatch's pages now, so concurrent
+            # admissions never overcommit the same free pages
+            pages = shared_pages + self.alloc.alloc(first)
+            self.slot_pages[slot] = pages
+            self.page_table[slot] = 0
+            self.page_table[slot, : len(pages)] = pages
+            self.backend.invalidate()
+            self._seq += 1
+            self.slot_seq[slot] = self._seq
 
     def _admit_grouped(self, now: float) -> None:
         """Priority-then-FCFS admission with same-length grouping: the
@@ -373,6 +644,8 @@ class ServingEngine:
             slots = [self.free_slots.pop() for _ in group]
             pages_list = [self.alloc.alloc(self.pages_needed(e.req))
                           for e in group]
+            for slot in slots:
+                self.backend.alloc_slot(slot)
             try:
                 logits = self.backend.prefill_group(
                     np.stack([e.req.prompt for e in group]).astype(np.int32),
@@ -383,17 +656,22 @@ class ServingEngine:
                 for slot, pages in zip(slots, pages_list):
                     self.alloc.release(pages)
                     self.free_slots.append(slot)
+                    self.backend.retire(slot)
                 self.backend.invalidate()
                 for e in group:
-                    bisect.insort(self.waiting, e, key=lambda x: x.key)
+                    self._enqueue(e)
                 raise
             for i, (entry, slot, pages) in enumerate(
                     zip(group, slots, pages_list)):
                 req = entry.req
                 self.slot_req[slot] = req
+                self.slot_entry[slot] = entry
                 self.slot_pages[slot] = pages
                 self.slot_out[slot] = []
                 self.slot_times[slot] = []
+                self.slot_npre[slot] = 0
+                self._seq += 1
+                self.slot_seq[slot] = self._seq
                 self.page_table[slot] = 0
                 self.page_table[slot, : len(pages)] = pages
                 self.t[slot] = n
@@ -410,15 +688,176 @@ class ServingEngine:
                     self._retire(slot, time.perf_counter())
             self.backend.invalidate()
 
+    # ------------------------------------------------------ chunked prefill --
+
+    def _grow_pages(self, slot: int, target: int) -> bool:
+        """Grow ``slot`` to ``target`` pages for its next prefill dispatch.
+        Under pressure the globally worst occupant (lowest priority, then
+        most recently admitted) is evicted until the allocation fits; if
+        this job IS the worst occupant while others wait on it, it yields.
+        The strict order (priority, admission seq) rules out livelock
+        between equal-priority jobs."""
+        delta = target - len(self.slot_pages[slot])
+        if delta <= 0:
+            return True
+        self._reclaim_cache(delta)
+        while not self.alloc.can_alloc(delta):
+            victim = self._pick_victim()
+            if victim is None or victim == slot:
+                break
+            self._preempt(victim)
+            self._reclaim_cache(delta)
+        if not self.alloc.can_alloc(delta):
+            occupied = len(self.prefilling) + len(self.slot_req)
+            if occupied > 1 and self._pick_victim() == slot:
+                self._preempt(slot)
+            return False
+        pages = self.alloc.alloc(delta)
+        base = len(self.slot_pages[slot])
+        for i, p in enumerate(pages):
+            self.page_table[slot, base + i] = p
+        self.slot_pages[slot].extend(pages)
+        self.backend.invalidate()
+        return True
+
+    def _advance_prefill(self, now: float) -> None:
+        """ONE dispatch advances every prefilling job one chunk.  Jobs that
+        cannot claim their next pages sit this step out (and may have
+        yielded in `_grow_pages`); growth runs best-key first."""
+        if not self.prefilling:
+            return
+        chunk = self.ecfg.prefill_chunk
+        advancing: list[tuple[int, _PrefillJob, int]] = []
+        for slot, job in sorted(self.prefilling.items(),
+                                key=lambda kv: kv[1].entry.key):
+            if self.prefilling.get(slot) is not job:
+                continue              # evicted while an earlier job grew
+            nv = min(chunk, len(job.toks) - job.done)
+            if not self._grow_pages(slot,
+                                    self.backend.pages_needed(job.done + nv)):
+                continue
+            if self.prefilling.get(slot) is job:
+                advancing.append((slot, job, nv))
+        if not advancing:
+            return
+        # rows are jobs, padded to a power-of-two width with DISTINCT idle
+        # slot ids (inactive rows pass their slot's state through)
+        p_w = min(1 << (len(advancing) - 1).bit_length(), self.ecfg.n_slots)
+        used = {s for s, _, _ in advancing}
+        pads = [s for s in range(self.ecfg.n_slots) if s not in used]
+        slot_ids = [s for s, _, _ in advancing] + pads[: p_w - len(advancing)]
+        toks = np.zeros((p_w, chunk), np.int32)
+        job_active = np.zeros(p_w, bool)
+        t0s = np.zeros(p_w, np.int32)
+        nvs = np.zeros(p_w, np.int32)
+        ntr = np.ones(p_w, np.int32)
+        for i, (slot, job, nv) in enumerate(advancing):
+            toks[i, :nv] = job.toks[job.done:job.done + nv]
+            job_active[i] = True
+            t0s[i] = job.done
+            nvs[i] = nv
+            ntr[i] = job.n_train
+        logits = self.backend.prefill_chunks(
+            slot_ids, toks, job_active, self.page_table[slot_ids], t0s, nvs,
+            ntr)
+        self.n_chunks += len(advancing)
+        self.prefill_dispatches += 1
+        for i, (slot, job, nv) in enumerate(advancing):
+            job.done += nv
+            if job.done == len(job.toks):
+                self._finish_prefill(slot, job, logits[i])
+
+    def _finish_prefill(self, slot: int, job: _PrefillJob,
+                        logits: np.ndarray) -> None:
+        """Last chunk landed: move the slot into the decode batch.  Fresh
+        requests sample their first token from the final chunk's logits;
+        preempted ones restore their emitted tokens and continue."""
+        entry = job.entry
+        req = entry.req
+        del self.prefilling[slot]
+        n_total = len(job.toks)
+        self.slot_req[slot] = req
+        self.slot_entry[slot] = entry
+        self.t[slot] = n_total
+        self.active[slot] = True
+        self.backend.slot_filled(slot, n_total, snapshot=entry.snapshot)
+        entry.snapshot = None
+        self.backend.invalidate()
+        if self.cache is not None and job.n_train % self.w == 0:
+            # commit this prompt's windows (each new node retains its page;
+            # the summary rows are snapshotted only if nodes are added)
+            m = job.n_train // self.w
+            self.cache.insert(
+                job.toks, m, self.slot_pages[slot][:m],
+                lambda: self.backend.prefix_snapshot(slot, m))
+        self.slot_npre[slot] = entry.evictions
+        self.slot_rid[slot] = req.rid
+        self.slot_temp[slot] = req.temperature
+        if entry.resume is None:
+            self.slot_out[slot] = []
+            self.slot_times[slot] = []
+            first = self._sample(logits, req, 0)
+            self.sample_idx[slot] = 1
+            self.slot_meta[slot] = (job.admit_time, time.perf_counter())
+            self._emit(slot, first, time.perf_counter())
+            self.tokens_in[slot] = first
+            if req.max_new_tokens == 1:
+                self._retire(slot, time.perf_counter())
+        else:
+            out, times, meta = entry.resume
+            entry.resume = None
+            self.slot_out[slot] = list(out)
+            self.slot_times[slot] = list(times)
+            self.slot_meta[slot] = meta
+            self.sample_idx[slot] = len(out)
+            self.tokens_in[slot] = out[-1]
+
+    def _ensure_append_pages(self) -> None:
+        """Every active slot owns the page its next append lands in.
+        Appends may dip into the reserve; if the pool is dry the
+        lowest-priority slot is preempted (possibly the appender)."""
+        for slot in np.nonzero(self.active)[0]:
+            slot = int(slot)
+            while (self.active[slot]
+                   and int(self.t[slot]) // self.w
+                   >= len(self.slot_pages[slot])):
+                need_idx = len(self.slot_pages[slot])
+                self._reclaim_cache(1, reserved=True)
+                while not self.alloc.can_alloc(1, reserved=True):
+                    victim = self._pick_victim()
+                    if victim is None:
+                        break
+                    self._preempt(victim)
+                    self._reclaim_cache(1, reserved=True)
+                    if victim == slot:
+                        break
+                if not self.active[slot]:
+                    break             # preempted as a victim this pass
+                page = self.alloc.alloc(1, reserved=True)[0]
+                # an append writes its page in place, so it must never be
+                # shared: fresh pages carry one reference and append pages
+                # never enter the prefix cache
+                if self.alloc.refcount(page) != 1:
+                    raise AllocatorInvariantError(
+                        f"append page {page} is shared")
+                self.slot_pages[slot].append(page)
+                self.page_table[slot, need_idx] = page
+                self.backend.invalidate()
+
     # ---------------------------------------------------------------- step --
 
     def step(self) -> bool:
-        """One iteration: expire deadlines, admit, then one fused decode
-        step for the active batch.  False when there is nothing to do."""
+        """One iteration: expire deadlines, admit, advance prefill (one
+        dispatch), ensure append pages, then one fused decode step for the
+        active batch.  False when there is nothing left to do."""
         self._expire_deadlines()
-        self._admit_grouped(time.perf_counter())
+        now = time.perf_counter()
+        self._admit(now)
+        self._advance_prefill(now)
+        if self.ecfg.prefill_chunk:
+            self._ensure_append_pages()
         if not self.active.any():
-            return bool(self.waiting)
+            return bool(self.waiting or self.prefilling)
         fused = self.ecfg.sample_device == "fused"
         out = self.backend.decode_step(
             self.tokens_in, self.t, self.active, self.page_table,
@@ -445,7 +884,8 @@ class ServingEngine:
         start = time.perf_counter()
         already_done = len(self.finished)
         idx = 0
-        while idx < len(pending) or self.waiting or self.active.any():
+        while (idx < len(pending) or self.waiting or self.prefilling
+               or self.active.any()):
             now = time.perf_counter() - start
             while idx < len(pending) and (
                     not realtime or pending[idx].arrival <= now):

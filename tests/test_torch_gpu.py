@@ -9,8 +9,9 @@ Tolerances: 1e-5 (float32 pools) and 2e-2 (bfloat16 pools), absolute and
 relative.  With bfloat16 pools the plain version runs on float32 copies of
 the same bfloat16 values: the kernel computes in float32, and the plain
 version's bfloat16 products would round scores enough to flip routing and
-top-k decisions.  Pools outside the scratch row are exact, and so are the
-finalize's expert rows with float32 pools.
+top-k decisions (the chunk-prefill check also has the plain version round
+its landmark queries to bfloat16, as the kernel does).  Pools outside the
+scratch row are exact, and so are the expert rows with float32 pools.
 """
 
 import numpy as np
@@ -18,6 +19,7 @@ import pytest
 import torch
 
 from repro_torch.core import mita_decode as mdec
+from repro_torch.kernels import mita_chunk_prefill as mcp
 from repro_torch.kernels import mita_paged_attn as mpa
 from repro_torch.kernels import mita_paged_finalize as mpf
 from repro_torch.kernels import ops
@@ -148,3 +150,80 @@ def test_finalize_kernel_workspace_path(cuda_device):
     torch.cuda.synchronize()
     torch.testing.assert_close(b.lm_v, a.lm_v, atol=1e-5, rtol=1e-5)
     assert torch.equal(b.expert_idx, a.expert_idx)
+
+
+# rows of the chunk-prefill check: (t0, n_valid, n_train, active) -- a
+# fresh chunk, a resumed chunk, the last chunk of a non-aligned prompt
+# (n_train 20: m = 2, w' = 10), a recompute row (n_train < t0 + n_valid)
+# and an inactive row
+CHUNK_ROWS = [(0, 16, 32, True), (16, 16, 32, True), (16, 4, 20, True),
+              (16, 16, 20, True), (0, 0, 1, False)]
+
+
+def _chunk_inputs(dtype, dev, nc=16, m_slot=4, hkv=2, g=2, d=32, seed=3):
+    rng = np.random.default_rng(seed)
+    p_rows = len(CHUNK_ROWS)
+    n_pages = p_rows * m_slot + 3
+    table = rng.permutation(n_pages)[: p_rows * m_slot].reshape(
+        p_rows, m_slot)
+
+    def rnd(*shape, dt=dtype):
+        return torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32)).to(dev, dt)
+
+    st = [rnd(p_rows, hkv, m_slot, d), rnd(p_rows, hkv, m_slot, d),
+          torch.from_numpy(table[:, None, :, None] * W + rng.integers(
+              0, W, size=(p_rows, hkv, m_slot, K))).to(dev, torch.int32),
+          torch.from_numpy(rng.random((p_rows, hkv, m_slot, K)) > 0.3).to(
+              dev),
+          rnd(p_rows, hkv, d, dt=torch.float32) * W,
+          rnd(p_rows, hkv, m_slot, d), rnd(p_rows, hkv, d, dt=torch.float32)]
+    pools = (rnd(n_pages * W + 1, hkv, d), rnd(n_pages * W + 1, hkv, d))
+    qkv = (rnd(p_rows, hkv, g, nc, d), rnd(p_rows, hkv, nc, d),
+           rnd(p_rows, hkv, nc, d))
+    t0, nv, ntr, act = zip(*CHUNK_ROWS)
+    sched = (torch.from_numpy(table.astype(np.int32)).to(dev),
+             *(torch.tensor(x, dtype=torch.int32, device=dev)
+               for x in (t0, nv, ntr)), torch.tensor(act, device=dev))
+    return qkv, st, pools, sched
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n_route,external", [(1, True), (2, True),
+                                              (1, False)])
+def test_chunk_prefill_kernel_vs_plain(cuda_device, dtype, n_route,
+                                       external):
+    (q, k, v), st, pools, sched = _chunk_inputs(dtype, cuda_device)
+    kw = dict(window=W, k_width=K, n_route=n_route,
+              external_finalize=external)
+    ka, va = (x.float() for x in pools)
+    ref = mcp.chunk_prefill_plain(
+        q.float(), k.float(), v.float(),
+        *[x.float() if x.is_floating_point() else x for x in st], ka, va,
+        *sched, **kw, round_dtype=dtype)
+    kb, vb = (x.clone() for x in pools)
+    ops.reset_launch_counts()
+    got = ops.batched_chunk_prefill(q, k, v, *st, kb, vb, *sched, **kw)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["mita_chunk_prefill_fused"] == 1
+    tol = TOL[dtype]
+    for r, (_, nv, _, act) in enumerate(CHUNK_ROWS):
+        if act:
+            torch.testing.assert_close(got[0][r, :, :, :nv].float(),
+                                       ref[0][r, :, :, :nv].float(),
+                                       atol=tol, rtol=tol)
+        else:
+            assert torch.all(got[0][r] == 0)
+    assert torch.equal(ka[:-1], kb[:-1].float())
+    assert torch.equal(va[:-1], vb[:-1].float())
+    for i, name in enumerate(("lm_q", "lm_v", "expert_idx", "expert_valid",
+                              "q_sum", "pre_lm_q", "pre_q_sum")):
+        a, b = ref[1 + i], got[1 + i]
+        if name.startswith("expert"):
+            if dtype == torch.float32:
+                assert torch.equal(a.int(), b.int()), name
+        else:
+            torch.testing.assert_close(b.float(), a.float(), atol=tol,
+                                       rtol=tol, msg=name)
+        assert torch.equal(b[-1].to(st[i].dtype), st[i][-1]), name
