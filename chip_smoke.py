@@ -16,6 +16,13 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
          (n_train < t0 + n_valid) and a fresh non-aligned row; outputs,
          pools, both landmark systems, both query sums and the expert rows
          (exact in float32);
+     * the full-sequence kernels at qwen3-0.6b's forward shape (B = 1,
+       N = 4096): routed-expert attention (lead [1, 8, 2] over a broadcast
+       KV lead [1, 8, 1], m = 32; a causal-skewed sorted assignment with an
+       all-inactive tile, and a ragged NS = 4059) and flash attention
+       ([1, 16, 4096, 128] causal and full, and a cross length Nk = 4096
+       for N = 1024), against their plain versions; flash also against
+       ``scaled_dot_product_attention`` as the library yardstick;
   3. parity (float32, TF32 off, 28 layers, random weights from a seed):
      8 requests (batch 4, prompt 512, gen 160) through the monolithic and
      the chunked (prefill chunk 256) engine, and 4 requests of the
@@ -24,13 +31,25 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      the static path's two best logits lie within 1e-3); a preemption
      round trip (the victim's tokens equal its unpreempted run) and a
      prefix-cache run (hits >= 1, tokens equal to the cold engine);
+     the full-sequence forward with ``impl="pallas"`` (the expert kernel)
+     against ``impl="sorted"`` at expert_span = m at N = 4096: every
+     layer's attention on the same input, the logits' greedy tokens and
+     ``lm_loss``; ``static_generate`` with ``impl="pallas"`` against the
+     chunked engine at prompt 1024 (m = 8 > span 4);
   4. production serves: the same trace at the production dtypes (bf16
      compute) through ``repro_torch.launch.serve.main``, monolithic and
      then chunked (``--prefill-chunk 256``, the slice's main path), the
      kernel launch counters set to 0 just before each and read just after
-     (chunk launches = 28 layers x prefill dispatches);
-  5. summary: one JSON line of per-kernel results (launches from the
-     chunked serve), then the final line ``{"ok": true, "device": {...}}``.
+     (chunk launches = 28 layers x prefill dispatches); then the
+     full-sequence path at bf16: ``lm_forward`` tokens/s at B = 1,
+     N = 4096 for ``impl="pallas"`` and ``impl="sorted"``, and one
+     monolithic serve with ``--attn-impl pallas`` (expert launches = 28
+     layers x full-sequence forwards);
+  5. summary: one JSON line of per-kernel results (launches from each
+     kernel's main path: the chunked serve for the serving kernels, the
+     bf16 full-sequence path for the expert kernel, 0 for flash attention,
+     which no model path calls), then the final line
+     ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, printing no result, when no CUDA device is present or the
 repository's ``src/`` is missing.
@@ -54,6 +73,8 @@ PEAK_OPS = {torch.float32: 67e12,   # FP32 outside the tensor cores
 TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
 S, HKV, G, D, W, K, M = 4, 8, 2, 128, 128, 128, 6
 PARITY_GAP = 1e-3
+LAYER_TOL = 1e-5      # float32 routed partials, expert kernel vs span = m
+LOSS_TOL = 1e-3       # float32 lm_loss (nats), pallas vs sorted span = m
 
 
 def fail(msg: str) -> None:
@@ -97,7 +118,7 @@ def phase_env():
     print(f"build: {time.perf_counter() - t0:.2f} s "
           f"(per source {_build.BUILD_SECONDS})")
     for stem in ("mita_paged_attn", "mita_paged_finalize",
-                 "mita_chunk_prefill"):
+                 "mita_chunk_prefill", "mita_expert_attn", "flash_attn"):
         for line in _build.ptxas_report(stem).splitlines():
             if any(k in line for k in ("Used", "spill", "Compiling entry")):
                 print(f"ptxas[{stem}] {line.strip()}")
@@ -447,6 +468,153 @@ def phase_chunk_kernel():
     return res
 
 
+# ---------------------------------------------- phase 2 (full sequence) ---
+
+FWD_N = 4096                        # the forward cell: B = 1, N = 4096
+FWD_M = FWD_N // W                  # 32 landmarks / experts
+
+
+def expert_inputs(dtype, ns, seed):
+    """Sub-queries of one forward layer of qwen3-0.6b (lead [1, 8, 2], KV
+    lead [1, 8, 1], M = 32, K = d = 128), sorted by expert.  Causal
+    routing: position p can route to experts 0 .. (p+1)//W - 1, drawn
+    uniformly (early experts take more queries); the first window's
+    positions have none (inactive id M), so the sorted tail holds whole
+    inactive tiles."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    dev = "cuda"
+    lead = (1, HKV, G)
+    vis = (torch.arange(ns, device=dev) + 1) // W            # experts seen
+    draw = torch.rand(lead + (ns,), generator=g, device=dev)
+    a = torch.where(vis > 0, (draw * vis).long(), FWD_M)
+    a = torch.sort(a, dim=-1).values.to(torch.int32)
+    q = torch.randn(lead + (ns, D), generator=g, device=dev).to(dtype)
+    ke, ve = (torch.randn((1, HKV, 1, FWD_M, K, D), generator=g,
+                          device=dev).to(dtype) for _ in range(2))
+    valid = torch.rand((1, HKV, 1, FWD_M, K), generator=g, device=dev) > 0.05
+    return q, a, ke, ve, valid
+
+
+def expert_bound(args, dtype):
+    """Bytes: q in, o out, assign, each expert tile and validity once per
+    KV head, m and l out.  Operations: each active row's score and value
+    products over the valid keys of its own expert."""
+    q, a, ke, _, valid = args
+    es = torch.tensor([], dtype=dtype).element_size()
+    rows = q.numel() // D
+    nbytes = 2 * q.numel() * es + rows * (4 + 8) \
+        + 2 * ke.numel() * es + valid.numel()
+    n_valid = valid.sum(-1).reshape(HKV, FWD_M)               # [Hkv, M]
+    act = a < FWD_M                                           # [1,Hkv,G,NS]
+    keys = torch.where(act, n_valid[torch.arange(HKV, device="cuda")
+                                    [:, None, None],
+                                    a[0].long().clamp(max=FWD_M - 1)][None],
+                       0)
+    return nbytes, 4 * D * int(keys.sum())
+
+
+def flash_bound(n, nk, causal, dtype, bh=16):
+    es = torch.tensor([], dtype=dtype).element_size()
+    nbytes = bh * (2 * n + 2 * nk) * D * es
+    pairs = sum(min(i + 1, nk) for i in range(n)) if causal else n * nk
+    return nbytes, 4 * D * bh * pairs
+
+
+def phase_fullseq_kernels():
+    """The routed-expert and flash kernels against their plain versions at
+    the forward shapes; timed with CUDA events (cold L2)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attn as fa
+    from repro_torch.kernels import mita_expert_attn as mea
+    res = {"expert": {}, "flash": {}}
+    for dtype in (torch.float32, torch.bfloat16):
+        tol = TOL[dtype]
+        errs = []
+        for ns, seed in ((FWD_N, 20), (FWD_N - 37, 21)):     # then ragged
+            args = expert_inputs(dtype, ns, seed)
+            ref = mea.expert_attention_plain(*args)
+            got = mea.mita_expert_attention(*args)
+            torch.cuda.synchronize()
+            (o, m, l), (ro, rm, rl) = ((x.float() for x in t)
+                                       for t in (got, ref))
+            act = rl > 0
+            if not torch.equal(act, l > 0):
+                fail(f"mita_expert_attention {dtype} NS {ns}: active rows "
+                     "differ")
+            # normalised output and max on the active rows (the JAX
+            # kernel tests' comparison: o is rounded to the input dtype,
+            # one bf16 ulp of an un-normalised o can exceed the tolerance)
+            for name, x, y in (
+                    ("o / l", (o / l.clamp(min=1e-30)[..., None])[act],
+                     (ro / rl.clamp(min=1e-30)[..., None])[act]),
+                    ("m", m[act], rm[act]), ("l", l, rl)):
+                errs.append((x - y).abs().max().item())
+                if not torch.allclose(x, y, atol=tol, rtol=tol):
+                    fail(f"mita_expert_attention {dtype} NS {ns} {name} "
+                         f"max_abs_err {errs[-1]}")
+            inactive = args[1] >= FWD_M
+            if int(inactive.sum(-1).min()) < 64:
+                fail("expert inputs: a lead row without an inactive tile")
+            if got[0][inactive].abs().max() != 0 \
+                    or got[2][inactive].abs().max() != 0 \
+                    or (got[1][inactive] != torch.finfo(torch.float32).min
+                        ).any():
+                fail(f"mita_expert_attention {dtype}: inactive rows are not "
+                     "empty")
+            if ns == FWD_N:
+                kern = lambda: mea.mita_expert_attention(*args)  # noqa: E731
+                plain = lambda: mea.expert_attention_plain(*args)  # noqa: E731
+                ms, pms = cuda_ms(kern, iters=20), cuda_ms(plain, iters=5)
+                bms, by = bound_ms(*expert_bound(args, dtype), dtype)
+        err = max(errs)
+        res["expert"][dtype] = dict(max_abs_err=err, ms=ms, plain_ms=pms,
+                                    bound_ms=bms, bound_by=by, tol=tol,
+                                    library_ms=None)
+        print(f"mita_expert_attention {dtype}: max_abs_err {err:.3e} (tol "
+              f"{tol}), kernel {ms:.4f} ms, plain {pms:.4f} ms, bound "
+              f"{bms:.5f} ms ({by})")
+
+        g = torch.Generator(device="cuda").manual_seed(30)
+        q, k, v = (torch.randn((1, 16, FWD_N, D), generator=g, device="cuda")
+                   .to(dtype) for _ in range(3))
+        qx = q[:, :, : FWD_N // 4].contiguous()          # cross: N = 1024
+        row = {}
+        for what, qq, causal in (("causal", q, True), ("full", q, False),
+                                 ("cross causal", qx, True)):
+            ref = fa.flash_attention_plain(qq, k, v, causal=causal)
+            got = fa.flash_attention(qq, k, v, causal=causal)
+            torch.cuda.synchronize()
+            e = (got.float() - ref.float()).abs().max().item()
+            if not torch.allclose(got.float(), ref.float(), atol=tol,
+                                  rtol=tol):
+                fail(f"flash_attention {dtype} {what} max_abs_err {e}")
+            if what == "cross causal":
+                row["cross_max_abs_err"] = e
+                continue
+            kern = lambda: fa.flash_attention(  # noqa: E731
+                q, k, v, causal=causal)
+            plain = lambda: fa.flash_attention_plain(  # noqa: E731
+                q, k, v, causal=causal)
+            lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                q, k, v, is_causal=causal)
+            bms, by = bound_ms(*flash_bound(FWD_N, FWD_N, causal, dtype),
+                               dtype)
+            row[what] = dict(max_abs_err=e, ms=cuda_ms(kern, iters=10),
+                             plain_ms=cuda_ms(plain, iters=5),
+                             library_ms=cuda_ms(lib, iters=10), bound_ms=bms,
+                             bound_by=by, tol=tol)
+            r = row[what]
+            print(f"flash_attention {dtype} {what} [1, 16, {FWD_N}, {D}]: "
+                  f"max_abs_err {e:.3e} (tol {tol}), kernel {r['ms']:.4f} "
+                  f"ms, plain {r['plain_ms']:.4f} ms, sdpa "
+                  f"{r['library_ms']:.4f} ms, bound {bms:.5f} ms ({by})")
+        print(f"flash_attention {dtype} cross length (N {FWD_N // 4}, Nk "
+              f"{FWD_N}, causal): max_abs_err {row['cross_max_abs_err']:.3e}")
+        res["flash"][dtype] = dict(row["causal"], full=row["full"],
+                                   cross_max_abs_err=row["cross_max_abs_err"])
+    return res
+
+
 # ------------------------------------------------------------ phase 3 ------
 
 def check_vs_static(params, scfg, done, prompts, gen, capacity, batch,
@@ -587,6 +755,146 @@ def phase_parity():
     torch.cuda.empty_cache()
 
 
+def phase_fullseq_parity():
+    """float32 (TF32 off), 28 layers: the full-sequence forward with the
+    expert kernel (impl="pallas") against the span path with the whole
+    expert range in its span (impl="sorted", expert_span = m), which the
+    reference holds to the same oracle; then static_generate with
+    impl="pallas" against the chunked engine at prompt 1024.
+
+    Layer by layer, on one routing, the two routed branches agree to
+    LAYER_TOL.  End to end they cannot agree to a fixed tolerance: with
+    random weights, routing and top-k decisions near ties amplify any
+    float-order difference (the span path on inputs perturbed by 1e-7
+    relative moves the logits as far), so the logits are held to the
+    oracle (`core.mita.mita_attention`, backend "mita_ref"): by the median
+    over positions of the largest logit difference, the pallas logits must
+    lie within twice the larger of the span path's distance to it and
+    that float sensitivity; lm_loss must agree to LOSS_TOL."""
+    import dataclasses
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.core import mita as mref
+    from repro_torch.core import mita_sparse as msp
+    from repro_torch.data import DataConfig, synthetic_batch
+    from repro_torch.models import modules as nn
+    from repro_torch.models import transformer as tfm
+    from repro_torch.serve import EngineConfig, Request, ServingEngine
+
+    base = dataclasses.replace(get_arch("qwen3-0.6b").model,
+                               compute_dtype=torch.float32)
+
+    def with_attn(**kw):
+        return dataclasses.replace(base, attn=dataclasses.replace(
+            base.attn, **kw))
+
+    cfg_p = with_attn(impl="pallas")
+    cfg_s = with_attn(impl="sorted", expert_span=FWD_M)
+    cfg_ref = with_attn(backend="mita_ref")
+    params = tfm.lm_init(torch.Generator(device="cuda").manual_seed(0),
+                         base, "cuda")
+    batch = synthetic_batch(DataConfig(vocab=base.vocab, seq_len=FWD_N,
+                                       global_batch=1), 0)
+    toks = torch.as_tensor(batch["tokens"], device="cuda")
+    with torch.inference_mode():
+        # every layer's routed branch on one routing: the expert kernel
+        # (span 0) against the span path over all m experts, compared as
+        # normalised partials on the active rows (inputs: the span run)
+        x = nn.embed(params["emb"], toks, base)
+        pos = torch.arange(FWD_N, device="cuda")
+        mcfg = base.attn.mita_cfg(FWD_N)
+        layer_err = 0.0
+        for i in range(base.n_layers):
+            lp = tfm.layer_params(params["blocks"], i)
+            q, k, v = nn._qkv(lp["attn"], nn.rms_norm(x, lp["ln1"]), base,
+                              pos)
+            q_lm = mref.extract_landmarks(q.mean(dim=2, keepdim=True), mcfg)
+            s_kv = mref.landmark_scores(k, q_lm, mcfg)
+            r = mref.routing_logits(q, q_lm, mcfg)
+            k_e, v_e, valid = mref.gather_topk(k, v, s_kv, mcfg)
+            p_k, p_s = (msp._routed_sorted(q, k_e, v_e, valid, r, mcfg,
+                                           base.attn.block_q, span)
+                        for span in (0, FWD_M))
+            act = p_s.l > 0
+            if not torch.equal(act, p_k.l > 0):
+                fail(f"layer {i}: routed branch active rows differ")
+            for name, a, b in (
+                    ("o / l", p_k.o / p_k.l.clamp(min=1e-30)[..., None],
+                     p_s.o / p_s.l.clamp(min=1e-30)[..., None]),
+                    ("m", p_k.m, p_s.m)):
+                a, b = a[act], b[act]
+                err = (a - b).abs().max().item()
+                layer_err = max(layer_err, err)
+                if not torch.allclose(a, b, atol=LAYER_TOL, rtol=LAYER_TOL):
+                    fail(f"layer {i}: routed {name}, expert kernel vs span "
+                         f"path, max_abs_err {err} > {LAYER_TOL}")
+            x = tfm.block_apply(lp, x, cfg_s, pos)
+        logits = {what: tfm.lm_forward(params, toks, c)[0]
+                  for what, c in (("pallas", cfg_p), ("sorted", cfg_s),
+                                  ("oracle", cfg_ref))}
+        # the model's own float sensitivity: the span path on the input
+        # embeddings times (1 + 1e-7 noise)
+        g = torch.Generator(device="cuda").manual_seed(5)
+        x = nn.embed(params["emb"], toks, base)
+        x = x * (1 + 1e-7 * torch.randn(x.shape, generator=g, device="cuda"))
+        logits["sorted, input x (1 + 1e-7 noise)"] = nn.unembed(
+            params["emb"], tfm.lm_backbone(params, x, cfg_s), base)[0]
+        loss = {what: tfm.lm_loss(params, batch, c).item()
+                for what, c in (("pallas", cfg_p), ("sorted", cfg_s))}
+    if logits["pallas"].shape != (FWD_N, base.vocab) \
+            or not torch.isfinite(logits["pallas"]).all():
+        fail(f"pallas logits malformed: {tuple(logits['pallas'].shape)}")
+
+    def median_err(a, b):
+        """Median over positions of the largest logit difference."""
+        err = (logits[a] - logits[b]).abs().max(-1).values
+        greedy = int((logits[a].argmax(-1) != logits[b].argmax(-1)).sum())
+        print(f"  logits {a} vs {b}: median {err.median().item():.4e}, max "
+              f"{err.max().item():.4e}, greedy tokens differ at {greedy} of "
+              f"{FWD_N} positions")
+        return err.median().item()
+
+    print(f"full-sequence forward (float32, {base.n_layers} layers, N "
+          f"{FWD_N}): per-layer routed partials, expert kernel vs span "
+          f"{FWD_M} on one routing: max_abs_err {layer_err:.3e} (tol "
+          f"{LAYER_TOL}); lm_loss pallas {loss['pallas']:.7f} sorted "
+          f"{loss['sorted']:.7f} (tol {LOSS_TOL})")
+    median_err("pallas", "sorted")
+    floor = median_err("sorted", "sorted, input x (1 + 1e-7 noise)")
+    to_ref = {impl: median_err(impl, "oracle")
+              for impl in ("pallas", "sorted")}
+    if abs(loss["pallas"] - loss["sorted"]) > LOSS_TOL \
+            or not np.isfinite(loss["pallas"]):
+        fail(f"lm_loss {loss}")
+    if to_ref["pallas"] > 2 * max(to_ref["sorted"], floor):
+        fail(f"the pallas logits lie farther from the oracle ({to_ref}) "
+             f"than twice the span path's distance or its float "
+             f"sensitivity ({floor})")
+    del logits, x
+
+    # static_generate with the expert kernel against the chunked engine,
+    # prompt 1024: m = 8 > the span 4 of the default sorted path
+    n, gen, n_req = 1024, 32, 4
+    prompts = list(synthetic_batch(DataConfig(
+        vocab=base.vocab, seq_len=n, global_batch=n_req), 1)["tokens"])
+    pages = -(-(n + gen) // W)
+    eng = ServingEngine(params, base, EngineConfig(
+        n_slots=n_req, pages_per_slot=pages, n_pages=2 * n_req * pages,
+        prefill_chunk=256), device="cuda")
+    done = eng.run([Request(rid=i, prompt=p, max_new_tokens=gen)
+                    for i, p in enumerate(prompts)])
+    if [f.reason for f in done] != ["complete"] * n_req:
+        fail(f"chunked serve, prompt {n}: {[f.reason for f in done]}")
+    scfg = dataclasses.replace(eng.backend.cfg, attn=dataclasses.replace(
+        eng.backend.cfg.attn, impl="pallas"))
+    div = check_vs_static(params, scfg, done, prompts, gen, pages * W, n_req,
+                          f"static pallas vs chunked, prompt {n}")
+    print(f"parity (float32, prompt {n}): static_generate with impl=pallas "
+          f"vs the chunked engine (chunk 256), {n_req} requests x {gen} "
+          f"tokens, {div} near-tie divergences")
+    del params, eng
+    torch.cuda.empty_cache()
+
+
 # ------------------------------------------------------------ phase 4 ------
 
 def production_serve(card: str, extra: list, what: str):
@@ -642,6 +950,104 @@ def phase_production(card: str):
     return launches
 
 
+class _Counted:
+    """Counts calls of a module function while active (the forwards a
+    serve runs), without changing what it does."""
+
+    def __init__(self, module, name):
+        self.module, self.name, self.calls = module, name, 0
+
+    def __enter__(self):
+        self.fn = getattr(self.module, self.name)
+
+        def counted(*a, **kw):
+            self.calls += 1
+            return self.fn(*a, **kw)
+
+        setattr(self.module, self.name, counted)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.fn)
+
+
+def phase_fullseq_production(card: str):
+    """The slice's main path at the production dtypes (bf16 compute):
+    lm_forward at B = 1, N = 4096 with impl="pallas" and impl="sorted" in
+    turns (tokens/s), then one monolithic serve with --attn-impl pallas
+    through `repro_torch.launch.serve.main`.  The launch counters are set
+    to 0 just before and read just after; expert launches must equal 28
+    layers x full-sequence forwards."""
+    import dataclasses
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.data import DataConfig, synthetic_batch
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import main as serve_main
+    from repro_torch.models import transformer as tfm
+
+    cfg = get_arch("qwen3-0.6b").model
+    cfgs = {impl: dataclasses.replace(cfg, attn=dataclasses.replace(
+        cfg.attn, impl=impl)) for impl in ("pallas", "sorted")}
+    params = tfm.lm_init(torch.Generator(device="cuda").manual_seed(0), cfg,
+                         "cuda")
+    toks = torch.as_tensor(synthetic_batch(DataConfig(
+        vocab=cfg.vocab, seq_len=FWD_N, global_batch=1), 0)["tokens"],
+        device="cuda")
+    times = {"pallas": [], "sorted": []}
+    forwards = 0
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    with torch.inference_mode():
+        for impl in ("pallas", "sorted"):                  # warm-up
+            tfm.lm_forward(params, toks, cfgs[impl])
+            forwards += impl == "pallas"
+        for impl in ("pallas", "sorted", "sorted", "pallas") * 2:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits = tfm.lm_forward(params, toks, cfgs[impl])
+            torch.cuda.synchronize()
+            times[impl].append(time.perf_counter() - t0)
+            forwards += impl == "pallas"
+            if not torch.isfinite(logits).all():
+                fail(f"bf16 lm_forward impl={impl}: non-finite logits")
+    del logits, params
+    torch.cuda.empty_cache()
+    tps = {k: FWD_N / (sum(v) / len(v)) for k, v in times.items()}
+    print(f"bf16 lm_forward ({card}), B = 1, N = {FWD_N}: impl=pallas "
+          f"{tps['pallas']:.1f} tok/s, impl=sorted (span 4) "
+          f"{tps['sorted']:.1f} tok/s (mean of 4 turns each; seconds "
+          f"{times}), peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+
+    with _Counted(tfm, "lm_prefill") as prefills:
+        summary = serve_main(["--engine", "continuous", "--batch", "4",
+                              "--prompt-len", "1024", "--gen", "32",
+                              "--requests", "8", "--device", "cuda",
+                              "--attn-impl", "pallas"])
+        torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    n_layers = cfg.n_layers
+    if summary["finished"] != 8 or set(summary["reasons"]) != {"complete"}:
+        fail(f"pallas serve finished {summary['reasons']}")
+    for rid, tk in summary["tokens"].items():
+        if len(tk) != 32 or tk.min() < 0 or tk.max() >= cfg.vocab:
+            fail(f"pallas serve request {rid} tokens malformed")
+    n_fwd = forwards + prefills.calls
+    if not 0 < launches["mita_expert_attention"] == n_layers * n_fwd:
+        fail(f"expert launches {launches['mita_expert_attention']} != "
+             f"{n_layers} layers x {n_fwd} full-sequence forwards (> 0)")
+    if launches["flash_attention"] != 0:
+        fail("a model path launched the flash kernel")
+    print(f"pallas monolithic serve ({card}): prompt 1024 + 32, 8 requests, "
+          f"batch 4: {summary['tok_s']:.1f} tok/s, TTFT p50 "
+          f"{summary['ttft_p50_s'] * 1e3:.1f} ms p99 "
+          f"{summary['ttft_p99_s'] * 1e3:.1f} ms, {prefills.calls} prefill "
+          f"forwards; expert launches {launches['mita_expert_attention']} = "
+          f"{n_layers} x ({forwards} lm_forward + {prefills.calls} "
+          f"lm_prefill); launches {launches}")
+    return launches, tps
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda is not available; nothing to check",
@@ -657,8 +1063,13 @@ def main() -> int:
     card = phase_env()
     kern = phase_kernels()
     kern["chunk"] = phase_chunk_kernel()
+    kern.update(phase_fullseq_kernels())
     phase_parity()
+    phase_fullseq_parity()
     launches = phase_production(card)
+    fs_launches, _ = phase_fullseq_production(card)
+    launches["mita_expert_attention"] = fs_launches["mita_expert_attention"]
+    launches["flash_attention"] = fs_launches["flash_attention"]
 
     bf = torch.bfloat16
     rows = []
@@ -671,17 +1082,30 @@ def main() -> int:
              "src/repro/kernels/mita_paged_finalize.py:119"),
             ("chunk", "mita_chunk_prefill_fused",
              "src/repro_torch/csrc/mita_chunk_prefill.cu",
-             "src/repro/kernels/mita_chunk_prefill.py:428")):
+             "src/repro/kernels/mita_chunk_prefill.py:428"),
+            ("expert", "mita_expert_attention",
+             "src/repro_torch/csrc/mita_expert_attn.cu",
+             "src/repro/kernels/mita_expert_attn.py:80"),
+            ("flash", "flash_attention",
+             "src/repro_torch/csrc/flash_attn.cu",
+             "src/repro/kernels/flash_attn.py:79")):
         r, r32 = kern[key][bf], kern[key][torch.float32]
-        rows.append({
+        row = {
             "name": name, "route": "cuda", "source": src_file,
             "replaces": replaces, "launches": launches[name],
             "max_abs_err": r["max_abs_err"], "max_err": r["max_abs_err"],
             "ms": r["ms"], "kernel_ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-            "library_ms": None, "dtype": "bfloat16", "tol": r["tol"],
-            "f32": {k: r32[k] for k in ("max_abs_err", "ms", "plain_ms",
-                                        "bound_ms", "bound_by", "tol")}})
+            "library_ms": r.get("library_ms"), "dtype": "bfloat16",
+            "tol": r["tol"],
+            "f32": {k: r32.get(k) for k in ("max_abs_err", "ms", "plain_ms",
+                                            "bound_ms", "bound_by", "tol",
+                                            "library_ms")}}
+        if key == "flash":
+            row["shape"] = f"[1, 16, {FWD_N}, {D}] causal"
+            row["full"] = r["full"]
+            row["f32"]["full"] = r32["full"]
+        rows.append(row)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

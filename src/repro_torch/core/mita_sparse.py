@@ -1,12 +1,22 @@
-"""Efficient MiTA — the sorted span path of the production forward (port
-of ``repro.core.mita_sparse``, ``impl="sorted"`` with ``expert_span > 0``).
+"""Efficient MiTA — the production O(N·(m+ks)) forward (port of
+``repro.core.mita_sparse``).  Three interchangeable routed-branch
+strategies, all exact w.r.t. `mita.mita_attention` up to documented drop
+conditions:
 
-Sub-queries are sorted by expert assignment; attention runs in fixed-size
-query blocks, each of which loads a static span of ``expert_span`` expert
-tiles starting at its first expert and masks the rest.  Queries whose
-expert falls outside the span keep only the shared and local branches —
-the same documented drop rule as the reference.  The ``capacity`` strategy
-and the Pallas expert kernel (``impl="pallas"``) are not ported yet.
+``sorted``   — sub-queries are sorted by expert assignment; attention runs
+    in fixed-size query blocks, each of which loads a static span of
+    ``expert_span`` expert tiles starting at its first expert and masks
+    the rest.  Queries whose expert falls outside the span keep only the
+    shared and local branches (the reference's drop rule).
+``pallas``   — the same sort, then the routed-expert kernel
+    (`kernels.ops.routed_expert_partial`, ``expert_span=0``): every
+    sub-query attends its own expert, with no drop rule.  The name is the
+    reference's; on the card it runs the hand-written CUDA kernel, on the
+    CPU its plain version.  Forward only, as in the reference.
+``capacity`` — MoE capacity routing: each expert takes at most
+    ``C = ceil(s·N/m · capacity_factor)`` sub-queries (padded to a multiple
+    of 8) in a dense [m, C, k] product; overflowing sub-queries drop their
+    routed branch.  Pair with `aux_load_balance`.
 """
 
 from __future__ import annotations
@@ -19,6 +29,9 @@ from repro_torch.core import mita as mref
 from repro_torch.core.combine import Partial, combine, partial_from_scores
 from repro_torch.core.mita import MiTAConfig
 from repro_torch.device import NEG_INF
+from repro_torch.kernels import ops
+
+IMPLS = ("sorted", "capacity", "pallas")
 
 
 def _take_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -29,13 +42,13 @@ def _take_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 
 def _routed_sorted(q, k_e, v_e, valid, r, cfg: MiTAConfig, block_q: int,
                    expert_span: int) -> Partial:
-    """Sorted block-span routed branch.  q: [..., N, d].  Routing logits
-    with broadcast-1 lead dims are expanded to q's lead (same result as
-    the reference's shared-routing form, without its traffic saving)."""
-    if expert_span <= 0:
-        raise NotImplementedError(
-            "expert_span=0 routes to the Pallas expert kernel, which is "
-            "not ported yet (ROADMAP B.4)")
+    """Sorted routed branch.  q: [..., N, d].  ``expert_span > 0``: the
+    static-span blocks; ``expert_span == 0``: the expert kernel (any N·s).
+    Routing logits with broadcast-1 lead dims are expanded to q's lead
+    (same result as the reference's shared-routing form, without its
+    traffic saving); k_e / v_e keep their broadcast KV lead."""
+    if expert_span < 0:
+        raise ValueError(f"expert_span {expert_span} < 0")
     lead = q.shape[:-2]
     n, d = q.shape[-2:]
     s, m, kk = cfg.s, cfg.m, cfg.k
@@ -59,9 +72,18 @@ def _routed_sorted(q, k_e, v_e, valid, r, cfg: MiTAConfig, block_q: int,
     q_sorted = _take_rows(sub_q, order)
     a_sorted = torch.gather(a_sortkey, -1, order)
 
+    if expert_span == 0:
+        o_s, m_s, l_s = ops.routed_expert_partial(
+            q_sorted, a_sorted, k_e, v_e, valid, block_q=block_q)
+        return _merge_subqueries(_take_rows(o_s, inv),
+                                 torch.gather(m_s, -1, inv),
+                                 torch.gather(l_s, -1, inv), lead, n, s,
+                                 q.dtype)
+
     if ns % block_q:
         raise ValueError(f"N*s={ns} not divisible by block_q={block_q} "
-                         "(the static-span path needs whole blocks)")
+                         "(the static-span path needs whole blocks; "
+                         "impl='pallas' pads internally)")
     nb = ns // block_q
     qb = q_sorted.reshape(lead + (nb, block_q, d))
     ab = a_sorted.reshape(lead + (nb, block_q))
@@ -121,15 +143,74 @@ def _merge_subqueries(o, mm, ll, lead, n, s, dtype) -> Partial:
     return Partial(o=o_tot.to(dtype), m=m_star, l=l_tot)
 
 
+def _routed_capacity(q, k_e, v_e, valid, r, cfg: MiTAConfig,
+                     capacity_factor: float) -> Partial:
+    """Capacity-routed branch (beyond-paper, fully dense).  q: [..., N, d]."""
+    lead = q.shape[:-2]
+    n, d = q.shape[-2:]
+    r = r.expand(lead + r.shape[-2:])
+    s, m = cfg.s, cfg.m
+    cap = int(math.ceil(s * n / m * capacity_factor))
+    cap = max(8, ((cap + 7) // 8) * 8)            # pad to a lane multiple
+
+    top_r, e_idx = mref.topk_first(r, s)           # [..., N, s]
+    ns = n * s
+    a = e_idx.reshape(lead + (ns,))
+    ok = (top_r > NEG_INF / 2).reshape(lead + (ns,))
+    a_key = torch.where(ok, a, m)
+
+    # position of each sub-query in its expert's queue (stable order)
+    onehot = torch.nn.functional.one_hot(a_key, m + 1)
+    pos = torch.cumsum(onehot, dim=-2) - 1          # [..., ns, m+1]
+    slot = torch.gather(pos, -1, a_key[..., None])[..., 0]
+    keep = ok & (slot < cap)
+    dst = torch.where(keep, a * cap + slot, m * cap)   # m*cap: dropped
+
+    # scatter sub-queries into [..., m, cap, d] (row m*cap is a sink)
+    sub_q = q.repeat_interleave(s, dim=-2)
+    q_exp = torch.zeros(lead + (m * cap + 1, d), dtype=q.dtype,
+                        device=q.device)
+    q_exp = q_exp.scatter(-2, dst[..., None].expand(lead + (ns, d)), sub_q)
+    q_exp = q_exp[..., : m * cap, :].reshape(lead + (m, cap, d))
+
+    scores = q_exp @ k_e.transpose(-1, -2) / math.sqrt(d)   # [..., m, cap, k]
+    p = partial_from_scores(scores, v_e.expand(lead + v_e.shape[-3:]),
+                            mask=valid[..., None, :])
+
+    def back(x, fill):
+        """Per-slot values [..., m, cap, *w] -> per-sub-query [..., ns, *w]."""
+        flat = x.reshape(lead + (m * cap,) + x.shape[len(lead) + 2:])
+        pad = torch.full(lead + (1,) + flat.shape[len(lead) + 1:], fill,
+                         dtype=flat.dtype, device=flat.device)
+        flat = torch.cat([flat, pad], dim=len(lead))
+        if flat.ndim == len(lead) + 2:
+            return _take_rows(flat, dst)
+        return torch.gather(flat, -1, dst)
+
+    o = torch.where(keep[..., None], back(p.o, 0.0), 0.0)
+    mm = torch.where(keep, back(p.m, NEG_INF), NEG_INF)
+    ll = torch.where(keep, back(p.l, 0.0), 0.0)
+    return _merge_subqueries(o, mm, ll, lead, n, s, q.dtype)
+
+
+def aux_load_balance(r: torch.Tensor, cfg: MiTAConfig) -> torch.Tensor:
+    """Switch-style load-balance loss over expert assignments (keeps the
+    capacity path's drop rate low)."""
+    probs = torch.softmax(torch.where(r <= NEG_INF / 2, NEG_INF, r), dim=-1)
+    top = mref.argmax_first(r)
+    frac = torch.nn.functional.one_hot(top, cfg.m).float().mean(dim=-2)
+    imp = probs.mean(dim=-2)
+    return cfg.m * (frac * imp).sum(dim=-1).mean()
+
+
 def mita_attention_sparse(q, k, v, cfg: MiTAConfig, impl: str = "sorted",
                           block_q: int = 128, expert_span: int = 4,
+                          capacity_factor: float = 1.25,
                           q_landmarks=None) -> torch.Tensor:
-    """Production MiTA.  Semantics == `mita.mita_attention`, with the
-    routed branch computed by the sorted static-span strategy."""
-    if impl != "sorted":
-        raise NotImplementedError(
-            f"mita_attention_sparse impl={impl!r} is not ported yet "
-            "(ROADMAP A.9: capacity routing; B.4: the expert kernel)")
+    """Production MiTA.  Semantics == `mita.mita_attention` (the oracle),
+    with the routed branch computed by the selected strategy."""
+    if impl not in IMPLS:
+        raise ValueError(f"impl {impl!r} not in {IMPLS}")
     q_lm = mref.extract_landmarks(q if q_landmarks is None else q_landmarks,
                                   cfg)
     s_kv = mref.landmark_scores(k, q_lm, cfg)
@@ -145,8 +226,13 @@ def mita_attention_sparse(q, k, v, cfg: MiTAConfig, impl: str = "sorted",
     if not cfg.compress_only:
         k_e, v_e, valid = mref.gather_topk(k, v, s_kv, cfg)
         bq = min(block_q, q.shape[-2] * cfg.s)
-        parts.append(_routed_sorted(q, k_e, v_e, valid, r_route, cfg, bq,
-                                    min(expert_span, cfg.m)))
+        if impl == "capacity":
+            parts.append(_routed_capacity(q, k_e, v_e, valid, r_route, cfg,
+                                          capacity_factor))
+        else:
+            span = 0 if impl == "pallas" else min(expert_span, cfg.m)
+            parts.append(_routed_sorted(q, k_e, v_e, valid, r_route, cfg,
+                                        bq, span))
     if cfg.causal and cfg.include_local:
         parts.append(mref._local_partial(q, k, v, cfg))
     return combine(parts)

@@ -2,8 +2,9 @@
 
 Each ``csrc/*.cu`` source compiles with ``nvcc`` for ``sm_90a`` into its
 own shared library with a plain C interface, under ``build/repro_torch/``
-at the repository root, named by a hash of the source and the flags, so a
-changed source rebuilds and an unchanged one is reused.  The sources
+at the repository root, named by a hash of the source, the shared headers
+(``csrc/*.cuh``) and the flags, so a changed source rebuilds and an
+unchanged one is reused.  The sources
 compile in parallel, one ``nvcc`` each.  ``ptxas -v``'s report (registers,
 shared memory, spills) is kept beside each library (`ptxas_report`).
 
@@ -46,6 +47,8 @@ def nvcc_path() -> str:
 
 def _target(src: Path) -> Path:
     h = hashlib.sha256(src.read_bytes() + " ".join(FLAGS).encode())
+    for header in sorted(CSRC.glob("*.cuh")):    # shared device code
+        h.update(header.read_bytes())
     return BUILD_DIR / f"{src.stem}-{h.hexdigest()[:16]}.so"
 
 

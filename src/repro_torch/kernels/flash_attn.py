@@ -1,0 +1,105 @@
+"""Blocked flash attention: CUDA kernel + plain PyTorch version.
+
+Port of ``repro.kernels.flash_attn.flash_attention`` (Pallas) and of its
+oracle ``repro.kernels.ref.flash_attention_ref``: q [B, H, N, d], k / v
+[B, H, Nk, d] -> [B, H, N, d] in q's dtype, causal (row i sees keys
+0..i, also when Nk != N) or full.
+
+* `flash_attention` launches ``csrc/flash_attn.cu`` on CUDA tensors and
+  adds one to ``LAUNCHES``.
+* `flash_attention_plain` is the same function in plain PyTorch with the
+  kernel's rounding: q is scaled in float32, the softmax weights stay
+  float32 and the output is rounded once (the reference oracle casts the
+  weights to v's dtype before the value product).
+
+Both keep the JAX contract: ``block_q`` / ``block_k`` (capped at N / Nk)
+must divide N / Nk, else ValueError; neither changes the result.  No
+model path calls this kernel; its one entry point is
+`repro_torch.kernels.ops.flash_attention`.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+
+from repro_torch.device import NEG_INF
+from repro_torch.kernels import _build
+
+LAUNCHES = 0            # kernel launches since the last reset
+
+
+def check_blocks(q, k, v, block_q: int, block_k: int) -> None:
+    """The JAX kernel's shape contract."""
+    if q.ndim != 4 or k.ndim != 4 or k.shape != v.shape \
+            or k.shape[:2] != q.shape[:2] or k.shape[-1] != q.shape[-1]:
+        raise ValueError(f"q {tuple(q.shape)}, k {tuple(k.shape)}, v "
+                         f"{tuple(v.shape)}: expected [B, H, N, d] and "
+                         "[B, H, Nk, d]")
+    n, nk = q.shape[-2], k.shape[-2]
+    if n % min(block_q, n) or nk % min(block_k, nk):
+        raise ValueError("sequence length must divide block size")
+
+
+def flash_attention_plain(q, k, v, causal: bool = False, block_q: int = 128,
+                          block_k: int = 128):
+    """Plain PyTorch version of the kernel."""
+    check_blocks(q, k, v, block_q, block_k)
+    n, nk, d = q.shape[-2], k.shape[-2], q.shape[-1]
+    s = (q.float() * (1.0 / math.sqrt(d))) @ k.float().transpose(-1, -2)
+    if causal:
+        rows = torch.arange(n, device=q.device)[:, None]
+        s = torch.where(torch.arange(nk, device=q.device) <= rows, s,
+                        NEG_INF)
+    mx = s.amax(dim=-1, keepdim=True)
+    safe = torch.where(mx == NEG_INF, 0.0, mx)
+    p = torch.where(s == NEG_INF, 0.0, torch.exp(s - safe))
+    l = p.sum(dim=-1, keepdim=True)
+    return ((p @ v.float()) / torch.where(l == 0.0, 1.0, l)).to(q.dtype)
+
+
+def _lib():
+    lib = _build.load("flash_attn")
+    fn = lib.flash_attention
+    if fn.argtypes is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [i] + [p] * 4 + [i] * 5 + [ctypes.c_float, p]
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def _check(cond: bool, msg: str) -> None:
+    if not cond:
+        raise ValueError(f"flash_attention: {msg}")
+
+
+def flash_attention(q, k, v, causal: bool = False, block_q: int = 128,
+                    block_k: int = 128):
+    """Launch the CUDA kernel.  q, k, v float32 or bfloat16 (one dtype),
+    head dim a multiple of 16 up to 128."""
+    global LAUNCHES
+    check_blocks(q, k, v, block_q, block_k)
+    dt, dev = q.dtype, q.device
+    _check(dev.type == "cuda", "needs CUDA tensors")
+    _check(dt in (torch.float32, torch.bfloat16),
+           f"dtype {dt} (float32 or bfloat16 only)")
+    _check(k.dtype == dt and v.dtype == dt, "q, k, v dtypes differ")
+    _check(k.device == dev and v.device == dev,
+           "all tensors must be on one device")
+    b, h, n, d = q.shape
+    nk = k.shape[-2]
+    _check(d % 16 == 0 and 16 <= d <= 128,
+           f"head dim {d} (a multiple of 16, at most 128)")
+    o = torch.empty_like(q, memory_format=torch.contiguous_format)
+    if b * h * n == 0:
+        return o
+    args = [q.contiguous(), k.contiguous(), v.contiguous()]
+    err = _lib().flash_attention(
+        0 if dt == torch.float32 else 1, *[a.data_ptr() for a in args],
+        o.data_ptr(), b * h, n, nk, d, int(causal), 1.0 / math.sqrt(d),
+        torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(err, "flash_attention launch")
+    LAUNCHES += 1
+    return o

@@ -1,8 +1,10 @@
 """Dispatch layer of the port's kernels (port of ``repro.kernels.ops``).
 
 `paged_decode_attend`, `paged_finalize` and `batched_chunk_prefill` are
-the only points where the serving path reaches a kernel.  The tensors
-decide where it runs:
+the only points where the serving path reaches a kernel;
+`routed_expert_partial` is where the full-sequence forward reaches one
+(``impl="pallas"``), and `flash_attention` is the one entry of the flash
+kernel, which no model path calls.  The tensors decide where it runs:
 
 * all on the CPU  -> the plain PyTorch version beside the kernel;
 * all on CUDA     -> the hand-written CUDA kernel, or an error is raised;
@@ -20,7 +22,21 @@ and the trailing row R a write scratch.
 
 from __future__ import annotations
 
+import os
+
 import torch
+
+DEFAULT_BLOCK_Q = 128
+DEFAULT_BLOCK_K = 128
+
+
+def default_block_q() -> int:
+    """Query block of the full-sequence paths: ``REPRO_BLOCK_Q`` or 128."""
+    return int(os.environ.get("REPRO_BLOCK_Q", DEFAULT_BLOCK_Q))
+
+
+def default_block_k() -> int:
+    return int(os.environ.get("REPRO_BLOCK_K", DEFAULT_BLOCK_K))
 
 
 def gather_pool_rows(pool: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
@@ -113,12 +129,43 @@ def batched_chunk_prefill(q, k, v, lm_q, lm_v, expert_idx, expert_valid,
               external_finalize=external_finalize)
 
 
+def routed_expert_partial(q_sorted, assign, k_e, v_e, valid,
+                          block_q: int | None = None):
+    """Routed-expert partials (o, m, l) of sub-queries sorted by expert:
+    q_sorted [..., NS, d], assign [..., NS] (``>= M`` inactive), k_e / v_e
+    [kv_lead..., M, K, d] and valid [kv_lead..., M, K], where kv_lead may
+    hold broadcast-1 dims.  NS need not divide any block.  Forward only,
+    on either device.  See
+    `kernels.mita_expert_attn.mita_expert_attention`."""
+    from repro_torch.kernels import mita_expert_attn as mea
+    mea.check_forward_only(q_sorted, k_e, v_e)
+    args = (q_sorted, assign, k_e, v_e, valid)
+    fn = (mea.mita_expert_attention if _device_of(*args) == "cuda"
+          else mea.expert_attention_plain)
+    block_q = min(block_q or default_block_q(), q_sorted.shape[-2])
+    return fn(*args, block_q=block_q)
+
+
+def flash_attention(q, k, v, causal: bool = False,
+                    block_q: int | None = None, block_k: int | None = None):
+    """[B, H, N, d] flash attention; ``block_q`` / ``block_k`` must divide
+    N / Nk (the JAX contract).  See `kernels.flash_attn.flash_attention`."""
+    from repro_torch.kernels import flash_attn as fa
+    fn = (fa.flash_attention if _device_of(q, k, v) == "cuda"
+          else fa.flash_attention_plain)
+    return fn(q, k, v, causal=causal, block_q=block_q or default_block_q(),
+              block_k=block_k or default_block_k())
+
+
 def _kernel_modules():
+    from repro_torch.kernels import flash_attn as fa
     from repro_torch.kernels import mita_chunk_prefill as mcp
+    from repro_torch.kernels import mita_expert_attn as mea
     from repro_torch.kernels import mita_paged_attn as mpa
     from repro_torch.kernels import mita_paged_finalize as mpf
     return {"mita_paged_attention": mpa, "mita_paged_finalize_fused": mpf,
-            "mita_chunk_prefill_fused": mcp}
+            "mita_chunk_prefill_fused": mcp, "mita_expert_attention": mea,
+            "flash_attention": fa}
 
 
 def launch_counts() -> dict[str, int]:

@@ -1,14 +1,18 @@
-"""Where a decode step (or a chunked-prefill dispatch) of the continuous
-engine spends its time.
+"""Where a decode step, a chunked-prefill dispatch or a full-sequence
+forward of the port spends its time.
 
     PYTHONPATH=src python -m repro_torch.launch.profile_decode \\
         [--compute-dtype bfloat16|float32] [--steps 20] [--prefill-chunk 256]
+        [--forward 4096 [--attn-impl pallas|sorted|capacity]]
 
 Fills the engine's slots with one admission group (qwen3-0.6b, random
 weights from seed 0), warms up, then records ``--steps`` decode steps
 under ``torch.profiler`` (CPU + CUDA).  With ``--prefill-chunk N`` it
 records instead the chunked-prefill dispatches that admit one group of
 ``--batch`` prompts (after a warm-up group), and reports per dispatch.
+With ``--forward N`` it records one ``lm_forward`` of a batch of one
+sequence of N tokens after a warm-up forward, with the routed branch of
+``--attn-impl`` (pallas: the expert kernel).
 Prints the wall time per step, the share of that time the card was busy
 (sum of kernel times / wall time), and the operators with the largest
 CUDA and CPU self times; the last line is a JSON summary.  Needs a CUDA
@@ -43,6 +47,16 @@ def _self_device_us(ev) -> float:
     return 0.0
 
 
+def _kernel_us(avgs) -> float:
+    """Device time of the window: the device-side (kernel) rows only, as
+    the profiler's own table total counts it; the CPU operator rows repeat
+    the time of the kernels they launch."""
+    from torch.autograd import DeviceType
+    return sum(_self_device_us(e) for e in avgs
+               if e.device_type == DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False))
+
+
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="qwen3-0.6b")
@@ -54,12 +68,24 @@ def main(argv=None) -> dict:
     ap.add_argument("--prompt-len", type=int, default=512)
     ap.add_argument("--steps", type=int, default=20)
     ap.add_argument("--prefill-chunk", type=int, default=0)
+    ap.add_argument("--forward", type=int, default=0,
+                    help="profile one lm_forward of this many tokens")
+    ap.add_argument("--attn-impl", default="pallas",
+                    choices=("pallas", "sorted", "capacity"),
+                    help="--forward: the routed branch's implementation")
     args = ap.parse_args(argv)
 
     device = resolve_device(args.device)
     arch = get_arch(args.arch, smoke=args.smoke)
     cfg = dataclasses.replace(arch.model,
                               compute_dtype=getattr(torch, args.compute_dtype))
+    if args.forward:
+        cfg = dataclasses.replace(cfg, attn=dataclasses.replace(
+            cfg.attn, impl=args.attn_impl))
+        return _profile(args, device, _forward_runner(args, cfg, device),
+                        f"forward of {args.forward} tokens",
+                        {"forward": args.forward,
+                         "attn_impl": args.attn_impl})
     w = cfg.attn.window
     gen = args.steps + 8
     params = tfm.lm_init(torch.Generator(device=device).manual_seed(0),
@@ -81,6 +107,44 @@ def main(argv=None) -> dict:
         eng.submit(Request(rid=i, prompt=prompts[i], max_new_tokens=gen))
     for _ in range(0 if chunked else 4):   # admission + warm-up decode
         eng.step()
+
+    def run():
+        if chunked:                    # prefill dispatches only, no decode
+            before = eng.prefill_dispatches
+            while eng.waiting or eng.prefilling:
+                eng._admit(time.perf_counter())
+                eng._advance_prefill(time.perf_counter())
+            return eng.prefill_dispatches - before
+        for _ in range(args.steps):
+            eng.step()
+        return args.steps
+
+    what = "prefill dispatch" if chunked else "decode step"
+    return _profile(args, device, run, what,
+                    {"batch": args.batch,
+                     "prefill_chunk": args.prefill_chunk})
+
+
+def _forward_runner(args, cfg, device):
+    """A warm-up `lm_forward` now; returns the function that runs the
+    profiled one (returning its count, 1)."""
+    params = tfm.lm_init(torch.Generator(device=device).manual_seed(0),
+                         cfg, device)
+    toks = torch.as_tensor(synthetic_batch(DataConfig(
+        vocab=cfg.vocab, seq_len=args.forward, global_batch=1), 0)["tokens"],
+        device=device)
+
+    def run():
+        with torch.inference_mode():
+            tfm.lm_forward(params, toks, cfg)
+        return 1
+
+    run()
+    return run
+
+
+def _profile(args, device, run, what: str, extra: dict) -> dict:
+    """Record ``run()`` under the profiler; print and return the summary."""
     cuda = device.type == "cuda"
     acts = [torch.profiler.ProfilerActivity.CPU]
     if cuda:
@@ -88,32 +152,20 @@ def main(argv=None) -> dict:
         torch.cuda.synchronize()
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
-        if chunked:                    # prefill dispatches only, no decode
-            before = eng.prefill_dispatches
-            while eng.waiting or eng.prefilling:
-                eng._admit(time.perf_counter())
-                eng._advance_prefill(time.perf_counter())
-            n = eng.prefill_dispatches - before
-        else:
-            for _ in range(args.steps):
-                eng.step()
-            n = args.steps
+        n = run()
         if cuda:
             torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     avgs = prof.key_averages()
-    dev_us = sum(_self_device_us(e) for e in avgs)
+    dev_us = _kernel_us(avgs)
     step_ms = wall / n * 1e3
     busy = dev_us / 1e3 / (wall * 1e3) if cuda else float("nan")
-    what = "prefill dispatch" if chunked else "decode step"
     print(f"{args.compute_dtype}: {step_ms:.3f} ms per {what} "
-          f"(batch {args.batch}, {n} in the window), device busy "
-          f"{busy:.3f} of the window")
+          f"({n} in the window), device busy {busy:.3f} of the window")
     if cuda:
         print(avgs.table(sort_by="self_cuda_time_total", row_limit=TOP))
     print(avgs.table(sort_by="self_cpu_time_total", row_limit=TOP))
-    summary = {"compute_dtype": args.compute_dtype, "batch": args.batch,
-               "prefill_chunk": args.prefill_chunk, "per": what,
+    summary = {"compute_dtype": args.compute_dtype, **extra, "per": what,
                "count": n, "step_ms": step_ms, "device_busy_share": busy,
                "device_ms_per_step": dev_us / 1e3 / n,
                "device": (torch.cuda.get_device_name(0) if cuda else "cpu")}

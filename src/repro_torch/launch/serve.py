@@ -14,7 +14,7 @@
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-0.6b \\
       --batch 4 --prompt-len 512 --gen 160 --engine continuous \\
-      [--prefill-chunk 256 [--prefix-cache]]
+      [--prefill-chunk 256 [--prefix-cache]] [--attn-impl pallas]
   (add ``--smoke --device cpu`` for the reduced config on the CPU)
 
 Weights are random, drawn from seed 0.  Supervision (``Supervisor``),
@@ -24,6 +24,7 @@ speculative decoding and temperature sampling come in later slices.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import time
 from typing import Optional
 
@@ -127,6 +128,11 @@ def main(argv=None) -> dict:
                          "window-aligned prompt prefixes — repeated "
                          "prompts attach cached pages by reference and "
                          "skip straight to the first unshared chunk")
+    ap.add_argument("--attn-impl", choices=("sorted", "capacity", "pallas"),
+                    default=None,
+                    help="routed branch of the monolithic prefill "
+                         "(AttnConfig.impl; default: the config's, sorted): "
+                         "pallas runs the expert CUDA kernel")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu")
     args = ap.parse_args(argv)
@@ -135,6 +141,10 @@ def main(argv=None) -> dict:
 
     device = resolve_device(args.device)
     arch = get_arch(args.arch, smoke=args.smoke)
+    if args.attn_impl:
+        arch = dataclasses.replace(arch, model=dataclasses.replace(
+            arch.model, attn=dataclasses.replace(arch.model.attn,
+                                                 impl=args.attn_impl)))
     cfg = arch.model
     w = cfg.attn.window
     from repro_torch.serve import (EngineConfig, Request, ServingEngine,

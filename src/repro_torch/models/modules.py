@@ -21,25 +21,30 @@ import torch
 
 from repro_torch.core.mita import MiTAConfig, mita_attention
 from repro_torch.core.mita_sparse import mita_attention_sparse
+from repro_torch.kernels.ops import default_block_q
 
 Params = dict[str, Any]
 
 
 @dataclasses.dataclass(frozen=True)
 class AttnConfig:
-    """Attention backend selection + MiTA hyper-parameters (the fields this
-    slice reads; the TPU dispatch switches have no counterpart here)."""
-    backend: str = "mita"     # mita | mita_ref
-    window: int = 128
-    k: int = 128
-    s: int = 1
+    """Attention backend selection + MiTA hyper-parameters (the TPU dispatch
+    switches have no counterpart here: the tensors' device decides)."""
+    backend: str = "mita"     # mita | mita_ref | agent | mita_route
+    window: int = 128         # landmark window w  (m = N // w)
+    k: int = 128              # expert width
+    s: int = 1                # routed experts per query
     causal: bool = True
-    impl: str = "sorted"
-    block_q: int = 128
+    impl: str = "sorted"      # sorted | capacity | pallas (mita_sparse)
+    block_q: int = 128        # 0 = ops.default_block_q (REPRO_BLOCK_Q)
     expert_span: int = 4
+    capacity_factor: float = 1.25
     landmark: str = "pool1d"
     landmark_per_group: bool = True
     route_per_group: bool = False
+    # "grouped": [B, Hkv, G, N, dh] (KV broadcast, group landmarks);
+    # "repeat":  [B, H, N, dh] with K/V repeated per query head.
+    gqa_layout: str = "grouped"
     external_finalize: bool = False
 
     def mita_cfg(self, n: int, bidir: bool = False) -> MiTAConfig:
@@ -47,6 +52,8 @@ class AttnConfig:
         return MiTAConfig(
             m=m, k=min(self.k, n), s=min(self.s, m),
             causal=self.causal and not bidir, landmark=self.landmark,
+            compress_only=self.backend == "agent",
+            route_only=self.backend == "mita_route",
             route_per_group=self.route_per_group)
 
 
@@ -150,27 +157,38 @@ def _qkv(params: Params, x: torch.Tensor, cfg: ModelConfig,
 
 def attention_apply(params: Params, x: torch.Tensor, cfg: ModelConfig,
                     positions: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Full-sequence causal MiTA attention (prefill).  x: [B, N, D]."""
+    """Full-sequence MiTA attention (training forward / prefill).  x:
+    [B, N, D].  ``impl="pallas"`` runs the routed branch on the expert
+    kernel (forward only)."""
     b, n, _ = x.shape
     a = cfg.attn
     if positions is None:
         positions = torch.arange(n, device=x.device)
     q, k, v = _qkv(params, x, cfg, positions)
-    if a.backend not in ("mita", "mita_ref"):
+    if a.backend not in ("mita", "mita_ref", "agent", "mita_route"):
         raise NotImplementedError(
             f"attention backend {a.backend!r} is not ported (ROADMAP A.9)")
+    repeat = a.gqa_layout == "repeat"
+    if repeat:
+        h, full = cfg.n_heads, (b, cfg.n_kv, cfg.group, n, cfg.dh)
+        q = q.reshape(b, h, n, cfg.dh)
+        k = k.expand(full).reshape(b, h, n, cfg.dh)
+        v = v.expand(full).reshape(b, h, n, cfg.dh)
     mcfg = a.mita_cfg(n)
     q_lm = q.mean(dim=2, keepdim=True) if (
-        a.landmark_per_group and cfg.group > 1) else None
-    if a.backend == "mita_ref":
+        a.landmark_per_group and cfg.group > 1 and not repeat) else None
+    if a.backend == "mita_ref" or mcfg.compress_only:
         o = mita_attention(q, k, v, mcfg, q_landmarks=q_lm)
     else:
-        bq = min(a.block_q, a.window * mcfg.s, n * mcfg.s)
+        bq = min(a.block_q or default_block_q(), a.window * mcfg.s,
+                 n * mcfg.s)
         o = mita_attention_sparse(
             q, k, v, mcfg, impl=a.impl, block_q=bq,
-            expert_span=min(a.expert_span, mcfg.m), q_landmarks=q_lm)
-    o = torch.movedim(o, 3, 1).reshape(b, n, cfg.n_heads * cfg.dh)
-    return o @ params["wo"].to(cfg.compute_dtype)
+            expert_span=min(a.expert_span, mcfg.m),
+            capacity_factor=a.capacity_factor, q_landmarks=q_lm)
+    o = torch.movedim(o, 2 if repeat else 3, 1)
+    return o.reshape(b, n, cfg.n_heads * cfg.dh) \
+        @ params["wo"].to(cfg.compute_dtype)
 
 
 # -------------------------------------------------------------------- ffn ---
@@ -211,3 +229,15 @@ def unembed(params: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     if cfg.tie_embeddings:
         return x @ params["tok"].to(ct).T
     return x @ params["head"].to(ct)
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Mean token cross-entropy, float32 accumulation.  logits: [..., V]."""
+    logits = logits.float()
+    nll = torch.logsumexp(logits, dim=-1) \
+        - torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    if mask is not None:
+        mask = mask.float()
+        return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    return nll.mean()

@@ -6,7 +6,9 @@ per-layer parameters stacked on axis 0; the reference's ``lax.scan`` over
 layers is a Python loop over that axis.  Decode states are stacked the same
 way, and each layer works on views of its slice (updates are in place).
 
-Entry points: ``lm_forward`` and ``lm_prefill`` (full sequence),
+Entry points: ``lm_forward``, ``lm_loss`` and ``lm_prefill`` (full
+sequence; ``AttnConfig.impl`` picks the routed branch: "sorted",
+"capacity", or "pallas" for the expert kernel),
 ``lm_decode_step`` + ``lm_finalize_states`` (the static path's monolithic
 caches), ``lm_paged_decode_step`` and ``lm_prefill_chunks`` (the serving
 engine's paged pools).
@@ -94,10 +96,28 @@ def lm_backbone(params: Params, x, cfg: nn.ModelConfig, positions=None):
 
 
 def lm_forward(params: Params, tokens, cfg: nn.ModelConfig):
-    """tokens: [B, N] -> logits [B, N, V]."""
+    """tokens: [B, N] -> logits [B, N, V] (the reference also returns the
+    MoE aux loss, which is 0 for the dense family ported here)."""
     _no_moe(cfg)
     x = nn.embed(params["emb"], tokens, cfg)
     return nn.unembed(params["emb"], lm_backbone(params, x, cfg), cfg)
+
+
+def lm_loss(params: Params, batch: dict, cfg: nn.ModelConfig) -> torch.Tensor:
+    """Next-token cross-entropy of ``batch`` ("tokens", "labels", optional
+    "loss_mask"; tensors or numpy arrays).  The reference adds
+    ``aux_weight`` times the MoE aux loss per layer, which is 0 for the
+    dense family.  With ``impl="pallas"`` it is forward only (scoring)."""
+    if "image_embeds" in batch:
+        raise NotImplementedError("VLM inputs are not ported (ROADMAP A.12)")
+    dev = params["ln_f"].device
+
+    def up(x):
+        return None if x is None else torch.as_tensor(x, device=dev)
+
+    logits = lm_forward(params, up(batch["tokens"]), cfg)
+    return nn.cross_entropy(logits, up(batch["labels"]),
+                            up(batch.get("loss_mask")))
 
 
 def _decode_cfg(cfg: nn.ModelConfig) -> mdec.DecodeConfig:

@@ -25,6 +25,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import mita_decode as mdec
+from repro_torch.kernels.ops import default_block_q
 from repro_torch.models import transformer as tfm
 from repro_torch.models.modules import ModelConfig
 from repro_torch.serve.backends import BackendBase
@@ -90,9 +91,9 @@ class MiTABackend(BackendBase):
                 f"prompt length {n} is not servable by the {a.backend!r} "
                 f"prefill path (window {a.window}): sequence length {n} "
                 f"not divisible by m={m}")
-        if a.backend == "mita":
+        if a.backend == "mita" and a.impl == "sorted" and a.expert_span:
             s = min(a.s, m)
-            bq = min(a.block_q, a.window * s, n * s)
+            bq = min(a.block_q or default_block_q(), a.window * s, n * s)
             if (n * s) % bq:
                 raise ValueError(
                     f"prompt length {n} is not servable by the 'mita' "

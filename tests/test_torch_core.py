@@ -179,10 +179,3 @@ def test_mita_attention_sparse_sorted(s, block_q, span):
         q_landmarks=torch.from_numpy(qlm))
     np.testing.assert_allclose(_np(to), _np(jo), **TOL)
 
-
-def test_sparse_unported_impls_raise():
-    q, k, v = map(torch.from_numpy, _qkv(6))
-    cfg = tmita.MiTAConfig(m=4, k=8, causal=True)
-    for impl in ("capacity", "pallas"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tsparse.mita_attention_sparse(q, k, v, cfg, impl=impl)

@@ -19,7 +19,9 @@ import pytest
 import torch
 
 from repro_torch.core import mita_decode as mdec
+from repro_torch.kernels import flash_attn as fa
 from repro_torch.kernels import mita_chunk_prefill as mcp
+from repro_torch.kernels import mita_expert_attn as mea
 from repro_torch.kernels import mita_paged_attn as mpa
 from repro_torch.kernels import mita_paged_finalize as mpf
 from repro_torch.kernels import ops
@@ -227,3 +229,86 @@ def test_chunk_prefill_kernel_vs_plain(cuda_device, dtype, n_route,
             torch.testing.assert_close(b.float(), a.float(), atol=tol,
                                        rtol=tol, msg=name)
         assert torch.equal(b[-1].to(st[i].dtype), st[i][-1]), name
+
+
+# ------------------------------------------------ routed-expert attention --
+
+def _expert_inputs(dtype, dev, ns, kw, shuffle=False, b=1, hkv=2, g=2, d=32,
+                   m=6, seed=7):
+    """Sorted sub-queries of a GQA group with a broadcast-1 KV lead; the
+    last 70 rows are inactive (id m), so the last tile of 64 is all
+    inactive."""
+    rng = np.random.default_rng(seed)
+
+    def rnd(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32)).to(dev, dtype)
+
+    a = np.sort(rng.integers(0, m, (b, hkv, g, ns)), -1)
+    a[..., ns - 70:] = m
+    if shuffle:
+        a = rng.permuted(a, axis=-1)
+    valid = rng.random((b, hkv, 1, m, kw)) < 0.85
+    return (rnd(b, hkv, g, ns, d),
+            torch.from_numpy(a.astype(np.int32)).to(dev),
+            rnd(b, hkv, 1, m, kw, d), rnd(b, hkv, 1, m, kw, d),
+            torch.from_numpy(valid).to(dev))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("ns,kw,shuffle", [(256, 128, False),
+                                           (203, 40, False),
+                                           (256, 64, True)])
+def test_expert_kernel_vs_plain(cuda_device, dtype, ns, kw, shuffle):
+    """Ragged NS, a key width that is not a tile multiple, the broadcast KV
+    lead, an all-inactive tile and (shuffled) an unsorted assignment: the
+    kernel matches its plain version, inactive rows exactly empty."""
+    args = _expert_inputs(dtype, cuda_device, ns, kw, shuffle)
+    ref = mea.expert_attention_plain(*args)
+    ops.reset_launch_counts()
+    got = ops.routed_expert_partial(*args, block_q=32)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["mita_expert_attention"] == 1
+    tol = TOL[dtype]
+    assert got[0].dtype == dtype and got[1].dtype == torch.float32
+    for x, y in zip(got, ref):
+        torch.testing.assert_close(x.float(), y.float(), atol=tol, rtol=tol)
+    inactive = args[1] >= 6
+    assert torch.all(got[0][inactive] == 0)
+    assert torch.all(got[2][inactive] == 0)
+    assert torch.all(got[1][inactive] == torch.finfo(torch.float32).min)
+
+
+@pytest.mark.gpu
+def test_expert_kernel_is_forward_only(cuda_device):
+    q, a, ke, ve, valid = _expert_inputs(torch.float32, cuda_device, 128, 16)
+    with pytest.raises(RuntimeError, match="forward only"):
+        mea.mita_expert_attention(q.requires_grad_(), a, ke, ve, valid)
+
+
+# ---------------------------------------------------------- flash attention --
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,nk,d,causal", [(256, 256, 128, True),
+                                           (256, 256, 64, False),
+                                           (96, 96, 32, True),
+                                           (128, 320, 32, True),
+                                           (160, 96, 16, False)])
+def test_flash_kernel_vs_plain(cuda_device, dtype, n, nk, d, causal):
+    """Causal and full, ragged kernel tiles (96, 160), cross lengths."""
+    g = torch.Generator(device=cuda_device).manual_seed(n + nk + d)
+    q, k, v = (torch.randn((2, 3, x, d), generator=g, device=cuda_device)
+               .to(dtype) for x in (n, nk, nk))
+    ref = fa.flash_attention_plain(q, k, v, causal=causal, block_q=32,
+                                   block_k=32)
+    ops.reset_launch_counts()
+    got = ops.flash_attention(q, k, v, causal=causal, block_q=32, block_k=32)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["flash_attention"] == 1
+    tol = TOL[dtype]
+    assert got.dtype == dtype
+    torch.testing.assert_close(got.float(), ref.float(), atol=tol, rtol=tol)
+    with pytest.raises(ValueError, match="divide block size"):
+        ops.flash_attention(q, k, v, causal=causal, block_q=n - 1)

@@ -269,7 +269,9 @@ def test_dispatch_routes_by_device():
                        _t(table), t, act, window=W, k_width=K)
     assert ops.launch_counts() == {"mita_paged_attention": 0,
                                    "mita_paged_finalize_fused": 0,
-                                   "mita_chunk_prefill_fused": 0}
+                                   "mita_chunk_prefill_fused": 0,
+                                   "mita_expert_attention": 0,
+                                   "flash_attention": 0}
     with pytest.raises(ValueError, match="mixed devices"):
         ops.paged_finalize(st_t.q_sum.to("meta"), st_t.lm_q, st_t.lm_v,
                            st_t.expert_idx, st_t.expert_valid, st_t.k_pool,
