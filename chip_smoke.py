@@ -8,9 +8,15 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      spills from ``ptxas -v``);
   2. kernel vs plain, at the serving shapes of qwen3-0.6b (S=P=4, Hkv=8,
      G=2, d=128, w=K=128, M=6), float32 and bfloat16 pools, shuffled page
-     tables, timed with CUDA events:
-       * paged decode and paged finalize (ragged t, an inactive and a
-         non-due slot);
+     tables, timed with CUDA events (``ms``; ``card_ms`` with each timed
+     call queued behind a spin kernel, so that it leaves out the host's
+     launch cost), each kernel's launches per call, their names and grids
+     read from a profiler trace of one call:
+       * paged decode (ragged t, an inactive slot; pools exact; at least
+         one block per SM), also at S = 32, M = 32 (4096 tokens of
+         context), and paged finalize (a non-due slot; expert rows and
+         validity exact in both dtypes: the bf16 check rounds the plain
+         version's landmark query as the kernel does);
        * chunk prefill (nc=256): a fresh, a resumed, a non-aligned
          (n_train 320) and an inactive row, then two recompute rows
          (n_train < t0 + n_valid) and a fresh non-aligned row; outputs,
@@ -22,7 +28,11 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
        all-inactive tile, and a ragged NS = 4059) and flash attention
        ([1, 16, 4096, 128] causal and full, and a cross length Nk = 4096
        for N = 1024), against their plain versions; flash also against
-       ``scaled_dot_product_attention`` as the library yardstick;
+       ``scaled_dot_product_attention`` as the library yardstick, with
+       the path that the trace shows (bf16: tensor cores) and two
+       controls that must fail the check (the kernel with its first key
+       tile dropped, and with keys 2048..2175 dropped for the rows after
+       them);
   3. parity (float32, TF32 off, 28 layers, random weights from a seed):
      8 requests (batch 4, prompt 512, gen 160) through the monolithic and
      the chunked (prefill chunk 256) engine, and 4 requests of the
@@ -58,6 +68,7 @@ repository's ``src/`` is missing.
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 import time
@@ -101,6 +112,103 @@ def cuda_ms(fn, iters: int = 50, warmup: int = 5) -> float:
     return sum(s.elapsed_time(e) for s, e in marks) / iters
 
 
+_SPIN_CYCLES_PER_S: list = []
+
+
+def _spin_cycles_per_s() -> float:
+    """Clock rate of ``torch.cuda._sleep``'s spin kernel, measured once."""
+    if not _SPIN_CYCLES_PER_S:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(1000)
+        start.record()
+        torch.cuda._sleep(10 ** 7)
+        end.record()
+        torch.cuda.synchronize()
+        _SPIN_CYCLES_PER_S.append(1e7 / (start.elapsed_time(end) / 1e3))
+    return _SPIN_CYCLES_PER_S[0]
+
+
+def card_ms(fn, iters: int = 50, warmup: int = 5) -> float:
+    """As `cuda_ms`, but each timed call is queued behind a spin kernel
+    that outlasts the host's time to issue it, so the events time the
+    card's work alone.  `cuda_ms` also counts the host's launch cost
+    where the host issues a call more slowly than the card runs it; the
+    ``card_ms`` field of the kernels line is this number, ``ms`` is
+    `cuda_ms`'s."""
+    scrub = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    host_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    spin = int(_spin_cycles_per_s() * (2 * host_s + 50e-6))
+    marks = []
+    for _ in range(iters):
+        scrub.zero_()
+        torch.cuda._sleep(spin)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        marks.append((start, end))
+    torch.cuda.synchronize()
+    return sum(s.elapsed_time(e) for s, e in marks) / iters
+
+
+def traced_kernels(fn) -> list:
+    """The CUDA kernels that one ``fn()`` launches, read from a profiler
+    trace of that call: [(kernel name, blocks in its grid)]."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    path = HERE / "build" / "chip_smoke_trace.json"
+    path.parent.mkdir(exist_ok=True)
+    prof.export_chrome_trace(str(path))
+    events = json.loads(path.read_text())["traceEvents"]
+    path.unlink()
+    out = [(e["name"], int(np.prod(e["args"]["grid"]))) for e in events
+           if e.get("cat") == "kernel"]
+    if not out:
+        fail("the profiler saw no kernel of a traced call")
+    return out
+
+
+def host_ms(fn, iters: int = 20) -> float:
+    """Mean host time to issue one ``fn()`` (the card idle before it)."""
+    total = 0.0
+    for _ in range(iters):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        total += time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return total / iters * 1e3
+
+
+def record_text(rec: dict) -> str:
+    return (f"card {rec['card_ms']:.4f} ms, host {rec['host_ms']:.4f} ms; "
+            f"traced launches {rec['cuda_kernels']} of {rec['grid_blocks']} "
+            "blocks")
+
+
+def kernel_record(kern, iters: int = 50) -> dict:
+    """`card_ms` and `host_ms` of ``kern``, and what one call launches,
+    from its trace."""
+    launched = traced_kernels(kern)
+    return dict(card_ms=card_ms(kern, iters=iters), host_ms=host_ms(kern),
+                cuda_launches_per_call=len(launched),
+                cuda_kernels=[re.search(r"(\w+)[<(]", n).group(1)
+                              for n, _ in launched],
+                grid_blocks=[b for _, b in launched])
+
+
 # ------------------------------------------------------------ phase 1 ------
 
 def phase_env():
@@ -127,8 +235,9 @@ def phase_env():
 
 # ------------------------------------------------------------ phase 2 ------
 
-def make_state(dtype, seed=0):
-    """Random paged state at the serving shapes over a shuffled table."""
+def make_state(dtype, seed=0, S=S, M=M):
+    """Random paged state at the serving shapes (``S`` slots of ``M``
+    pages) over a shuffled table."""
     from repro_torch.core import mita_decode as mdec
     g = torch.Generator(device="cuda").manual_seed(seed)
     dev = "cuda"
@@ -166,6 +275,7 @@ def attn_bound(st, q, t, active, m_cnt, dtype):
     once; masked local positions and invalid expert rows are not needed."""
     from repro_torch.core.mita import argmax_first
     from repro_torch.device import NEG_INF
+    S, M = st.lm_q.shape[0], st.lm_q.shape[2]
     es = torch.tensor([], dtype=dtype).element_size()
     r = torch.einsum("shgd,shmd->shgm", q.float(), st.lm_q.float())
     lm_ok = torch.arange(M, device="cuda")[None, None, None, :] \
@@ -213,62 +323,97 @@ def bound_ms(nbytes, ops, dtype):
     return (tb, "bytes") if tb >= to else (to, "operations")
 
 
-def phase_kernels():
-    from repro_torch.kernels import mita_paged_attn as mpa
-    from repro_torch.kernels import mita_paged_finalize as mpf
+LONG_S, LONG_M = 32, 32      # B.1's long-context check: 4096 tokens
+
+
+def paged_attn_cases(dtype):
+    """B.1's two checks: the serving shape (ragged t, an inactive slot),
+    then S = 32 slots of M = 32 pages (4096 tokens of context), where
+    S * Hkv alone fills the card.  Yields (what, state, t, active)."""
     dev = "cuda"
     t = torch.tensor([130, 300, 0, 767], dtype=torch.int32, device=dev)
     active = torch.tensor([True, True, False, True], device=dev)
+    yield "serving", make_state(dtype, seed=1), t, active
+    state = make_state(dtype, seed=3, S=LONG_S, M=LONG_M)
+    g = torch.Generator(device=dev).manual_seed(4)
+    t = torch.randint(0, LONG_M * W, (LONG_S,), generator=g,
+                      device=dev).to(torch.int32)
+    active = torch.rand(LONG_S, generator=g, device=dev) > 0.1
+    yield f"long context S={LONG_S} M={LONG_M}", state, t, active
+
+
+def check_paged_attn(dtype, what, state, t, active):
+    """The paged-decode kernel of whichever ``repro_torch`` is on the path
+    against its plain version (outputs within TOL, pools exact), then
+    timed beside it; its launches and grids read from a trace."""
+    from repro_torch.kernels import mita_paged_attn as mpa
+    st, table, q, kn, vn = state
     m_cnt = t // W
+    tol = TOL[dtype]
+    # the plain reference runs on float32 copies of the same values
+    a, b = clone_state(st, torch.float32), clone_state(st)
+    ref = mpa.paged_attention_plain(
+        q.float(), kn.float(), vn.float(), a.lm_q, a.lm_v, a.expert_idx,
+        a.expert_valid, a.k_pool, a.v_pool, table, t, active, m_cnt,
+        window=W, n_route=1, fuse_append=True)
+    out = mpa.mita_paged_attention(
+        q, kn, vn, b.lm_q, b.lm_v, b.expert_idx, b.expert_valid, b.k_pool,
+        b.v_pool, table, t, active, m_cnt, window=W, n_route=1,
+        fuse_append=True)
+    torch.cuda.synchronize()
+    err = (out.float() - ref.float()).abs().max().item()
+    if not torch.allclose(out.float(), ref.float(), atol=tol, rtol=tol):
+        fail(f"mita_paged_attention {what} {dtype} max_abs_err {err}")
+    for pool in ("k_pool", "v_pool"):
+        if not torch.equal(getattr(a, pool)[:-1],
+                           getattr(b, pool)[:-1].float()):
+            fail(f"mita_paged_attention {what} {dtype} {pool} rows differ")
+    kern = lambda: mpa.mita_paged_attention(  # noqa: E731
+        q, kn, vn, b.lm_q, b.lm_v, b.expert_idx, b.expert_valid, b.k_pool,
+        b.v_pool, table, t, active, m_cnt, window=W, n_route=1,
+        fuse_append=True)
+    a = clone_state(st)
+    plain = lambda: mpa.paged_attention_plain(  # noqa: E731
+        q, kn, vn, a.lm_q, a.lm_v, a.expert_idx, a.expert_valid, a.k_pool,
+        a.v_pool, table, t, active, m_cnt, window=W, n_route=1,
+        fuse_append=True)
+    ms, pms = cuda_ms(kern), cuda_ms(plain)
+    rec = kernel_record(kern)
+    bms, by = bound_ms(*attn_bound(st, q, t, active, m_cnt, dtype), dtype)
+    print(f"mita_paged_attention {what} {dtype}: max_abs_err {err:.3e} "
+          f"(tol {tol}), kernel {ms:.4f} ms, plain {pms:.4f} ms, bound "
+          f"{bms:.5f} ms ({by}); {record_text(rec)}")
+    return dict(max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=bms,
+                bound_by=by, tol=tol, **rec)
+
+
+def phase_kernels():
+    from repro_torch.kernels import mita_paged_finalize as mpf
+    dev = "cuda"
     t_new = torch.tensor([256, 640, 300, 768], dtype=torch.int32, device=dev)
     due = torch.tensor([True, True, False, True], device=dev)
     res = {"attn": {}, "fin": {}}
     for dtype in (torch.float32, torch.bfloat16):
         tol = TOL[dtype]
-        # --- paged decode attention
-        st, table, q, kn, vn = make_state(dtype, seed=1)
-        # the plain reference runs on float32 copies of the same values
-        a, b = clone_state(st, torch.float32), clone_state(st)
-        ref = mpa.paged_attention_plain(
-            q.float(), kn.float(), vn.float(), a.lm_q, a.lm_v, a.expert_idx,
-            a.expert_valid, a.k_pool, a.v_pool, table, t, active, m_cnt,
-            window=W, n_route=1, fuse_append=True)
-        out = mpa.mita_paged_attention(
-            q, kn, vn, b.lm_q, b.lm_v, b.expert_idx, b.expert_valid,
-            b.k_pool, b.v_pool, table, t, active, m_cnt, window=W,
-            n_route=1, fuse_append=True)
-        torch.cuda.synchronize()
-        err = (out.float() - ref.float()).abs().max().item()
-        if not torch.allclose(out.float(), ref.float(), atol=tol, rtol=tol):
-            fail(f"mita_paged_attention {dtype} max_abs_err {err}")
-        for pool in ("k_pool", "v_pool"):
-            if not torch.equal(getattr(a, pool)[:-1],
-                               getattr(b, pool)[:-1].float()):
-                fail(f"mita_paged_attention {dtype} {pool} rows differ")
-        kern = lambda: mpa.mita_paged_attention(  # noqa: E731
-            q, kn, vn, b.lm_q, b.lm_v, b.expert_idx, b.expert_valid,
-            b.k_pool, b.v_pool, table, t, active, m_cnt, window=W,
-            n_route=1, fuse_append=True)
-        a = clone_state(st)
-        plain = lambda: mpa.paged_attention_plain(  # noqa: E731
-            q, kn, vn, a.lm_q, a.lm_v, a.expert_idx, a.expert_valid,
-            a.k_pool, a.v_pool, table, t, active, m_cnt, window=W,
-            n_route=1, fuse_append=True)
-        ms, pms = cuda_ms(kern), cuda_ms(plain)
-        bms, by = bound_ms(*attn_bound(st, q, t, active, m_cnt, dtype),
-                           dtype)
-        res["attn"][dtype] = dict(max_abs_err=err, ms=ms, plain_ms=pms,
-                                  bound_ms=bms, bound_by=by, tol=tol)
-        print(f"mita_paged_attention {dtype}: max_abs_err {err:.3e} "
-              f"(tol {tol}), kernel {ms:.4f} ms, plain {pms:.4f} ms, "
-              f"bound {bms:.5f} ms ({by})")
+        # --- paged decode attention at the serving and the long-context
+        # shape; the serving shape must spread over at least one block
+        # per SM
+        (what, *case), long_case = paged_attn_cases(dtype)
+        r = res["attn"][dtype] = check_paged_attn(dtype, what, *case)
+        n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+        if r["grid_blocks"][0] < n_sm:
+            fail(f"mita_paged_attention: {r['grid_blocks'][0]} blocks for "
+                 f"{n_sm} SMs at the serving shape")
+        r["long_context"] = check_paged_attn(dtype, *long_case)
 
         # --- paged finalize
         st, table, _, _, _ = make_state(dtype, seed=2)
         a, b = clone_state(st, torch.float32), clone_state(st)
+        # float32 copies; the landmark query rounded as the kernel rounds it
         mpf.paged_finalize_plain(a.q_sum, a.lm_q, a.lm_v, a.expert_idx,
                                  a.expert_valid, a.k_pool, a.v_pool, table,
-                                 t_new, due, window=W, k_width=K)
+                                 t_new, due, window=W, k_width=K,
+                                 round_dtype=dtype)
         mpf.mita_paged_finalize_fused(b.q_sum, b.lm_q, b.lm_v, b.expert_idx,
                                       b.expert_valid, b.k_pool, b.v_pool,
                                       table, t_new, due, window=W, k_width=K)
@@ -282,7 +427,7 @@ def phase_kernels():
                      f"max_abs_err {err}")
         idx_mismatch = int((b.expert_idx != a.expert_idx).sum())
         val_mismatch = int((b.expert_valid != a.expert_valid).sum())
-        if dtype == torch.float32 and (idx_mismatch or val_mismatch):
+        if idx_mismatch or val_mismatch:
             fail(f"finalize integer outputs differ: {idx_mismatch} rows, "
                  f"{val_mismatch} validity flags")
         nd = ~due
@@ -297,14 +442,16 @@ def phase_kernels():
             c.q_sum, c.lm_q, c.lm_v, c.expert_idx, c.expert_valid, c.k_pool,
             c.v_pool, table, t_new, due, window=W, k_width=K)
         ms, pms = cuda_ms(kern), cuda_ms(plain)
+        rec = kernel_record(kern)
         bms, by = bound_ms(*finalize_bound(t_new, due, dtype), dtype)
         res["fin"][dtype] = dict(max_abs_err=err, ms=ms, plain_ms=pms,
                                  bound_ms=bms, bound_by=by, tol=tol,
-                                 idx_mismatch=idx_mismatch)
+                                 idx_mismatch=idx_mismatch, **rec)
         print(f"mita_paged_finalize_fused {dtype}: max_abs_err {err:.3e} "
               f"(tol {tol}), expert-row mismatches {idx_mismatch}/"
-              f"{3 * HKV * K}, kernel {ms:.4f} ms, plain {pms:.4f} ms, "
-              f"bound {bms:.5f} ms ({by})")
+              f"{3 * HKV * K}, validity mismatches {val_mismatch}, kernel "
+              f"{ms:.4f} ms, plain {pms:.4f} ms, bound {bms:.5f} ms ({by}); "
+              f"{record_text(rec)}")
     return res
 
 
@@ -458,13 +605,15 @@ def phase_chunk_kernel():
                 plain = lambda: mcp.chunk_prefill_plain(  # noqa: E731
                     q, k, v, *st.values(), kb, vb, *sched, **kw)
                 ms, pms = cuda_ms(kern, iters=20), cuda_ms(plain, iters=5)
+                rec = kernel_record(kern, iters=20)
                 bms, by = bound_ms(*chunk_bound(rows, dtype), dtype)
         err = max(errs)
         res[dtype] = dict(max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=bms,
-                          bound_by=by, tol=tol, idx_mismatch=mism)
+                          bound_by=by, tol=tol, idx_mismatch=mism, **rec)
         print(f"mita_chunk_prefill_fused {dtype}: max_abs_err {err:.3e} "
               f"(tol {tol}), expert-row mismatches {mism}, kernel {ms:.4f} "
-              f"ms, plain {pms:.4f} ms, bound {bms:.5f} ms ({by})")
+              f"ms, plain {pms:.4f} ms, bound {bms:.5f} ms ({by}); "
+              f"{record_text(rec)}")
     return res
 
 
@@ -565,14 +714,15 @@ def phase_fullseq_kernels():
                 kern = lambda: mea.mita_expert_attention(*args)  # noqa: E731
                 plain = lambda: mea.expert_attention_plain(*args)  # noqa: E731
                 ms, pms = cuda_ms(kern, iters=20), cuda_ms(plain, iters=5)
+                rec = kernel_record(kern, iters=20)
                 bms, by = bound_ms(*expert_bound(args, dtype), dtype)
         err = max(errs)
         res["expert"][dtype] = dict(max_abs_err=err, ms=ms, plain_ms=pms,
                                     bound_ms=bms, bound_by=by, tol=tol,
-                                    library_ms=None)
+                                    library_ms=None, **rec)
         print(f"mita_expert_attention {dtype}: max_abs_err {err:.3e} (tol "
               f"{tol}), kernel {ms:.4f} ms, plain {pms:.4f} ms, bound "
-              f"{bms:.5f} ms ({by})")
+              f"{bms:.5f} ms ({by}); {record_text(rec)}")
 
         g = torch.Generator(device="cuda").manual_seed(30)
         q, k, v = (torch.randn((1, 16, FWD_N, D), generator=g, device="cuda")
@@ -591,6 +741,8 @@ def phase_fullseq_kernels():
             if what == "cross causal":
                 row["cross_max_abs_err"] = e
                 continue
+            if what == "causal":
+                ref_causal = ref
             kern = lambda: fa.flash_attention(  # noqa: E731
                 q, k, v, causal=causal)
             plain = lambda: fa.flash_attention_plain(  # noqa: E731
@@ -602,16 +754,63 @@ def phase_fullseq_kernels():
             row[what] = dict(max_abs_err=e, ms=cuda_ms(kern, iters=10),
                              plain_ms=cuda_ms(plain, iters=5),
                              library_ms=cuda_ms(lib, iters=10), bound_ms=bms,
-                             bound_by=by, tol=tol)
+                             bound_by=by, tol=tol,
+                             **kernel_record(kern, iters=10))
             r = row[what]
             print(f"flash_attention {dtype} {what} [1, 16, {FWD_N}, {D}]: "
                   f"max_abs_err {e:.3e} (tol {tol}), kernel {r['ms']:.4f} "
                   f"ms, plain {r['plain_ms']:.4f} ms, sdpa "
-                  f"{r['library_ms']:.4f} ms, bound {bms:.5f} ms ({by})")
+                  f"{r['library_ms']:.4f} ms, bound {bms:.5f} ms ({by}); "
+                  f"{record_text(r)}")
         print(f"flash_attention {dtype} cross length (N {FWD_N // 4}, Nk "
               f"{FWD_N}, causal): max_abs_err {row['cross_max_abs_err']:.3e}")
+        # the path that ran, read from the traced kernel names
+        names = set(row["causal"]["cuda_kernels"]
+                    + row["full"]["cuda_kernels"])
+        path = {frozenset({"flash_tma_kernel"}): fa.TENSOR_CORES,
+                frozenset({"flash_kernel"}): fa.CUDA_CORES}.get(
+                    frozenset(names))
+        if path is None or path != fa.flash_path(dtype, D) or (
+                dtype == torch.bfloat16 and path != fa.TENSOR_CORES):
+            fail(f"flash_attention {dtype}: launched {sorted(names)}, "
+                 f"expected the {fa.flash_path(dtype, D)} kernel")
+        # the controls: the kernel with one key tile dropped must fail the
+        # check.  The first tile: rows and keys from 64 on, so row i sees
+        # keys 64..i.  A middle tile: keys lo..hi-1 dropped for the rows
+        # from hi on, which are rows lo.. of a causal call over the kept
+        # keys (its rows before lo are q's own and not compared).
+        lo, hi = FWD_N // 2, FWD_N // 2 + 128
+
+        def keep(x):
+            return torch.cat([x[:, :, :lo], x[:, :, hi:]], 2)
+
+        controls = {
+            "first": (fa.flash_attention(*(x[:, :, 64:].contiguous()
+                                           for x in (q, k, v)), causal=True,
+                                         block_q=64, block_k=64),
+                      ref_causal[:, :, 64:]),
+            "middle": (fa.flash_attention(*(keep(x) for x in (q, k, v)),
+                                          causal=True)[:, :, lo:],
+                       ref_causal[:, :, hi:])}
+        torch.cuda.synchronize()
+        ctrl = {}
+        for where, (got, want) in controls.items():
+            got, want = got.float(), want.float()
+            ctrl[where] = (got - want).abs().max().item()
+            if ctrl[where] <= tol or torch.allclose(got, want, atol=tol,
+                                                    rtol=tol):
+                fail(f"flash_attention {dtype}: the control with the "
+                     f"{where} key tile dropped passes the check "
+                     f"(max_abs_err {ctrl[where]})")
+        print(f"flash_attention {dtype}: path {path} (traced); controls with "
+              f"the first key tile dropped: max_abs_err {ctrl['first']:.3e}, "
+              f"with keys {lo}..{hi - 1} dropped (rows {hi}..): "
+              f"{ctrl['middle']:.3e}; both fail the check (tol {tol}), as "
+              f"they must")
         res["flash"][dtype] = dict(row["causal"], full=row["full"],
-                                   cross_max_abs_err=row["cross_max_abs_err"])
+                                   cross_max_abs_err=row["cross_max_abs_err"],
+                                   control_max_abs_err=ctrl, path=path)
+        del ref_causal, controls
     return res
 
 
@@ -1072,6 +1271,10 @@ def main() -> int:
     launches["flash_attention"] = fs_launches["flash_attention"]
 
     bf = torch.bfloat16
+    # card time, host issue time and what one call launches (from its
+    # trace), per kernel
+    traced = ("card_ms", "host_ms", "cuda_launches_per_call",
+              "cuda_kernels", "grid_blocks")
     rows = []
     for key, name, src_file, replaces in (
             ("attn", "mita_paged_attention",
@@ -1097,14 +1300,24 @@ def main() -> int:
             "ms": r["ms"], "kernel_ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r.get("library_ms"), "dtype": "bfloat16",
-            "tol": r["tol"],
+            "tol": r["tol"], **{k: r[k] for k in traced},
             "f32": {k: r32.get(k) for k in ("max_abs_err", "ms", "plain_ms",
                                             "bound_ms", "bound_by", "tol",
-                                            "library_ms")}}
+                                            "library_ms") + traced}}
+        if key == "attn":
+            row["long_context"] = {k: r["long_context"][k] for k in (
+                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")
+                + traced}
+            row["long_context"]["shape"] = f"S={LONG_S}, M={LONG_M}"
+            row["f32"]["long_context"] = {k: r32["long_context"][k] for k in (
+                "max_abs_err", "ms", "plain_ms", "bound_ms") + traced}
         if key == "flash":
             row["shape"] = f"[1, 16, {FWD_N}, {D}] causal"
             row["full"] = r["full"]
             row["f32"]["full"] = r32["full"]
+            row["path"], row["f32"]["path"] = r["path"], r32["path"]
+            row["control_max_abs_err"] = r["control_max_abs_err"]
+            row["f32"]["control_max_abs_err"] = r32["control_max_abs_err"]
         rows.append(row)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -6,11 +6,14 @@ oracle ``repro.kernels.ref.flash_attention_ref``: q [B, H, N, d], k / v
 0..i, also when Nk != N) or full.
 
 * `flash_attention` launches ``csrc/flash_attn.cu`` on CUDA tensors and
-  adds one to ``LAUNCHES``.
-* `flash_attention_plain` is the same function in plain PyTorch with the
-  kernel's rounding: q is scaled in float32, the softmax weights stay
-  float32 and the output is rounded once (the reference oracle casts the
-  weights to v's dtype before the value product).
+  adds one to ``LAUNCHES``.  `flash_path` names the kernel a call takes:
+  bf16 at head dim 64 or 128 runs on the tensor cores (wgmma; the softmax
+  weights are rounded to bf16 before the value product, as the reference
+  oracle rounds them), float32 and the other head dims on the CUDA cores
+  in float32.
+* `flash_attention_plain` is the same function in plain PyTorch: q is
+  scaled in float32, the softmax weights stay float32 and the output is
+  rounded once.
 
 Both keep the JAX contract: ``block_q`` / ``block_k`` (capped at N / Nk)
 must divide N / Nk, else ValueError; neither changes the result.  No
@@ -60,6 +63,16 @@ def flash_attention_plain(q, k, v, causal: bool = False, block_q: int = 128,
     return ((p @ v.float()) / torch.where(l == 0.0, 1.0, l)).to(q.dtype)
 
 
+TENSOR_CORES = "tensor cores (wgmma, bf16)"
+CUDA_CORES = "CUDA cores (float32)"
+
+
+def flash_path(dtype: torch.dtype, d: int) -> str:
+    """The kernel a CUDA call with this dtype and head dim runs."""
+    return TENSOR_CORES if dtype == torch.bfloat16 and d in (64, 128) \
+        else CUDA_CORES
+
+
 def _lib():
     lib = _build.load("flash_attn")
     fn = lib.flash_attention
@@ -67,6 +80,9 @@ def _lib():
         p, i = ctypes.c_void_p, ctypes.c_int
         fn.argtypes = [i] + [p] * 4 + [i] * 5 + [ctypes.c_float, p]
         fn.restype = ctypes.c_int
+        mma = lib.flash_attention_mma
+        mma.argtypes = [p] * 4 + [i] * 5 + [ctypes.c_float, p]
+        mma.restype = ctypes.c_int
     return lib
 
 
@@ -95,11 +111,18 @@ def flash_attention(q, k, v, causal: bool = False, block_q: int = 128,
     o = torch.empty_like(q, memory_format=torch.contiguous_format)
     if b * h * n == 0:
         return o
-    args = [q.contiguous(), k.contiguous(), v.contiguous()]
-    err = _lib().flash_attention(
-        0 if dt == torch.float32 else 1, *[a.data_ptr() for a in args],
-        o.data_ptr(), b * h, n, nk, d, int(causal), 1.0 / math.sqrt(d),
-        torch.cuda.current_stream(dev).cuda_stream)
+    # the kernels read 16-byte vectors (a copy realigns an odd view)
+    args = [a if a.data_ptr() % 16 == 0 else a.clone()
+            for a in (q.contiguous(), k.contiguous(), v.contiguous())]
+    ptrs = [a.data_ptr() for a in args] + [o.data_ptr()]
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if flash_path(dt, d) == TENSOR_CORES:
+        err = _lib().flash_attention_mma(*ptrs, b * h, n, nk, d, int(causal),
+                                         1.0 / math.sqrt(d), stream)
+    else:
+        err = _lib().flash_attention(0 if dt == torch.float32 else 1, *ptrs,
+                                     b * h, n, nk, d, int(causal),
+                                     1.0 / math.sqrt(d), stream)
     _build.check(err, "flash_attention launch")
     LAUNCHES += 1
     return o

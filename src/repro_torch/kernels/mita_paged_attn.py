@@ -6,7 +6,10 @@ append of the new K/V row, then the shared-landmark, local-window and
 routed-expert branches merged with one guarded online softmax.
 
 * `mita_paged_attention` launches ``csrc/mita_paged_attn.cu`` on CUDA
-  tensors (one block per (slot, KV head)) and adds one to ``LAUNCHES``.
+  tensors and adds one to ``LAUNCHES`` per call.  The call makes two CUDA
+  launches: `split_plan` spreads each (slot, KV head)'s keys over
+  ``n_split`` blocks that write float32 partials (o, m, l) into a
+  workspace, and a second kernel merges them in split order.
 * `paged_attention_plain` is the same function in plain PyTorch,
   following the XLA oracle of ``core.mita_decode.mita_paged_decode_step``;
   the CPU path and the on-card comparisons use it.
@@ -21,6 +24,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+from typing import NamedTuple
 
 import torch
 
@@ -34,6 +38,35 @@ from repro_torch.kernels.ops import (gather_pages, gather_pool_rows,
 
 LAUNCHES = 0            # kernel launches since the last reset
 SMEM_LIMIT = 227 * 1024
+MAX_CHUNKS = 128        # 16-byte chunks of a row: one per thread at most
+
+
+class SplitPlan(NamedTuple):
+    """How the kernel spreads the keys of one (slot, KV head) over blocks:
+    split 0 takes the shared landmarks (and the fused append), splits
+    1 .. ``n_local`` the current page in slices of ``rows`` positions, the
+    last ``n_routed`` splits the routed experts as (round, slice) pairs of
+    ``rows`` expert rows each (round = index // ceil(K / rows))."""
+
+    rows: int
+    n_local: int
+    n_routed: int
+
+    @property
+    def n_split(self) -> int:
+        return 1 + self.n_local + self.n_routed
+
+
+def split_plan(k_w: int, window: int, n_route: int, g: int) -> SplitPlan:
+    """The split of a call with expert width ``k_w``, page ``window``,
+    ``n_route`` routed experts and ``g`` query heads per KV head.  A block
+    scores G x rows keys: 64 keys a block, rows between 8 and 64.  It
+    depends on these shapes only -- never on the number of slots, on t or
+    on which slots are active -- so a slot's output does not depend on its
+    batch neighbours."""
+    rows = max(8, min(64, 64 // max(g, 1)))
+    return SplitPlan(rows=rows, n_local=-(-window // rows),
+                     n_routed=n_route * -(-k_w // rows))
 
 
 def paged_attention_plain(q, k_new, v_new, lm_q, lm_v, expert_idx,
@@ -92,10 +125,11 @@ def _lib():
     fn = lib.mita_paged_attention
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [i] + [p] * 14 + [i] * 7 + [ctypes.c_longlong, i, i, p]
+        fn.argtypes = ([i] + [p] * 15 + [i] * 7
+                       + [ctypes.c_longlong] + [i] * 4 + [p])
         fn.restype = ctypes.c_int
         sb = lib.mita_paged_attention_smem_bytes
-        sb.argtypes = [i] * 5
+        sb.argtypes = [i] * 6
         sb.restype = ctypes.c_longlong
     return lib
 
@@ -141,10 +175,7 @@ def mita_paged_attention(q, k_new, v_new, lm_q, lm_v, expert_idx,
     for x in (q, k_new, v_new, lm_q, lm_v, expert_idx, expert_valid,
               v_pool, page_table, t, active, m_cnt):
         _check(x.device == dev, "all tensors must be on one device")
-    lib = _lib()
-    smem = lib.mita_paged_attention_smem_bytes(g, d, m_slot, k_w, window)
-    _check(smem <= SMEM_LIMIT, f"needs {smem} B of shared memory")
-
+    plan = split_plan(k_w, window, n_route, g)
     args = [q.to(dt).contiguous(), k_new.to(dt).contiguous(),
             v_new.to(dt).contiguous(), lm_q.contiguous(),
             lm_v.contiguous(), expert_idx.to(torch.int32).contiguous(),
@@ -153,11 +184,25 @@ def mita_paged_attention(q, k_new, v_new, lm_q, lm_v, expert_idx,
             t.to(torch.int32).contiguous(),
             active.to(torch.bool).contiguous().view(torch.uint8),
             m_cnt.to(torch.int32).contiguous()]
+    # key and value rows are read as 16-byte vectors
+    v = 16 // k_pool.element_size()
+    _check(d % v == 0 and d // v <= MAX_CHUNKS,
+           f"head dim {d} (a multiple of {v}, at most {v * MAX_CHUNKS})")
+    _check(k_pool.data_ptr() % 16 == 0 and v_pool.data_ptr() % 16 == 0,
+           "pools must be 16-byte aligned (updated in place)")
+    args = [a if a.data_ptr() % 16 == 0 else a.clone() for a in args]
+    lib = _lib()
+    smem = lib.mita_paged_attention_smem_bytes(g, d, m_slot, plan.rows, v,
+                                               plan.n_split)
+    _check(smem <= SMEM_LIMIT, f"needs {smem} B of shared memory")
+    ws = torch.empty(n_slots * hkv * plan.n_split * g * (d + 2),
+                     dtype=torch.float32, device=dev)
     out = torch.empty((n_slots, hkv, g, d), dtype=dt, device=dev)
     err = lib.mita_paged_attention(
-        0 if dt == torch.float32 else 1, *[a.data_ptr() for a in args],
-        out.data_ptr(), n_slots, hkv, g, d, m_slot, k_w, window,
-        rows_total, n_route, int(fuse_append),
+        0 if dt == torch.float32 else 1,
+        *[a.data_ptr() for a in args], ws.data_ptr(), out.data_ptr(),
+        n_slots, hkv, g, d, m_slot, k_w, window, rows_total,
+        int(fuse_append), plan.rows, plan.n_local, plan.n_split,
         torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "mita_paged_attention launch")
     LAUNCHES += 1

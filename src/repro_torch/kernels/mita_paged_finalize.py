@@ -38,8 +38,15 @@ SMEM_LIMIT = 227 * 1024
 
 def paged_finalize_plain(q_sum, lm_q, lm_v, expert_idx, expert_valid,
                          k_pool, v_pool, page_table, t_new, due, *,
-                         window: int, k_width: int) -> None:
-    """Plain PyTorch version of the kernel (the XLA oracle), in place."""
+                         window: int, k_width: int,
+                         round_dtype=None) -> None:
+    """Plain PyTorch version of the kernel (the XLA oracle), in place.
+
+    The landmark query ``q_sum / w`` is rounded to ``round_dtype``
+    (default: the pool dtype) before it is stored and scored, as the
+    kernel rounds it.  A check of the bfloat16 kernel runs this version on
+    float32 copies with ``round_dtype=torch.bfloat16``, so both round the
+    landmark query at the same point and score it in float32."""
     w = window
     n_slots, hkv, m_max, _ = expert_idx.shape
     d = k_pool.shape[-1]
@@ -48,7 +55,7 @@ def paged_finalize_plain(q_sum, lm_q, lm_v, expert_idx, expert_valid,
     owned = (tn + w - 1) // w
     k_ctx = gather_pages(k_pool, page_table, w, owned=owned)  # [S,ctx,H,d]
     v_ctx = gather_pages(v_pool, page_table, w, owned=owned)
-    q_lm = (q_sum / w).to(k_pool.dtype)                       # [S, H, d]
+    q_lm = (q_sum / w).to(round_dtype or k_pool.dtype).to(k_pool.dtype)
 
     scores = torch.einsum("schd,shd->shc", k_ctx, q_lm) / math.sqrt(d)
     visible = torch.arange(ctx, device=q_sum.device)[None, None, :] \

@@ -15,7 +15,9 @@ sequence of N tokens after a warm-up forward, with the routed branch of
 ``--attn-impl`` (pallas: the expert kernel).
 Prints the wall time per step, the share of that time the card was busy
 (sum of kernel times / wall time), and the operators with the largest
-CUDA and CPU self times; the last line is a JSON summary.  Needs a CUDA
+CUDA and CPU self times; the last line is a JSON summary, with the device
+kernels of most self time (time per launch, launches, share of the
+device time).  Needs a CUDA
 device unless ``--device cpu``, which profiles the plain versions and
 reports no device time.
 """
@@ -55,6 +57,19 @@ def _kernel_us(avgs) -> float:
     return sum(_self_device_us(e) for e in avgs
                if e.device_type == DeviceType.CUDA
                and not getattr(e, "is_user_annotation", False))
+
+
+def _top_kernels(avgs, dev_us: float, n: int = 8) -> dict:
+    """The ``n`` device kernels with the most self time: microseconds per
+    launch, launches, and share of the window's device time."""
+    from torch.autograd import DeviceType
+    rows = sorted((e for e in avgs if e.device_type == DeviceType.CUDA
+                   and not getattr(e, "is_user_annotation", False)),
+                  key=_self_device_us, reverse=True)[:n]
+    return {e.key[:80]: {"us_per_launch": _self_device_us(e) / e.count,
+                         "launches": e.count,
+                         "share": _self_device_us(e) / dev_us}
+            for e in rows if dev_us > 0}
 
 
 def main(argv=None) -> dict:
@@ -168,6 +183,7 @@ def _profile(args, device, run, what: str, extra: dict) -> dict:
     summary = {"compute_dtype": args.compute_dtype, **extra, "per": what,
                "count": n, "step_ms": step_ms, "device_busy_share": busy,
                "device_ms_per_step": dev_us / 1e3 / n,
+               "top_kernels": _top_kernels(avgs, dev_us) if cuda else {},
                "device": (torch.cuda.get_device_name(0) if cuda else "cpu")}
     print(json.dumps(summary))
     return summary

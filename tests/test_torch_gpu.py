@@ -9,9 +9,10 @@ Tolerances: 1e-5 (float32 pools) and 2e-2 (bfloat16 pools), absolute and
 relative.  With bfloat16 pools the plain version runs on float32 copies of
 the same bfloat16 values: the kernel computes in float32, and the plain
 version's bfloat16 products would round scores enough to flip routing and
-top-k decisions (the chunk-prefill check also has the plain version round
-its landmark queries to bfloat16, as the kernel does).  Pools outside the
-scratch row are exact, and so are the expert rows with float32 pools.
+top-k decisions (the chunk-prefill and finalize checks also have the plain
+version round its landmark queries to bfloat16, as the kernel does).
+Pools outside the scratch row are exact, and so are the finalize's expert
+rows and validity in both dtypes.
 """
 
 import numpy as np
@@ -38,11 +39,11 @@ def cuda_device():
     return torch.device("cuda")
 
 
-def _state(seed, dtype, dev, s_n=4, m_slot=4, hkv=2, d=16, g=2):
+def _state(seed, dtype, dev, s_n=4, m_slot=4, hkv=2, d=16, g=2, w=W, k=K):
     rng = np.random.default_rng(seed)
     n_pages = s_n * m_slot + 2
     table = rng.permutation(n_pages)[: s_n * m_slot].reshape(s_n, m_slot)
-    cfg = mdec.DecodeConfig(window=W, k=K, external_finalize=True)
+    cfg = mdec.DecodeConfig(window=w, k=k, external_finalize=True)
     st = mdec.init_paged_state(hkv, d, n_pages, s_n, m_slot, cfg, dtype, dev)
 
     def rnd(*shape):
@@ -52,10 +53,10 @@ def _state(seed, dtype, dev, s_n=4, m_slot=4, hkv=2, d=16, g=2):
     for x in (st.k_pool, st.v_pool, st.lm_q, st.lm_v, st.q_sum):
         x.copy_(rnd(*x.shape))
     st.expert_idx.copy_(torch.from_numpy(
-        table[:, None, :, None] * W
-        + rng.integers(0, W, size=(s_n, hkv, m_slot, K))))
+        table[:, None, :, None] * w
+        + rng.integers(0, w, size=(s_n, hkv, m_slot, k))))
     st.expert_valid.copy_(torch.from_numpy(
-        rng.random((s_n, hkv, m_slot, K)) > 0.3))
+        rng.random((s_n, hkv, m_slot, k)) > 0.3))
     pt = torch.from_numpy(table.astype(np.int32)).to(dev)
     q, kn, vn = (rnd(s_n, hkv, g, d).to(dtype), rnd(s_n, hkv, d).to(dtype),
                  rnd(s_n, hkv, d).to(dtype))
@@ -100,6 +101,45 @@ def test_paged_attention_kernel_vs_plain(cuda_device, dtype, n_route, fuse):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n_route,fuse", [(1, True), (2, False)])
+def test_paged_attention_kernel_long_context(cuda_device, dtype, n_route,
+                                             fuse):
+    """S = 32 slots of M = 32 pages (4096 tokens of context at w = 128),
+    where S * Hkv alone fills the card: ragged t, inactive slots, slots
+    without a visible landmark; the split kernel matches the plain
+    version, pools exact."""
+    w = 128
+    st, pt, q, kn, vn = _state(12, dtype, cuda_device, s_n=32, m_slot=32,
+                               hkv=2, d=128, w=w, k=w)
+    rng = np.random.default_rng(1)
+    t = torch.from_numpy(rng.integers(0, 32 * w, 32).astype(np.int32)).to(
+        cuda_device)
+    t[:3] = torch.tensor([0, 5, w - 1], dtype=torch.int32)
+    act = torch.from_numpy(rng.random(32) > 0.15).to(cuda_device)
+    if not fuse:
+        rows = torch.where(act, pt[torch.arange(32), t // w].long() * w
+                           + t % w, st.k_pool.shape[0] - 1)
+        st.k_pool[rows], st.v_pool[rows] = kn, vn
+    a, b = _clone(st, torch.float32), _clone(st)
+    args = lambda s, x: (x(q), x(kn), x(vn), s.lm_q,  # noqa: E731
+                         s.lm_v, s.expert_idx, s.expert_valid, s.k_pool,
+                         s.v_pool, pt, t, act, t // w)
+    ref = mpa.paged_attention_plain(*args(a, lambda x: x.float()), window=w,
+                                    n_route=n_route, fuse_append=fuse)
+    ops.reset_launch_counts()
+    out = ops.paged_decode_attend(*args(b, lambda x: x), window=w,
+                                  n_route=n_route, fuse_append=fuse)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["mita_paged_attention"] == 1
+    tol = TOL[dtype]
+    torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=tol)
+    assert torch.all(out[~act] == 0)
+    assert torch.equal(a.k_pool[:-1], b.k_pool[:-1].float())
+    assert torch.equal(a.v_pool[:-1], b.v_pool[:-1].float())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("t_new,due", [
     ((8, 16, 0, 29), (True, True, False, False)),
     ((32, 8, 24, 5), (True, True, True, False)),
@@ -111,7 +151,8 @@ def test_finalize_kernel_vs_plain(cuda_device, dtype, t_new, due):
     a, b = _clone(st, torch.float32), _clone(st)
     fargs = lambda s: (s.q_sum, s.lm_q, s.lm_v, s.expert_idx,  # noqa: E731
                        s.expert_valid, s.k_pool, s.v_pool, pt, td, dd)
-    mpf.paged_finalize_plain(*fargs(a), window=W, k_width=K)
+    mpf.paged_finalize_plain(*fargs(a), window=W, k_width=K,
+                             round_dtype=dtype)
     ops.reset_launch_counts()
     ops.paged_finalize(*fargs(b), window=W, k_width=K)
     torch.cuda.synchronize()
@@ -120,9 +161,8 @@ def test_finalize_kernel_vs_plain(cuda_device, dtype, t_new, due):
     for f in ("lm_q", "lm_v", "q_sum"):
         torch.testing.assert_close(getattr(b, f).float(),
                                    getattr(a, f).float(), atol=tol, rtol=tol)
-    if dtype == torch.float32:   # bf16 rounds q_lm before scoring
-        assert torch.equal(b.expert_idx, a.expert_idx)
-        assert torch.equal(b.expert_valid, a.expert_valid)
+    assert torch.equal(b.expert_idx, a.expert_idx)
+    assert torch.equal(b.expert_valid, a.expert_valid)
     nd = ~dd
     for f in FIN_FIELDS:
         assert torch.equal(getattr(b, f)[nd], getattr(st, f)[nd]), f
@@ -312,3 +352,61 @@ def test_flash_kernel_vs_plain(cuda_device, dtype, n, nk, d, causal):
     torch.testing.assert_close(got.float(), ref.float(), atol=tol, rtol=tol)
     with pytest.raises(ValueError, match="divide block size"):
         ops.flash_attention(q, k, v, causal=causal, block_q=n - 1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,nk,d,causal", [(200, 200, 128, True),
+                                           (200, 333, 64, True),
+                                           (333, 200, 128, True),
+                                           (333, 200, 64, False),
+                                           (130, 70, 128, False),
+                                           (1, 65, 128, True),
+                                           (64, 1000, 128, False)])
+def test_flash_kernel_tile_edges(cuda_device, dtype, n, nk, d, causal):
+    """The tensor-core path (bf16, d 64 and 128) at lengths that are no
+    multiple of its 128-row query tile or 64-key tile, cross lengths both
+    ways; float32 takes the CUDA-core path at the same shapes."""
+    g = torch.Generator(device=cuda_device).manual_seed(n * 7 + nk + d)
+    q, k, v = (torch.randn((2, 3, x, d), generator=g, device=cuda_device)
+               .to(dtype) for x in (n, nk, nk))
+    ref = fa.flash_attention_plain(q, k, v, causal=causal, block_q=1,
+                                   block_k=1)
+    ops.reset_launch_counts()
+    got = ops.flash_attention(q, k, v, causal=causal, block_q=1, block_k=1)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["flash_attention"] == 1
+    assert fa.flash_path(dtype, d) == (
+        fa.TENSOR_CORES if dtype == torch.bfloat16 else fa.CUDA_CORES)
+    tol = TOL[dtype]
+    torch.testing.assert_close(got.float(), ref.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_tolerance_detects_a_dropped_tile(cuda_device, dtype):
+    """The control of the flash check: the kernel run with one key tile
+    dropped lies outside the tolerance of the plain version, while the
+    whole run lies inside it.  Dropped: the first tile (rows and keys from
+    64 on, causal, so row i sees keys 64..i), and a middle tile (keys
+    256..383 for the rows from 384 on: rows 256.. of a causal call over
+    the kept keys)."""
+    g = torch.Generator(device=cuda_device).manual_seed(4)
+    q, k, v = (torch.randn((1, 2, 512, 128), generator=g,
+                           device=cuda_device).to(dtype) for _ in range(3))
+    ref = fa.flash_attention_plain(q, k, v, causal=True)
+    got = ops.flash_attention(q, k, v, causal=True)
+    first = ops.flash_attention(*(x[:, :, 64:].contiguous()
+                                  for x in (q, k, v)), causal=True,
+                                block_q=64, block_k=64)
+    middle = ops.flash_attention(
+        *(torch.cat([x[:, :, :256], x[:, :, 384:]], 2) for x in (q, k, v)),
+        causal=True)[:, :, 256:]
+    torch.cuda.synchronize()
+    tol = TOL[dtype]
+    torch.testing.assert_close(got.float(), ref.float(), atol=tol, rtol=tol)
+    for dropped, want in ((first, ref[:, :, 64:]), (middle, ref[:, :, 384:])):
+        err = (dropped.float() - want.float()).abs().max().item()
+        assert err > tol
+        assert not torch.allclose(dropped.float(), want.float(), atol=tol,
+                                  rtol=tol)

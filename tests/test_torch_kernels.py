@@ -252,6 +252,54 @@ def test_finalize_plain_vs_xla_and_pallas(t_new, due):
     np.testing.assert_array_equal(st_t.v_pool.numpy(), st.v_pool)
 
 
+def test_finalize_plain_round_dtype():
+    """``round_dtype`` (ROADMAP C.8): the default rounds the landmark query
+    to the pool dtype, so on float32 pools it equals ``round_dtype=
+    torch.float32`` bit for bit (the state `test_finalize_plain_vs_xla_and
+    _pallas` holds exact); ``round_dtype=torch.bfloat16`` on float32 copies
+    stores exactly ``(q_sum / w).to(torch.bfloat16)`` as ``lm_q`` and ranks
+    the context by that rounded query (first-index ties, inputs without
+    near-ties), as the bfloat16 kernel does."""
+    st, table, _, _, _ = _random_state(9)
+    td = np.asarray([8, 16, 24, 29], np.int32)
+    dd = np.asarray([True, True, True, False])
+    q_sum0 = torch.from_numpy(st.q_sum.copy())
+    runs = {}
+    for name, rdt in (("default", None), ("f32", torch.float32),
+                      ("bf16", torch.bfloat16)):
+        s_t = paged_state_from_jax(st)
+        tmpf.paged_finalize_plain(
+            s_t.q_sum, s_t.lm_q, s_t.lm_v, s_t.expert_idx, s_t.expert_valid,
+            s_t.k_pool, s_t.v_pool, _t(table), _t(td), _t(dd), window=W,
+            k_width=K, round_dtype=rdt)
+        runs[name] = s_t
+    for f in FIN_FIELDS:
+        assert torch.equal(getattr(runs["default"], f),
+                           getattr(runs["f32"], f)), f
+
+    got = runs["bf16"]
+    q_lm = (q_sum0 / W).to(torch.bfloat16).float()          # [S, H, d]
+    pool_k = torch.from_numpy(st.k_pool)
+    d = pool_k.shape[-1]
+    for s in np.nonzero(dd)[0]:
+        i = td[s] // W - 1
+        assert torch.equal(got.lm_q[s, :, i], q_lm[s])
+        ctx_rows = (table[s][:, None] * W + np.arange(W)).reshape(-1)
+        n_vis = td[s]
+        for h in range(q_lm.shape[1]):
+            sc = (pool_k[ctx_rows[:n_vis], h] @ q_lm[s, h]).numpy() \
+                / np.sqrt(d)
+            gaps = np.diff(np.sort(sc))
+            assert gaps.size == 0 or gaps.min() > 1e-5   # no near-ties
+            full = np.full(len(ctx_rows), -np.inf)
+            full[:n_vis] = sc
+            order = np.argsort(-full, kind="stable")[:K]
+            np.testing.assert_array_equal(got.expert_idx[s, h, i].numpy(),
+                                          ctx_rows[order])
+            np.testing.assert_array_equal(got.expert_valid[s, h, i].numpy(),
+                                          order < n_vis)
+
+
 def test_dispatch_routes_by_device():
     """CPU tensors take the plain versions (no kernel launch is counted);
     tensors on a device with neither path raise; mixed devices raise."""
