@@ -159,25 +159,54 @@ def card_ms(fn, iters: int = 50, warmup: int = 5) -> float:
     return sum(s.elapsed_time(e) for s, e in marks) / iters
 
 
-def traced_kernels(fn) -> list:
-    """The CUDA kernels that one ``fn()`` launches, read from a profiler
-    trace of that call: [(kernel name, blocks in its grid)]."""
+def _trace_twice(fn):
+    """One profiler session: warm-up calls and small kernels, then twice a
+    marker kernel (``torch.cuda._sleep``'s ``spin_kernel``) and the call.
+    Returns the [(kernel name, blocks in its grid)] of the two calls, or
+    None where a marker is missing."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
+    warm = torch.zeros(1, device="cuda")
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        fn()
+        for _ in range(3):
+            fn()
+        for _ in range(32):
+            warm.add_(1)
+        for _ in range(2):
+            torch.cuda.synchronize()
+            torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
+            fn()
         torch.cuda.synchronize()
     path = HERE / "build" / "chip_smoke_trace.json"
     path.parent.mkdir(exist_ok=True)
     prof.export_chrome_trace(str(path))
     events = json.loads(path.read_text())["traceEvents"]
     path.unlink()
-    out = [(e["name"], int(np.prod(e["args"]["grid"]))) for e in events
-           if e.get("cat") == "kernel"]
-    if not out:
-        fail("the profiler saw no kernel of a traced call")
-    return out
+    kernels = sorted((e for e in events if e.get("cat") == "kernel"),
+                     key=lambda e: e["ts"])
+    marks = [i for i, e in enumerate(kernels) if "spin_kernel" in e["name"]]
+    if len(marks) < 2:
+        return None
+    calls = (kernels[marks[-2] + 1:marks[-1]], kernels[marks[-1] + 1:])
+    return [[(e["name"], int(np.prod(e["args"]["grid"]))) for e in c]
+            for c in calls]
+
+
+def traced_kernels(fn) -> list:
+    """The CUDA kernels that one ``fn()`` launches, read from a profiler
+    trace: [(kernel name, blocks in its grid)].  A session can miss kernel
+    records (on the card this was written for: the first ones of a session
+    after the first in a process, and now and then others), so a session
+    traces the call twice, each time after a marker kernel, and counts
+    only when both markers are there and both calls show the same kernels;
+    otherwise the trace is taken again, up to 4 times."""
+    for _ in range(4):
+        calls = _trace_twice(fn)
+        if calls is not None and calls[0] == calls[1] and calls[0]:
+            return calls[0]
+    fail("four profiler traces of a call disagree or miss their markers")
 
 
 def host_ms(fn, iters: int = 20) -> float:
@@ -342,17 +371,18 @@ def paged_attn_cases(dtype):
     yield f"long context S={LONG_S} M={LONG_M}", state, t, active
 
 
-def check_paged_attn(dtype, what, state, t, active):
-    """The paged-decode kernel of whichever ``repro_torch`` is on the path
-    against its plain version (outputs within TOL, pools exact), then
+def check_paged_attn(dtype, what, state, t, active, mod=None):
+    """The paged-decode kernel of ``mod`` (default: this tree's) against
+    this tree's plain version (outputs within TOL, pools exact), then
     timed beside it; its launches and grids read from a trace."""
-    from repro_torch.kernels import mita_paged_attn as mpa
+    from repro_torch.kernels import mita_paged_attn as plain
+    mpa = mod or plain
     st, table, q, kn, vn = state
     m_cnt = t // W
     tol = TOL[dtype]
     # the plain reference runs on float32 copies of the same values
     a, b = clone_state(st, torch.float32), clone_state(st)
-    ref = mpa.paged_attention_plain(
+    ref = plain.paged_attention_plain(
         q.float(), kn.float(), vn.float(), a.lm_q, a.lm_v, a.expert_idx,
         a.expert_valid, a.k_pool, a.v_pool, table, t, active, m_cnt,
         window=W, n_route=1, fuse_append=True)
@@ -373,11 +403,11 @@ def check_paged_attn(dtype, what, state, t, active):
         b.v_pool, table, t, active, m_cnt, window=W, n_route=1,
         fuse_append=True)
     a = clone_state(st)
-    plain = lambda: mpa.paged_attention_plain(  # noqa: E731
+    pl = lambda: plain.paged_attention_plain(  # noqa: E731
         q, kn, vn, a.lm_q, a.lm_v, a.expert_idx, a.expert_valid, a.k_pool,
         a.v_pool, table, t, active, m_cnt, window=W, n_route=1,
         fuse_append=True)
-    ms, pms = cuda_ms(kern), cuda_ms(plain)
+    ms, pms = cuda_ms(kern), cuda_ms(pl)
     rec = kernel_record(kern)
     bms, by = bound_ms(*attn_bound(st, q, t, active, m_cnt, dtype), dtype)
     print(f"mita_paged_attention {what} {dtype}: max_abs_err {err:.3e} "
@@ -469,11 +499,17 @@ CHUNK_SETS = {
     "recompute": [(256, 256, 300, True), (256, 256, 384, True),
                   (0, 256, 320, True), (0, 0, 1, False)],
 }
+CHUNK_KW = dict(window=W, k_width=K, n_route=1, external_finalize=True)
+CHUNK_FIELDS = ("lm_q", "lm_v", "expert_idx", "expert_valid", "q_sum",
+                "pre_lm_q", "pre_q_sum")
 
 
-def chunk_inputs(dtype, rows, seed):
+def chunk_inputs(dtype, rows, seed, M=M, int_values=False):
     """Random compact row state over a shuffled page table, at the serving
-    shapes of qwen3-0.6b (P=4, Hkv=8, G=2, nc=256, d=128, M=6, K=128)."""
+    shapes of qwen3-0.6b (P=4, Hkv=8, G=2, nc=256, d=128, M=6, K=128).
+    ``int_values``: queries, keys and values are small integers and the
+    keys take only three distinct rows, so scores tie exactly and are
+    exact in any summation order."""
     g = torch.Generator(device="cuda").manual_seed(seed)
     dev = "cuda"
     p_rows = len(rows)
@@ -482,7 +518,8 @@ def chunk_inputs(dtype, rows, seed):
         : p_rows * M].reshape(p_rows, M).to(torch.int32)
 
     def rnd(*shape, scale=1.0, dt=dtype):
-        return (torch.randn(shape, generator=g, device=dev) * scale).to(dt)
+        x = torch.randn(shape, generator=g, device=dev) * scale
+        return (x.round().clamp(-4, 4) if int_values else x).to(dt)
 
     st = dict(
         lm_q=rnd(p_rows, HKV, M, D), lm_v=rnd(p_rows, HKV, M, D),
@@ -495,14 +532,22 @@ def chunk_inputs(dtype, rows, seed):
         pre_lm_q=rnd(p_rows, HKV, M, D),
         pre_q_sum=rnd(p_rows, HKV, D, scale=W, dt=torch.float32))
     rows_total = n_pages * W + 1
-    pools = (rnd(rows_total, HKV, D), rnd(rows_total, HKV, D))
+    pools = [rnd(rows_total, HKV, D), rnd(rows_total, HKV, D)]
     q = rnd(p_rows, HKV, G, NC, D)
     k = rnd(p_rows, HKV, NC, D)
     v = rnd(p_rows, HKV, NC, D)
+    if int_values:      # three distinct key rows per head
+        # the two landmark systems agree, as the engine keeps them
+        st["pre_lm_q"] = st["lm_q"].clone()
+        base = rnd(3, HKV, D)
+        pick = torch.randint(0, 3, (rows_total,), generator=g, device=dev)
+        pools[0] = base[pick].contiguous()
+        k = base[torch.randint(0, 3, (p_rows, NC), generator=g,
+                               device=dev)].transpose(1, 2).contiguous()
     t0, nv, ntr, act = (torch.tensor(c, device=dev) for c in zip(*rows))
     sched = (table, t0.to(torch.int32), nv.to(torch.int32),
              ntr.to(torch.int32), act.to(torch.bool))
-    return q, k, v, st, pools, sched
+    return q, k, v, st, tuple(pools), sched
 
 
 def chunk_bound(rows, dtype):
@@ -545,75 +590,237 @@ def chunk_bound(rows, dtype):
     return nbytes, ops
 
 
+def chunk_vs_plain(mod, dtype, rows, inputs, what, state=None):
+    """One call of ``mod``'s chunk kernel against this tree's plain version
+    on float32 copies (landmark queries rounded as the kernel rounds
+    them): outputs within TOL, pools exact, expert rows and validity
+    exact, inactive rows untouched.  ``state`` replaces the kernel's state
+    input.  Returns (errors, mismatches per integer field, the kernel's
+    outputs, the plain version's)."""
+    from repro_torch.kernels import mita_chunk_prefill as plain
+    q, k, v, st, pools, sched = inputs
+    tol = TOL[dtype]
+    f32 = {n: (x.float() if x.is_floating_point() else x.clone())
+           for n, x in st.items()}
+    ka, va = (x.float() for x in pools)
+    ref = plain.chunk_prefill_plain(
+        q.float(), k.float(), v.float(), *f32.values(), ka, va, *sched,
+        **CHUNK_KW, round_dtype=dtype)
+    kb, vb = (x.clone() for x in pools)
+    got = mod.mita_chunk_prefill_fused(
+        q, k, v, *(state or st).values(), kb, vb, *sched, **CHUNK_KW)
+    torch.cuda.synchronize()
+    act = sched[4].cpu().numpy()
+    errs, mism = [], {}
+    for r, (t0, nv, ntr, a) in enumerate(rows):
+        if not a:
+            if got[0][r].abs().max().item() != 0:
+                fail(f"chunk kernel {what}: inactive row output")
+            continue
+        a, b = ref[0][r, :, :, :nv].float(), got[0][r, :, :, :nv]
+        errs.append((b.float() - a).abs().max().item())
+        if not torch.allclose(b.float(), a, atol=tol, rtol=tol):
+            fail(f"chunk kernel {what} {dtype} row {r} output "
+                 f"max_abs_err {errs[-1]}")
+    for pool_a, pool_b, pn in ((ka, kb, "k_pool"), (va, vb, "v_pool")):
+        if not torch.equal(pool_a[:-1], pool_b[:-1].float()):
+            fail(f"chunk kernel {what} {dtype} {pn} rows differ")
+    for i, f in enumerate(CHUNK_FIELDS):
+        a, b = ref[1 + i], got[1 + i]
+        if f in ("expert_idx", "expert_valid"):
+            # exact in both dtypes: the plain version rounds the landmark
+            # queries as the kernel does
+            mism[f] = int((a.int() != b.int()).sum())
+            if mism[f]:
+                fail(f"chunk kernel {what} {dtype} {f}: {mism[f]} of "
+                     f"{a.numel()} differ")
+        else:
+            errs.append((a.float() - b.float()).abs().max().item())
+            if not torch.allclose(b.float(), a.float(), atol=tol, rtol=tol):
+                fail(f"chunk kernel {what} {dtype} {f} max_abs_err "
+                     f"{errs[-1]}")
+        for r in np.nonzero(~act)[0]:
+            if not torch.equal(b[r].to(st[f].dtype), st[f][r]):
+                fail(f"chunk kernel {what}: inactive row {f} changed")
+    return errs, mism, got, ref
+
+
+def check_chunk(dtype, mod=None):
+    """The chunk-prefill kernel of ``mod`` (default: this tree's) against
+    this tree's `chunk_prefill_plain` on both row sets; timed on the
+    "serve" set, its launches and names read from a trace."""
+    from repro_torch.kernels import mita_chunk_prefill as plain
+    mod = mod or plain
+    errs, mism = [], {"expert_idx": 0, "expert_valid": 0}
+    for si, (name, rows) in enumerate(CHUNK_SETS.items()):
+        inputs = chunk_inputs(dtype, rows, 10 + si)
+        e, m, _, _ = chunk_vs_plain(mod, dtype, rows, inputs, name)
+        errs += e
+        for f in mism:
+            mism[f] += m[f]
+        if name == "serve":
+            q, k, v, st, pools, sched = inputs
+            kb, vb = (x.clone() for x in pools)
+            kern = lambda: mod.mita_chunk_prefill_fused(  # noqa: E731
+                q, k, v, *st.values(), kb, vb, *sched, **CHUNK_KW)
+            pl = lambda: plain.chunk_prefill_plain(  # noqa: E731
+                q, k, v, *st.values(), kb, vb, *sched, **CHUNK_KW)
+            ms, pms = cuda_ms(kern, iters=20), cuda_ms(pl, iters=5)
+            rec = kernel_record(kern, iters=20)
+            bms, by = bound_ms(*chunk_bound(rows, dtype), dtype)
+    err = max(errs)
+    tol = TOL[dtype]
+    print(f"mita_chunk_prefill_fused {dtype}: max_abs_err {err:.3e} "
+          f"(tol {tol}), expert-row mismatches {mism['expert_idx']}, "
+          f"validity mismatches {mism['expert_valid']}, kernel {ms:.4f} ms, "
+          f"plain {pms:.4f} ms, bound {bms:.5f} ms ({by}); "
+          f"{record_text(rec)}")
+    return dict(max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=bms,
+                bound_by=by, tol=tol, idx_mismatch=mism["expert_idx"],
+                valid_mismatch=mism["expert_valid"], **rec)
+
+
+# chunk-size invariance: (tokens, n_train) per row -- prompts of 4 and 3
+# windows, a prompt of 3 windows followed by a generated window (the
+# recompute shape) and a prompt shorter than one window
+INVARIANCE_ROWS = [(512, 512), (512, 384), (384, 384), (96, 96)]
+
+
+def chunked_prefill(dtype, nc, seed=40):
+    """Prefill INVARIANCE_ROWS from an empty state in chunks of ``nc``
+    through the chunk kernel.  Returns (per-position outputs, final state,
+    pools)."""
+    from repro_torch.kernels import mita_chunk_prefill as mcp
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    dev = "cuda"
+    p_rows, n_tok = len(INVARIANCE_ROWS), max(n for n, _ in
+                                              INVARIANCE_ROWS)
+    m_slot = n_tok // W
+    n_pages = p_rows * m_slot + 2
+    table = torch.randperm(n_pages, generator=g, device=dev)[
+        : p_rows * m_slot].reshape(p_rows, m_slot).to(torch.int32)
+    q = torch.randn((p_rows, HKV, G, n_tok, D), generator=g,
+                    device=dev).to(dtype)
+    k, v = (torch.randn((p_rows, HKV, n_tok, D), generator=g,
+                        device=dev).to(dtype) for _ in range(2))
+    pools = [torch.zeros((n_pages * W + 1, HKV, D), dtype=dtype, device=dev)
+             for _ in range(2)]
+    z = lambda *s, dt=dtype: torch.zeros(s, dtype=dt, device=dev)  # noqa
+    st = [z(p_rows, HKV, m_slot, D), z(p_rows, HKV, m_slot, D),
+          z(p_rows, HKV, m_slot, K, dt=torch.int32),
+          z(p_rows, HKV, m_slot, K, dt=torch.bool),
+          z(p_rows, HKV, D, dt=torch.float32), z(p_rows, HKV, m_slot, D),
+          z(p_rows, HKV, D, dt=torch.float32)]
+    outs = torch.zeros_like(q)
+    ntr = torch.tensor([t for _, t in INVARIANCE_ROWS], dtype=torch.int32,
+                       device=dev)
+    for t0 in range(0, n_tok, nc):
+        nv = torch.tensor([min(max(n - t0, 0), nc) for n, _ in
+                           INVARIANCE_ROWS], dtype=torch.int32, device=dev)
+        t0s = torch.full((p_rows,), t0, dtype=torch.int32, device=dev)
+        out, *st = mcp.mita_chunk_prefill_fused(
+            q[:, :, :, t0:t0 + nc], k[:, :, t0:t0 + nc], v[:, :, t0:t0 + nc],
+            *st, *pools, table, t0s, nv, ntr, nv > 0, **CHUNK_KW)
+        outs[:, :, :, t0:t0 + nc] = out
+    torch.cuda.synchronize()
+    return outs, st, pools
+
+
+def chunk_invariance(dtype):
+    """Chunks of 128 and of 256 give every position's output, the final
+    state and the pools bit for bit (a position's bits depend only on its
+    own inputs)."""
+    a, b = chunked_prefill(dtype, 128), chunked_prefill(dtype, 256)
+    for what, x, y in [("outputs", a[0], b[0])] \
+            + list(zip(CHUNK_FIELDS, a[1], b[1])) \
+            + [("k_pool", a[2][0], b[2][0]), ("v_pool", a[2][1], b[2][1])]:
+        if not torch.equal(x, y):
+            n = int((x != y).sum())
+            fail(f"chunk kernel {dtype}: chunks of 128 and 256 give "
+                 f"different {what} ({n} elements)")
+    print(f"mita_chunk_prefill_fused {dtype}: chunks of 128 and 256 give "
+          f"bit-identical outputs at every position, state and pools "
+          f"(rows {INVARIANCE_ROWS})")
+
+
+TIE_M = 16                  # 2048 tokens of context: past the sort buffer
+TIE_ROWS = [(1792, 256, 2048, True), (768, 256, 1024, True)]
+
+
+def chunk_ties(dtype):
+    """Exact ties: integer queries and keys, three distinct key rows per
+    head, landmarks over contexts of 896-2048 positions (beyond one sort
+    pass of 896 new keys, so the slices' top-K lists are merged).  The
+    kernel's expert rows must equal the plain version's first-index
+    top-K."""
+    from repro_torch.kernels import mita_chunk_prefill as mcp
+    inputs = chunk_inputs(dtype, TIE_ROWS, 50, M=TIE_M, int_values=True)
+    _, mism, got, ref = chunk_vs_plain(mcp, dtype, TIE_ROWS, inputs,
+                                       "ties")
+    lanes = int(got[4].sum())
+    print(f"mita_chunk_prefill_fused {dtype}: exact ties over contexts "
+          f"of up to {TIE_M * W} positions (slice merge): expert rows "
+          f"{mism['expert_idx']} and validity {mism['expert_valid']} "
+          f"mismatches against the first-index top-K ({lanes} valid "
+          f"lanes)")
+
+
+def chunk_control(dtype):
+    """The control of the chunk check: the kernel run with the second
+    64-key tile of one routed expert (landmark 0 of row 0, every head, in
+    the state the recompute rows route to) made invalid lies outside the
+    tolerance of the plain version on the full state."""
+    from repro_torch.kernels import mita_chunk_prefill as mcp
+    rows = CHUNK_SETS["recompute"]
+    inputs = chunk_inputs(dtype, rows, 11)
+    st = dict(inputs[3])
+    st["expert_valid"] = st["expert_valid"].clone()
+    st["expert_valid"][0, :, 0, 64:128] = False
+    q, k, v, full, pools, sched = inputs
+    ref = mcp.chunk_prefill_plain(
+        q.float(), k.float(), v.float(),
+        *[x.float() if x.is_floating_point() else x for x in full.values()],
+        *(x.float() for x in pools), *sched, **CHUNK_KW, round_dtype=dtype)
+    got = mcp.mita_chunk_prefill_fused(q, k, v, *st.values(),
+                                       *(x.clone() for x in pools), *sched,
+                                       **CHUNK_KW)
+    torch.cuda.synchronize()
+    nv = rows[0][1]
+    a, b = ref[0][0, :, :, :nv].float(), got[0][0, :, :, :nv].float()
+    err = (a - b).abs().max().item()
+    tol = TOL[dtype]
+    if err <= tol or torch.allclose(b, a, atol=tol, rtol=tol):
+        fail(f"chunk kernel {dtype}: the control with a routed expert's "
+             f"second key tile dropped passes the check (max_abs_err "
+             f"{err})")
+    print(f"mita_chunk_prefill_fused {dtype}: control with keys 64..127 "
+          f"of a routed expert dropped: max_abs_err {err:.3e}, fails the "
+          f"check (tol {tol}), as it must")
+    return err
+
+
 def phase_chunk_kernel():
     """The chunk-prefill kernel against `chunk_prefill_plain` on both row
-    sets, float32 and bfloat16 pools; timed on the "serve" set."""
+    sets, float32 and bfloat16 pools, with the path the trace shows (at
+    most three launches, all the kernel's own); chunk-size invariance,
+    exact ties and the dropped-tile control."""
     from repro_torch.kernels import mita_chunk_prefill as mcp
-    fields = ("lm_q", "lm_v", "expert_idx", "expert_valid", "q_sum",
-              "pre_lm_q", "pre_q_sum")
-    kw = dict(window=W, k_width=K, n_route=1, external_finalize=True)
     res = {}
     for dtype in (torch.float32, torch.bfloat16):
-        tol = TOL[dtype]
-        errs, mism = [], 0
-        for si, (name, rows) in enumerate(CHUNK_SETS.items()):
-            q, k, v, st, pools, sched = chunk_inputs(dtype, rows, 10 + si)
-            f32 = {n: (x.float() if x.is_floating_point() else x.clone())
-                   for n, x in st.items()}
-            ka, va = (x.float() for x in pools)
-            # float32 copies; landmark queries rounded as the kernel rounds
-            ref = mcp.chunk_prefill_plain(
-                q.float(), k.float(), v.float(), *f32.values(), ka, va,
-                *sched, **kw, round_dtype=dtype)
-            kb, vb = (x.clone() for x in pools)
-            got = mcp.mita_chunk_prefill_fused(
-                q, k, v, *st.values(), kb, vb, *sched, **kw)
-            torch.cuda.synchronize()
-            act = sched[4].cpu().numpy()
-            for r, (t0, nv, ntr, a) in enumerate(rows):
-                if not a:
-                    if got[0][r].abs().max().item() != 0:
-                        fail(f"chunk kernel {name}: inactive row output")
-                    continue
-                a, b = ref[0][r, :, :, :nv].float(), got[0][r, :, :, :nv]
-                errs.append((b.float() - a).abs().max().item())
-                if not torch.allclose(b.float(), a, atol=tol, rtol=tol):
-                    fail(f"chunk kernel {name} {dtype} row {r} output "
-                         f"max_abs_err {errs[-1]}")
-            for pool_a, pool_b, pn in ((ka, kb, "k_pool"), (va, vb, "v_pool")):
-                if not torch.equal(pool_a[:-1], pool_b[:-1].float()):
-                    fail(f"chunk kernel {name} {dtype} {pn} rows differ")
-            for i, f in enumerate(fields):
-                a, b = ref[1 + i], got[1 + i]
-                if f in ("expert_idx", "expert_valid"):
-                    n_bad = int((a.int() != b.int()).sum())
-                    if dtype == torch.float32 and n_bad:
-                        fail(f"chunk kernel {name} {f}: {n_bad} differ")
-                    mism += n_bad if f == "expert_idx" else 0
-                else:
-                    errs.append((a.float() - b.float()).abs().max().item())
-                    if not torch.allclose(b.float(), a.float(), atol=tol,
-                                          rtol=tol):
-                        fail(f"chunk kernel {name} {dtype} {f} max_abs_err "
-                             f"{errs[-1]}")
-                for r in np.nonzero(~act)[0]:
-                    if not torch.equal(b[r].to(st[f].dtype), st[f][r]):
-                        fail(f"chunk kernel {name}: inactive row {f} changed")
-            if name == "serve":
-                kern = lambda: mcp.mita_chunk_prefill_fused(  # noqa: E731
-                    q, k, v, *st.values(), kb, vb, *sched, **kw)
-                plain = lambda: mcp.chunk_prefill_plain(  # noqa: E731
-                    q, k, v, *st.values(), kb, vb, *sched, **kw)
-                ms, pms = cuda_ms(kern, iters=20), cuda_ms(plain, iters=5)
-                rec = kernel_record(kern, iters=20)
-                bms, by = bound_ms(*chunk_bound(rows, dtype), dtype)
-        err = max(errs)
-        res[dtype] = dict(max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=bms,
-                          bound_by=by, tol=tol, idx_mismatch=mism, **rec)
-        print(f"mita_chunk_prefill_fused {dtype}: max_abs_err {err:.3e} "
-              f"(tol {tol}), expert-row mismatches {mism}, kernel {ms:.4f} "
-              f"ms, plain {pms:.4f} ms, bound {bms:.5f} ms ({by}); "
-              f"{record_text(rec)}")
+        r = res[dtype] = check_chunk(dtype)
+        attend = {mcp.TENSOR_CORES: "attend_mma_kernel",
+                  mcp.CUDA_CORES: "attend_core_kernel"}[
+                      mcp.chunk_path(dtype, D)]
+        want = ["append_kernel", "landmark_kernel", attend]
+        if r["cuda_kernels"] != want:
+            fail(f"chunk kernel {dtype}: the trace shows "
+                 f"{r['cuda_kernels']}, expected {want}")
+        if dtype == torch.bfloat16 and attend != "attend_mma_kernel":
+            fail("chunk kernel bf16: not on the tensor cores")
+        r["path"] = mcp.chunk_path(dtype, D)
+        chunk_invariance(dtype)
+        chunk_ties(dtype)
+        r["control_max_abs_err"] = chunk_control(dtype)
     return res
 
 
@@ -669,6 +876,114 @@ def flash_bound(n, nk, causal, dtype, bh=16):
     return nbytes, 4 * D * bh * pairs
 
 
+def expert_partials(out):
+    """(o / l, m) on the active rows, and l: the JAX kernel tests'
+    comparison (o is rounded to the input dtype, and one bf16 ulp of an
+    un-normalised o can exceed the tolerance)."""
+    o, m, l = (x.float() for x in out)
+    act = l > 0
+    return (o / l.clamp(min=1e-30)[..., None])[act], m[act], l
+
+
+def check_expert(dtype, mod=None):
+    """The routed-expert kernel of ``mod`` (default: this tree's) against
+    this tree's plain version at the forward shape (and a ragged NS), P
+    rounded to bf16 in the plain version where this tree's kernel rounds
+    it; inactive rows exactly empty; timed, its launches and names read
+    from a trace."""
+    from repro_torch.kernels import mita_expert_attn as plain
+    mod = mod or plain
+    tol = TOL[dtype]
+    errs = []
+    round_p = plain.expert_path(dtype, D) == plain.TENSOR_CORES
+    for ns, seed in ((FWD_N, 20), (FWD_N - 37, 21)):     # then ragged
+        args = expert_inputs(dtype, ns, seed)
+        ref = plain.expert_attention_plain(*args, round_p=round_p)
+        got = mod.mita_expert_attention(*args)
+        torch.cuda.synchronize()
+        if not torch.equal(got[2] > 0, ref[2] > 0):
+            fail(f"mita_expert_attention {dtype} NS {ns}: active rows "
+                 "differ")
+        for name, x, y in zip(("o / l", "m", "l"), expert_partials(got),
+                              expert_partials(ref)):
+            errs.append((x - y).abs().max().item())
+            if not torch.allclose(x, y, atol=tol, rtol=tol):
+                fail(f"mita_expert_attention {dtype} NS {ns} {name} "
+                     f"max_abs_err {errs[-1]}")
+        inactive = args[1] >= FWD_M
+        if int(inactive.sum(-1).min()) < 64:
+            fail("expert inputs: a lead row without an inactive tile")
+        if got[0][inactive].abs().max() != 0 \
+                or got[2][inactive].abs().max() != 0 \
+                or (got[1][inactive] != torch.finfo(torch.float32).min
+                    ).any():
+            fail(f"mita_expert_attention {dtype}: inactive rows are not "
+                 "empty")
+        if ns == FWD_N:
+            kern = lambda: mod.mita_expert_attention(*args)  # noqa: E731
+            pl = lambda: plain.expert_attention_plain(*args)  # noqa: E731
+            ms, pms = cuda_ms(kern, iters=20), cuda_ms(pl, iters=5)
+            rec = kernel_record(kern, iters=20)
+            bms, by = bound_ms(*expert_bound(args, dtype), dtype)
+    err = max(errs)
+    print(f"mita_expert_attention {dtype}: max_abs_err {err:.3e} (tol "
+          f"{tol}), kernel {ms:.4f} ms, plain {pms:.4f} ms, bound "
+          f"{bms:.5f} ms ({by}); {record_text(rec)}")
+    return dict(max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=bms,
+                bound_by=by, tol=tol, library_ms=None, **rec)
+
+
+def expert_invariance(dtype):
+    """A row's (o, m, l) bits depend only on its own query, expert and
+    keys: the forward-shape rows shuffled, and shifted by 17 against the
+    64-row tiles, give the sorted run's bits after un-permuting."""
+    from repro_torch.kernels import mita_expert_attn as mea
+    q, a, ke, ve, valid = expert_inputs(dtype, FWD_N, 20)
+    base = mea.mita_expert_attention(q, a, ke, ve, valid)
+    g = torch.Generator(device="cuda").manual_seed(22)
+    shifted = (torch.arange(FWD_N, device="cuda") + 17) % FWD_N
+    for what, perm in (("shuffled", torch.randperm(FWD_N, generator=g,
+                                                   device="cuda")),
+                       ("shifted", shifted)):
+        inv = torch.argsort(perm)
+        got = mea.mita_expert_attention(q[..., perm, :], a[..., perm], ke,
+                                        ve, valid)
+        for name, x, y in (("o", got[0][..., inv, :], base[0]),
+                           ("m", got[1][..., inv], base[1]),
+                           ("l", got[2][..., inv], base[2])):
+            if not torch.equal(x, y):
+                fail(f"mita_expert_attention {dtype}: {what} rows give "
+                     f"other {name} bits ({int((x != y).sum())} elements)")
+    print(f"mita_expert_attention {dtype}: shuffled and shifted rows give "
+          f"the sorted run's (o, m, l) bit for bit")
+
+
+def expert_control(dtype):
+    """The control of the expert check: the kernel run with keys 64..127
+    of expert 1 made invalid lies outside the tolerance of the plain
+    version on the rows that use expert 1."""
+    from repro_torch.kernels import mita_expert_attn as mea
+    q, a, ke, ve, valid = expert_inputs(dtype, FWD_N, 20)
+    round_p = mea.expert_path(dtype, D) == mea.TENSOR_CORES
+    ro, _, rl = mea.expert_attention_plain(q, a, ke, ve, valid,
+                                           round_p=round_p)
+    dropped = valid.clone()
+    dropped[..., 1, 64:128] = False
+    o, _, l = mea.mita_expert_attention(q, a, ke, ve, dropped)
+    use = a == 1
+    x = o.float()[use] / l[use][:, None]
+    y = ro.float()[use] / rl[use][:, None]
+    err = (x - y).abs().max().item()
+    tol = TOL[dtype]
+    if err <= tol or torch.allclose(x, y, atol=tol, rtol=tol):
+        fail(f"mita_expert_attention {dtype}: the control with keys 64..127 "
+             f"of an expert dropped passes the check (max_abs_err {err})")
+    print(f"mita_expert_attention {dtype}: control with keys 64..127 of "
+          f"expert 1 dropped ({int(use.sum())} rows): max_abs_err "
+          f"{err:.3e}, fails the check (tol {tol}), as it must")
+    return err
+
+
 def phase_fullseq_kernels():
     """The routed-expert and flash kernels against their plain versions at
     the forward shapes; timed with CUDA events (cold L2)."""
@@ -678,51 +993,19 @@ def phase_fullseq_kernels():
     res = {"expert": {}, "flash": {}}
     for dtype in (torch.float32, torch.bfloat16):
         tol = TOL[dtype]
-        errs = []
-        for ns, seed in ((FWD_N, 20), (FWD_N - 37, 21)):     # then ragged
-            args = expert_inputs(dtype, ns, seed)
-            ref = mea.expert_attention_plain(*args)
-            got = mea.mita_expert_attention(*args)
-            torch.cuda.synchronize()
-            (o, m, l), (ro, rm, rl) = ((x.float() for x in t)
-                                       for t in (got, ref))
-            act = rl > 0
-            if not torch.equal(act, l > 0):
-                fail(f"mita_expert_attention {dtype} NS {ns}: active rows "
-                     "differ")
-            # normalised output and max on the active rows (the JAX
-            # kernel tests' comparison: o is rounded to the input dtype,
-            # one bf16 ulp of an un-normalised o can exceed the tolerance)
-            for name, x, y in (
-                    ("o / l", (o / l.clamp(min=1e-30)[..., None])[act],
-                     (ro / rl.clamp(min=1e-30)[..., None])[act]),
-                    ("m", m[act], rm[act]), ("l", l, rl)):
-                errs.append((x - y).abs().max().item())
-                if not torch.allclose(x, y, atol=tol, rtol=tol):
-                    fail(f"mita_expert_attention {dtype} NS {ns} {name} "
-                         f"max_abs_err {errs[-1]}")
-            inactive = args[1] >= FWD_M
-            if int(inactive.sum(-1).min()) < 64:
-                fail("expert inputs: a lead row without an inactive tile")
-            if got[0][inactive].abs().max() != 0 \
-                    or got[2][inactive].abs().max() != 0 \
-                    or (got[1][inactive] != torch.finfo(torch.float32).min
-                        ).any():
-                fail(f"mita_expert_attention {dtype}: inactive rows are not "
-                     "empty")
-            if ns == FWD_N:
-                kern = lambda: mea.mita_expert_attention(*args)  # noqa: E731
-                plain = lambda: mea.expert_attention_plain(*args)  # noqa: E731
-                ms, pms = cuda_ms(kern, iters=20), cuda_ms(plain, iters=5)
-                rec = kernel_record(kern, iters=20)
-                bms, by = bound_ms(*expert_bound(args, dtype), dtype)
-        err = max(errs)
-        res["expert"][dtype] = dict(max_abs_err=err, ms=ms, plain_ms=pms,
-                                    bound_ms=bms, bound_by=by, tol=tol,
-                                    library_ms=None, **rec)
-        print(f"mita_expert_attention {dtype}: max_abs_err {err:.3e} (tol "
-              f"{tol}), kernel {ms:.4f} ms, plain {pms:.4f} ms, bound "
-              f"{bms:.5f} ms ({by}); {record_text(rec)}")
+        r = res["expert"][dtype] = check_expert(dtype)
+        # one CUDA launch a call, on the path expert_path names (bf16: the
+        # tensor cores)
+        path = mea.expert_path(dtype, D)
+        want = {mea.TENSOR_CORES: ["expert_mma_kernel"],
+                mea.CUDA_CORES: ["expert_attn_kernel"]}[path]
+        if r["cuda_kernels"] != want or (dtype == torch.bfloat16
+                                         and path != mea.TENSOR_CORES):
+            fail(f"mita_expert_attention {dtype}: the trace shows "
+                 f"{r['cuda_kernels']}, expected {want}")
+        r["path"] = path
+        expert_invariance(dtype)
+        r["control_max_abs_err"] = expert_control(dtype)
 
         g = torch.Generator(device="cuda").manual_seed(30)
         q, k, v = (torch.randn((1, 16, FWD_N, D), generator=g, device="cuda")
@@ -1311,6 +1594,9 @@ def main() -> int:
             row["long_context"]["shape"] = f"S={LONG_S}, M={LONG_M}"
             row["f32"]["long_context"] = {k: r32["long_context"][k] for k in (
                 "max_abs_err", "ms", "plain_ms", "bound_ms") + traced}
+        if key in ("chunk", "expert"):
+            for k in ("path", "control_max_abs_err"):
+                row[k], row["f32"][k] = r[k], r32[k]
         if key == "flash":
             row["shape"] = f"[1, 16, {FWD_N}, {D}] causal"
             row["full"] = r["full"]

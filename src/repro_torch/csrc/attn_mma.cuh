@@ -28,6 +28,7 @@
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <type_traits>
 
 namespace attn_mma {
 
@@ -164,6 +165,85 @@ __device__ __forceinline__ void tma_load_3d(uint32_t dst, const void* tmap,
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
+}
+
+__device__ __forceinline__ void st_shared_v4(uint32_t addr,
+                                             const uint32_t (&v)[4]) {
+  asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};\n" ::"r"(addr),
+               "r"(v[0]), "r"(v[1]), "r"(v[2]), "r"(v[3])
+               : "memory");
+}
+
+// A [ROWS x D] tile gathered row by row into the swizzled layout: row r
+// from src(r) (D contiguous values), zeros where src(r) is null.  bf16
+// rows go by cp.async (`any` is any readable address: a zero-filled copy
+// reads nothing); float rows are rounded to bf16 here and stored through
+// the generic proxy (fence_proxy_async before wgmma reads them).  Each
+// thread looks up all of its rows before it issues a copy, so the lookups
+// overlap instead of waiting behind the copies.
+template <int D, int ROWS, int THREADS, typename RowFn>
+__device__ __forceinline__ void gather_tile_async(uint32_t tile, RowFn src,
+                                                  const void* any, int tid) {
+  constexpr int kChunks = D / 8, kTotal = ROWS * kChunks;
+  constexpr int kIt = (kTotal + THREADS - 1) / THREADS;
+  using P = decltype(src(0));
+  using E = std::remove_cv_t<std::remove_pointer_t<P>>;
+  P rows[kIt];
+#pragma unroll
+  for (int it = 0; it < kIt; ++it) {
+    const int i = tid + it * THREADS;
+    rows[it] = (kTotal % THREADS == 0 || i < kTotal) ? src(i / kChunks)
+                                                     : nullptr;
+  }
+#pragma unroll
+  for (int it = 0; it < kIt; ++it) {
+    const int i = tid + it * THREADS;
+    if (kTotal % THREADS != 0 && i >= kTotal) break;
+    const int r = i / kChunks, c = i % kChunks;
+    const P p = rows[it];
+    if constexpr (std::is_same_v<E, float>) {
+      uint32_t v[4] = {0u, 0u, 0u, 0u};
+      if (p != nullptr) {
+        const float4 a = *reinterpret_cast<const float4*>(p + c * 8);
+        const float4 b = *reinterpret_cast<const float4*>(p + c * 8 + 4);
+        v[0] = pack_bf16(a.x, a.y);
+        v[1] = pack_bf16(a.z, a.w);
+        v[2] = pack_bf16(b.x, b.y);
+        v[3] = pack_bf16(b.z, b.w);
+      }
+      st_shared_v4(tile + tile_off(r, c, ROWS), v);
+    } else {
+      cp_async16(tile + tile_off(r, c, ROWS),
+                 p != nullptr ? static_cast<const void*>(p + c * 8) : any,
+                 p != nullptr);
+    }
+  }
+}
+
+// D[64 x 64] (+)= A[64 x 16] . B[16 x 64], A and B in shared memory
+// (descriptors), both K-major; scale_d = 0 overwrites D.
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t desc_a,
+                                            uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
 }
 
 // D[64 x 128] (+)= A[64 x 16] . B[16 x 128], A and B in shared memory

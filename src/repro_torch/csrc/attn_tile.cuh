@@ -1,5 +1,6 @@
-// Tile machinery shared by the two full-sequence attention kernels,
-// `mita_expert_attn.cu` and `flash_attn.cu` (sm_90a).
+// Tile machinery shared by the CUDA-core attention kernels,
+// `mita_expert_attn.cu`, `flash_attn.cu` and `mita_chunk_prefill.cu`
+// (sm_90a).
 //
 // One block of kThreads threads owns a tile of TQ query rows and walks key
 // tiles of TK rows with the online softmax of the Pallas kernels it
@@ -99,6 +100,18 @@ __device__ void load_tile(float* dst, const T* src, int n_rows, int d,
   }
 }
 
+// 64 rows into dst [64][d + 1] as float, times scale: row r from src(r)
+// (d contiguous values of any type `ld` reads), zeros where src(r) is
+// null.
+template <typename RowFn>
+__device__ void gather_tile(float* dst, RowFn src, int d, float scale) {
+  for (int idx = threadIdx.x; idx < TQ * d; idx += kThreads) {
+    const int r = idx / d, c = idx - r * d;
+    const auto p = src(r);
+    dst[r * (d + 1) + c] = p != nullptr ? ld(p + c) * scale : 0.f;
+  }
+}
+
 __device__ inline void init_stats(const Smem& S) {
   for (int r = threadIdx.x; r < TQ; r += kThreads) {
     S.m[r] = kNegInf;
@@ -106,11 +119,13 @@ __device__ inline void init_stats(const Smem& S) {
   }
 }
 
-// s[r][j] = q[r] . k[j] for the 4 x 4 micro-tile of this thread (rows
-// 4*tq + i, keys tk + 16*j); lanes where ok(r, j) is false get NEG_INF.
+// s[r][j] = (q[r] . k[j]) * scale for the 4 x 4 micro-tile of this thread
+// (rows 4*tq + i, keys tk + 16*j); lanes where ok(r, j) is false get
+// NEG_INF.  Equal products stay equal (the scale multiplies the finished
+// dot product).
 template <typename OkFn>
-__device__ __forceinline__ void score_tile(const Smem& S, int d,
-                                           OkFn ok) {
+__device__ __forceinline__ void score_tile(const Smem& S, int d, OkFn ok,
+                                           float scale = 1.f) {
   const int tq = threadIdx.x >> 4, tk = threadIdx.x & 15;
   float acc[4][4];
 #pragma unroll
@@ -135,7 +150,7 @@ __device__ __forceinline__ void score_tile(const Smem& S, int d,
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       const int r = tq * 4 + i, kk = tk + 16 * j;
-      S.s[r * (TK + 1) + kk] = ok(r, kk) ? acc[i][j] : kNegInf;
+      S.s[r * (TK + 1) + kk] = ok(r, kk) ? acc[i][j] * scale : kNegInf;
     }
 }
 

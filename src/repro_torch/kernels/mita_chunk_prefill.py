@@ -16,16 +16,23 @@ of the serving engine's batched chunk program:
     landmark availability.
 
 * `mita_chunk_prefill_fused` launches ``csrc/mita_chunk_prefill.cu`` on
-  CUDA tensors and adds one to ``LAUNCHES``.
+  CUDA tensors (three ordered CUDA launches: append, landmark, attend) and
+  adds one to ``LAUNCHES``.  `chunk_path` names the attend step a call
+  takes: bf16 at head dim 64 or 128 on the tensor cores, float32 and the
+  other head dims on the CUDA cores in float32.
 * `chunk_prefill_plain` is the same function in plain PyTorch, a port of
   the XLA oracle ``core.mita_decode._batched_chunk_prefill_xla``.
+* `topk_sort_keys` mirrors on the host the packed keys of the kernel's
+  sort-based top-K (``csrc/topk_sort.cuh``).
 
 Both take the rows' compact ``[P, ...]`` state, return the updated state
 as new tensors (inputs are left as they were) and write the pools in
 place.  Cast points: the plain version casts the landmark softmax weights
 to the pool dtype before the value sum (as XLA does); the kernel keeps
-them in float32 (as the Pallas kernel does).  Below float32 the two
-differ within the bf16 tolerance.
+them in float32 (as the Pallas kernel does), and on the tensor cores it
+rounds the attention weights and the A-system landmark values to bf16
+before their value products.  Below float32 the two differ within the
+bf16 tolerance.
 """
 
 from __future__ import annotations
@@ -250,15 +257,42 @@ def chunk_prefill_plain(q, k, v, lm_q, lm_v, expert_idx, expert_valid,
             pre_q_sum_s)
 
 
+TENSOR_CORES = "tensor cores (wgmma, bf16)"
+CUDA_CORES = "CUDA cores (float32)"
+SORT_N = 1024           # the kernel's top-K sort buffer: K <= SORT_N / 2
+
+
+def chunk_path(dtype: torch.dtype, d: int) -> str:
+    """The attend step a CUDA call with this pool dtype and head dim
+    runs."""
+    return TENSOR_CORES if dtype == torch.bfloat16 and d in (64, 128) \
+        else CUDA_CORES
+
+
+def topk_sort_keys(scores: torch.Tensor) -> torch.Tensor:
+    """The kernel's top-K keys on the host: one int64 per score (last
+    axis = candidate index) whose order is the device key's unsigned
+    order, so a descending sort of the keys is ``lax.top_k``'s order
+    (scores descending, ties by ascending index; -0 ties with +0).
+    ``~keys & 0xFFFFFFFF`` is the index."""
+    s = scores.float().contiguous()
+    s = torch.where(s == 0, torch.zeros_like(s), s)
+    u = s.view(torch.int32).long() & 0xFFFFFFFF
+    hi = torch.where(u >= 1 << 31, ~u & 0xFFFFFFFF, u | 1 << 31)
+    lo = ~torch.arange(s.shape[-1], device=s.device) & 0xFFFFFFFF
+    # unsigned 64-bit order as signed int64: the high word less 2^31
+    return ((hi - (1 << 31)) << 32) | lo
+
+
 def _lib():
     lib = _build.load("mita_chunk_prefill")
     fn = lib.mita_chunk_prefill
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [i] + [p] * 22 + [i] * 10 + [p]
+        fn.argtypes = [i, p] + [i] * 10 + [p]
         fn.restype = ctypes.c_int
         sb = lib.mita_chunk_prefill_smem_bytes
-        sb.argtypes = [i] * 5
+        sb.argtypes = [i] * 6
         sb.restype = ctypes.c_longlong
     return lib
 
@@ -281,10 +315,10 @@ def mita_chunk_prefill_fused(q, k, v, lm_q, lm_v, expert_idx, expert_valid,
     [P, Hkv, d] float32; k_pool/v_pool: [R + 1, Hkv, d] float32 or
     bfloat16, contiguous, appended to in place; page_table: [P, M] int32;
     t0/n_valid/n_train: [P] int32; active: [P] bool.  d must be a
-    multiple of 32 up to 128 and G at most 4.
+    multiple of 32 up to 128, G at most 64 and K at most 512.
 
     Returns (out [P, Hkv, G, nc, d] (zeros past n_valid and on inactive
-    rows), lm_q, lm_v, expert_idx, expert_valid (int32), q_sum, pre_lm_q,
+    rows), lm_q, lm_v, expert_idx, expert_valid (bool), q_sum, pre_lm_q,
     pre_q_sum) as new tensors; inactive rows pass through bit for bit.
     """
     global LAUNCHES
@@ -299,13 +333,16 @@ def mita_chunk_prefill_fused(q, k, v, lm_q, lm_v, expert_idx, expert_valid,
     _check(k_w == k_width, "k_width must match expert_idx")
     _check(k_w <= ctx, f"k_width {k_w} exceeds the slot context {ctx}")
     _check(d % 32 == 0 and d <= 128, f"head dim {d} (multiple of 32, <= 128)")
-    _check(g <= 4, f"group size {g} (at most 4)")
+    _check(1 <= g <= 64, f"group size {g} (at most 64)")
+    _check(k_w <= SORT_N // 2, f"k_width {k_w} (at most {SORT_N // 2})")
     _check(1 <= n_route <= m_slot, f"n_route {n_route}")
     _check(k.shape == v.shape == (p_rows, hkv, nc, d), "k/v shape")
     _check(v_pool.shape == k_pool.shape and v_pool.dtype == dt
            and k_pool.shape[1:] == (hkv, d), "pool shape/dtype")
     _check(k_pool.is_contiguous() and v_pool.is_contiguous(),
            "pools must be contiguous (appended to in place)")
+    _check(k_pool.data_ptr() % 16 == 0 and v_pool.data_ptr() % 16 == 0,
+           "pools must be 16-byte aligned (read as 16-byte vectors)")
     for x in (lm_q, lm_v, pre_lm_q):
         _check(x.shape == (p_rows, hkv, m_slot, d) and x.dtype == dt,
                "landmark shape/dtype")
@@ -320,36 +357,42 @@ def mita_chunk_prefill_fused(q, k, v, lm_q, lm_v, expert_idx, expert_valid,
               active):
         _check(x.device == dev, "all tensors must be on one device")
     lib = _lib()
-    smem = lib.mita_chunk_prefill_smem_bytes(g, d, m_slot, k_w, window)
+    dcode = 0 if dt == torch.float32 else 1
+    smem = lib.mita_chunk_prefill_smem_bytes(dcode, d, m_slot, window, k_w,
+                                             n_route)
     _check(smem <= SMEM_LIMIT, f"needs {smem} B of shared memory")
 
-    ins = [q.to(dt).contiguous(), k.to(dt).contiguous(),
-           v.to(dt).contiguous(), q_sum.contiguous(), pre_q_sum.contiguous(),
-           k_pool, v_pool, page_table.to(torch.int32).contiguous(),
+    def aligned(x):     # the kernels read 16-byte vectors
+        x = x.contiguous()
+        return x if x.data_ptr() % 16 == 0 else x.clone()
+
+    ins = [aligned(q.to(dt)), aligned(k.to(dt)), aligned(v.to(dt)),
+           q_sum.contiguous(), pre_q_sum.contiguous(), k_pool, v_pool,
+           page_table.to(torch.int32).contiguous(),
            t0.to(torch.int32).contiguous(),
            n_valid.to(torch.int32).contiguous(),
            n_train.to(torch.int32).contiguous(),
            active.to(torch.bool).contiguous().view(torch.uint8)]
     out = torch.empty((p_rows, hkv, g, nc, d), dtype=dt, device=dev)
-    # the state outputs start as copies of the inputs: the kernel writes
-    # only what the chunk commits
-    outs = [lm_q.clone(memory_format=torch.contiguous_format),
-            lm_v.clone(memory_format=torch.contiguous_format),
-            expert_idx.to(torch.int32, copy=True).contiguous(),
-            expert_valid.to(torch.int32).contiguous(),
-            q_sum.clone(memory_format=torch.contiguous_format),
-            pre_lm_q.clone(memory_format=torch.contiguous_format),
-            pre_q_sum.clone(memory_format=torch.contiguous_format)]
+    # the state on entry, read as it is where it has the kernel's types;
+    # the kernel writes the state on exit whole
+    state_in = [lm_q.contiguous(), lm_v.contiguous(),
+                expert_idx.to(torch.int32).contiguous(),
+                expert_valid.to(torch.bool).contiguous(),
+                pre_lm_q.contiguous()]
+    outs = [torch.empty_like(x, memory_format=torch.contiguous_format)
+            for x in (state_in[0], state_in[1], state_in[2], state_in[3],
+                      q_sum, state_in[4], pre_q_sum)]
     ws_v = torch.empty((p_rows, hkv, m_slot, d), dtype=torch.float32,
                        device=dev)
     ws_i = torch.empty((p_rows, hkv, m_slot, k_w), dtype=torch.int32,
                        device=dev)
+    ptrs = [x.data_ptr() for x in ins + [out] + outs + [ws_v, ws_i]
+            + state_in]
     err = lib.mita_chunk_prefill(
-        0 if dt == torch.float32 else 1,
-        *[x.data_ptr() for x in ins], out.data_ptr(),
-        *[x.data_ptr() for x in outs], ws_v.data_ptr(), ws_i.data_ptr(),
-        p_rows, hkv, g, nc, d, m_slot, k_w, window, n_route,
-        int(external_finalize), torch.cuda.current_stream(dev).cuda_stream)
+        dcode, (ctypes.c_void_p * len(ptrs))(*ptrs), p_rows, hkv, g, nc, d,
+        m_slot, k_w, window, n_route, int(external_finalize),
+        torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "mita_chunk_prefill launch")
     LAUNCHES += 1
     return (out, *outs)

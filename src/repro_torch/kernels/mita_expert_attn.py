@@ -9,17 +9,24 @@ partial ``(o, m, l)``; an inactive row (``assign >= M``) gives exactly
 ``o = 0``, ``m = NEG_INF``, ``l = 0``.
 
 * `mita_expert_attention` launches ``csrc/mita_expert_attn.cu`` on CUDA
-  tensors and adds one to ``LAUNCHES``.
+  tensors (one CUDA launch a call) and adds one to ``LAUNCHES``.
+  `expert_path` names the kernel a call takes: bf16 at head dim 64 or 128
+  runs on the tensor cores (wgmma; the softmax weights are rounded to bf16
+  before the value product), float32 and the other head dims on the CUDA
+  cores in float32.
 * `expert_attention_plain` is the same function in plain PyTorch with the
-  kernel's rounding: q is scaled in float32 before the product, every
-  product and statistic is float32, and o is rounded to q's dtype once at
-  the end (the reference oracle multiplies in the input dtype).
+  CUDA-core kernel's rounding: q is scaled in float32 before the product,
+  every product and statistic is float32, and o is rounded to q's dtype
+  once at the end (the reference oracle multiplies in the input dtype).
+  ``round_p=True`` also rounds the softmax weights to bf16 before the
+  value product, as the tensor-core kernel does.
 
 Both take any query lead: q [..., NS, d], assign [..., NS], k_e / v_e
 [kv_lead..., M, K, d] and valid [kv_lead..., M, K], where ``kv_lead`` may
 hold broadcast-1 dims (GQA: one expert bank per KV head serves its G query
-heads).  The kernel reads the KV lead through an index map and never makes
-the G copies that the JAX wrapper (``ops.routed_expert_partial``) makes.
+heads).  The kernel finds the KV lead row of each query lead row from the
+KV lead's broadcast strides (`kv_lead_strides`) and never makes the G
+copies that the JAX wrapper (``ops.routed_expert_partial``) makes.
 ``block_q`` keeps its place in the signature; neither version depends on
 it (the kernel tiles by itself and walks the distinct experts of each
 tile, so neither the tiling nor the sort order changes the result).
@@ -75,9 +82,11 @@ def check_forward_only(*tensors) -> None:
 
 
 def expert_attention_plain(q_sorted, assign, k_e, v_e, valid,
-                           block_q: int = 128):
+                           block_q: int = 128, round_p: bool = False):
     """Plain PyTorch version of the kernel.  Returns (o [..., NS, d] in
-    q's dtype, m [..., NS] float32, l [..., NS] float32)."""
+    q's dtype, m [..., NS] float32, l [..., NS] float32).  ``round_p``
+    rounds the softmax weights to bf16 before the value product (l keeps
+    them in float32), as the tensor-core kernel does."""
     _, kv_lead, _, d, m, kw = _shapes(q_sorted, assign, k_e, v_e, valid)
     qf = q_sorted.float() * (1.0 / math.sqrt(d))
     kf = k_e.float().reshape(kv_lead + (m * kw, d))
@@ -91,7 +100,47 @@ def expert_attention_plain(q_sorted, assign, k_e, v_e, valid,
     mx = scores.amax(dim=-1)
     safe = torch.where(mx == NEG_INF, 0.0, mx)
     p = torch.where(mask, torch.exp(scores - safe[..., None]), 0.0)
-    return (p @ vf).to(q_sorted.dtype), mx, p.sum(dim=-1)
+    pv = p.to(torch.bfloat16).float() if round_p else p
+    return (pv @ vf).to(q_sorted.dtype), mx, p.sum(dim=-1)
+
+
+TENSOR_CORES = "tensor cores (wgmma, bf16)"
+CUDA_CORES = "CUDA cores (float32)"
+
+
+def expert_path(dtype: torch.dtype, d: int) -> str:
+    """The kernel a CUDA call with this dtype and head dim runs."""
+    return TENSOR_CORES if dtype == torch.bfloat16 and d in (64, 128) \
+        else CUDA_CORES
+
+
+def kv_lead_strides(lead: tuple, kv_lead: tuple):
+    """The query lead as 4 dims and the KV lead row's stride over each:
+    query lead row ``i`` (row-major over ``lead``) reads KV lead row
+    ``sum_j idx_j(i) * strides[j]``, where ``idx_j`` are the digits of
+    ``i`` over ``dims``.  A dim where the KV lead is 1 (broadcast) has
+    stride 0.  Adjacent dims merge where they can; raises ValueError if
+    more than 4 remain.  Returns (dims, strides), each a tuple of 4."""
+    kv = (1,) * (len(lead) - len(kv_lead)) + tuple(kv_lead)
+    strides, step = [], 1
+    for n_q, n_kv in zip(reversed(lead), reversed(kv)):
+        strides.append(step if n_kv == n_q else 0)
+        step *= n_kv
+    merged = []
+    for n, st in zip(lead, reversed(strides)):
+        if n == 1:
+            continue
+        if merged and merged[-1][1] == st * n:      # contiguous in kv
+            merged[-1] = (merged[-1][0] * n, st)
+        elif merged and merged[-1][1] == 0 and st == 0:
+            merged[-1] = (merged[-1][0] * n, 0)
+        else:
+            merged.append((n, st))
+    if len(merged) > 4:
+        raise ValueError(f"query lead {lead} over KV lead {kv_lead}: "
+                         f"{len(merged)} dims after merging (at most 4)")
+    merged = [(1, 0)] * (4 - len(merged)) + merged
+    return tuple(n for n, _ in merged), tuple(st for _, st in merged)
 
 
 def _lib():
@@ -99,7 +148,9 @@ def _lib():
     fn = lib.mita_expert_attention
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [i] + [p] * 9 + [i] * 5 + [ctypes.c_float, p]
+        ip = ctypes.POINTER(i)
+        fn.argtypes = [i, p, p, i] + [p] * 3 + [ip, ip] + [p] * 3 \
+            + [i] * 5 + [ctypes.c_float, p]
         fn.restype = ctypes.c_int
         sb = lib.mita_expert_attention_smem_bytes
         sb.argtypes = [i]
@@ -116,7 +167,8 @@ def mita_expert_attention(q_sorted, assign, k_e, v_e, valid,
                           block_q: int = 128):
     """Launch the CUDA kernel.  Shapes as `expert_attention_plain`; q,
     k_e and v_e float32 or bfloat16 (one dtype), head dim a multiple of 16
-    up to 128.  Returns (o, m, l) as the plain version does."""
+    up to 128; assign int32 or int64 and valid bool are read as they are.
+    Returns (o, m, l) as the plain version does."""
     global LAUNCHES
     check_forward_only(q_sorted, k_e, v_e)
     dt = q_sorted.dtype
@@ -139,14 +191,23 @@ def mita_expert_attention(q_sorted, assign, k_e, v_e, valid,
     lib = _lib()
     smem = lib.mita_expert_attention_smem_bytes(d)
     _check(smem <= SMEM_LIMIT, f"needs {smem} B of shared memory")
-    kv_map = torch.arange(math.prod(kv_lead), dtype=torch.int32, device=dev) \
-        .reshape(kv_lead).expand(lead).reshape(-1).contiguous()
-    args = [q_sorted.contiguous(),
-            assign.to(torch.int32).expand(lead + (ns,)).contiguous(),
-            k_e.contiguous(), v_e.contiguous(),
-            valid.to(torch.bool).contiguous().view(torch.uint8), kv_map]
+    dims, strides = kv_lead_strides(lead, kv_lead)
+    # converted only where the kernel cannot read the operand as it is
+    if assign.dtype not in (torch.int32, torch.int64):
+        assign = assign.to(torch.int32)
+    assign = assign.expand(lead + (ns,)).contiguous()
+    ok = valid if valid.dtype == torch.bool else valid.to(torch.bool)
+    # the tensor-core kernel reads 16-byte vectors (a copy realigns an odd
+    # view)
+    qkv = [a if a.data_ptr() % 16 == 0 else a.clone()
+           for a in (q_sorted.contiguous(), k_e.contiguous(),
+                     v_e.contiguous())]
     err = lib.mita_expert_attention(
-        0 if dt == torch.float32 else 1, *[a.data_ptr() for a in args],
+        0 if dt == torch.float32 else 1, qkv[0].data_ptr(),
+        assign.data_ptr(), int(assign.dtype == torch.int64),
+        qkv[1].data_ptr(), qkv[2].data_ptr(),
+        ok.contiguous().view(torch.uint8).data_ptr(),
+        (ctypes.c_int * 4)(*dims), (ctypes.c_int * 4)(*strides),
         o.data_ptr(), m_out.data_ptr(), l_out.data_ptr(), n_lead, ns, d, m,
         kw, 1.0 / math.sqrt(d), torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "mita_expert_attention launch")

@@ -115,9 +115,8 @@ def batched_chunk_prefill(q, k, v, lm_q, lm_v, expert_idx, expert_valid,
                           external_finalize: bool):
     """One prefill chunk for every row: appends to the pools in place and
     returns (out, lm_q, lm_v, expert_idx, expert_valid, q_sum, pre_lm_q,
-    pre_q_sum) for the rows' compact state (``expert_valid`` is int32 from
-    the kernel, bool from the plain version).  The kernel chooses its own
-    tiling; nothing here sizes it.  See
+    pre_q_sum) for the rows' compact state (``expert_valid`` bool).  The
+    kernel chooses its own tiling; nothing here sizes it.  See
     `kernels.mita_chunk_prefill.mita_chunk_prefill_fused`."""
     from repro_torch.kernels import mita_chunk_prefill as mcp
     args = (q, k, v, lm_q, lm_v, expert_idx, expert_valid, q_sum, pre_lm_q,

@@ -16,8 +16,8 @@ sequence of N tokens after a warm-up forward, with the routed branch of
 Prints the wall time per step, the share of that time the card was busy
 (sum of kernel times / wall time), and the operators with the largest
 CUDA and CPU self times; the last line is a JSON summary, with the device
-kernels of most self time (time per launch, launches, share of the
-device time).  Needs a CUDA
+kernels of most self time and every kernel of the port's own CUDA
+sources (time per launch, launches, share of the device time).  Needs a CUDA
 device unless ``--device cpu``, which profiles the plain versions and
 reports no device time.
 """
@@ -59,13 +59,21 @@ def _kernel_us(avgs) -> float:
                and not getattr(e, "is_user_annotation", False))
 
 
-def _top_kernels(avgs, dev_us: float, n: int = 8) -> dict:
-    """The ``n`` device kernels with the most self time: microseconds per
-    launch, launches, and share of the window's device time."""
+def _top_kernels(avgs, dev_us: float, n: int = 8, port: bool = False
+                 ) -> dict:
+    """The ``n`` device kernels with the most self time (``port``: every
+    kernel of the port's own CUDA sources, in their anonymous namespaces
+    and outside ATen's): microseconds per launch, launches, and share of
+    the window's device time."""
     from torch.autograd import DeviceType
     rows = sorted((e for e in avgs if e.device_type == DeviceType.CUDA
                    and not getattr(e, "is_user_annotation", False)),
-                  key=_self_device_us, reverse=True)[:n]
+                  key=_self_device_us, reverse=True)
+    if port:
+        rows = [e for e in rows if e.key.startswith(
+            "void (anonymous namespace)::") and "at::" not in e.key]
+    else:
+        rows = rows[:n]
     return {e.key[:80]: {"us_per_launch": _self_device_us(e) / e.count,
                          "launches": e.count,
                          "share": _self_device_us(e) / dev_us}
@@ -184,6 +192,8 @@ def _profile(args, device, run, what: str, extra: dict) -> dict:
                "count": n, "step_ms": step_ms, "device_busy_share": busy,
                "device_ms_per_step": dev_us / 1e3 / n,
                "top_kernels": _top_kernels(avgs, dev_us) if cuda else {},
+               "port_kernels": (_top_kernels(avgs, dev_us, port=True)
+                                if cuda else {}),
                "device": (torch.cuda.get_device_name(0) if cuda else "cpu")}
     print(json.dumps(summary))
     return summary

@@ -437,6 +437,30 @@ def test_prefix_cache_hits_equal_cold_run(smoke):
         np.testing.assert_array_equal(hot[rid], jhot[rid])
 
 
+@pytest.mark.parametrize("n", [8, 300, 2048])
+def test_topk_sort_keys_order_is_first_index_top_k(n):
+    """The chunk kernel's packed top-K keys (host mirror): a descending
+    sort of them is `topk_first`'s order -- scores descending, ties by
+    ascending index, -0 tied with +0 -- and its scores are
+    `torch.topk`'s values."""
+    from repro_torch.core.mita import topk_first
+    from repro_torch.kernels import mita_chunk_prefill as mcp
+    rng = np.random.default_rng(n)
+    x = torch.from_numpy(rng.integers(-3, 4, (6, n)).astype(np.float32) / 2)
+    x[:, :: 7] = -0.0
+    x[0, 1::5] = float(np.finfo(np.float32).min)    # masked lanes
+    x[1, :3] = float("inf")
+    x[2] = torch.from_numpy(                           # no ties
+        rng.standard_normal(n).astype(np.float32))
+    keys = mcp.topk_sort_keys(x)
+    order = ~torch.sort(keys, dim=-1, descending=True).values & 0xFFFFFFFF
+    vals, idx = topk_first(x, n)
+    assert torch.equal(order, idx)
+    k = min(n, 128)
+    assert torch.equal(torch.gather(x, -1, order[:, :k]),
+                       torch.topk(x, k, dim=-1).values)
+
+
 def test_chunk_dispatch_routes_by_device():
     """CPU tensors take the plain version (no launch counted); the CUDA
     wrapper refuses CPU tensors before building or launching anything."""

@@ -202,32 +202,91 @@ CHUNK_ROWS = [(0, 16, 32, True), (16, 16, 32, True), (16, 4, 20, True),
               (16, 16, 20, True), (0, 0, 1, False)]
 
 
-def _chunk_inputs(dtype, dev, nc=16, m_slot=4, hkv=2, g=2, d=32, seed=3):
+def _chunk_inputs(dtype, dev, nc=16, m_slot=4, hkv=2, g=2, d=32, seed=3,
+                  rows=CHUNK_ROWS, w=W, k=K, int_values=False):
+    """Random row state over a shuffled page table.  ``int_values``: small
+    integer queries, keys and values, the keys from three distinct rows
+    per head, so scores tie exactly and are exact in any order."""
     rng = np.random.default_rng(seed)
-    p_rows = len(CHUNK_ROWS)
+    p_rows = len(rows)
     n_pages = p_rows * m_slot + 3
     table = rng.permutation(n_pages)[: p_rows * m_slot].reshape(
         p_rows, m_slot)
 
     def rnd(*shape, dt=dtype):
-        return torch.from_numpy(rng.standard_normal(shape).astype(
-            np.float32)).to(dev, dt)
+        x = rng.standard_normal(shape).astype(np.float32)
+        if int_values:
+            x = np.clip(np.round(x), -4, 4)
+        return torch.from_numpy(x).to(dev, dt)
 
     st = [rnd(p_rows, hkv, m_slot, d), rnd(p_rows, hkv, m_slot, d),
-          torch.from_numpy(table[:, None, :, None] * W + rng.integers(
-              0, W, size=(p_rows, hkv, m_slot, K))).to(dev, torch.int32),
-          torch.from_numpy(rng.random((p_rows, hkv, m_slot, K)) > 0.3).to(
+          torch.from_numpy(table[:, None, :, None] * w + rng.integers(
+              0, w, size=(p_rows, hkv, m_slot, k))).to(dev, torch.int32),
+          torch.from_numpy(rng.random((p_rows, hkv, m_slot, k)) > 0.3).to(
               dev),
-          rnd(p_rows, hkv, d, dt=torch.float32) * W,
+          rnd(p_rows, hkv, d, dt=torch.float32) * w,
           rnd(p_rows, hkv, m_slot, d), rnd(p_rows, hkv, d, dt=torch.float32)]
-    pools = (rnd(n_pages * W + 1, hkv, d), rnd(n_pages * W + 1, hkv, d))
-    qkv = (rnd(p_rows, hkv, g, nc, d), rnd(p_rows, hkv, nc, d),
-           rnd(p_rows, hkv, nc, d))
-    t0, nv, ntr, act = zip(*CHUNK_ROWS)
+    pools = [rnd(n_pages * w + 1, hkv, d), rnd(n_pages * w + 1, hkv, d)]
+    qkv = [rnd(p_rows, hkv, g, nc, d), rnd(p_rows, hkv, nc, d),
+           rnd(p_rows, hkv, nc, d)]
+    if int_values:      # three distinct key rows per head
+        # the two landmark systems agree, as the engine keeps them
+        st[5] = st[0].clone()
+        base = rnd(3, hkv, d)
+        pools[0] = base[torch.from_numpy(
+            rng.integers(0, 3, n_pages * w + 1))].contiguous()
+        qkv[1] = base[torch.from_numpy(rng.integers(
+            0, 3, (p_rows, nc)))].transpose(1, 2).contiguous()
+    t0, nv, ntr, act = zip(*rows)
     sched = (torch.from_numpy(table.astype(np.int32)).to(dev),
              *(torch.tensor(x, dtype=torch.int32, device=dev)
                for x in (t0, nv, ntr)), torch.tensor(act, device=dev))
-    return qkv, st, pools, sched
+    return tuple(qkv), st, tuple(pools), sched
+
+
+def _chunk_vs_plain(dtype, inputs, rows, kw, state=None):
+    """The kernel (through `ops`) against the plain version on float32
+    copies; ``state`` replaces the kernel's state input (a control).
+    Returns (kernel outputs, plain outputs, plain pools, kernel pools)."""
+    (q, k, v), st, pools, sched = inputs
+    ka, va = (x.float() for x in pools)
+    ref = mcp.chunk_prefill_plain(
+        q.float(), k.float(), v.float(),
+        *[x.float() if x.is_floating_point() else x for x in st], ka, va,
+        *sched, **kw, round_dtype=dtype)
+    kb, vb = (x.clone() for x in pools)
+    ops.reset_launch_counts()
+    got = ops.batched_chunk_prefill(q, k, v, *(state or st), kb, vb, *sched,
+                                    **kw)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["mita_chunk_prefill_fused"] == 1
+    return got, ref, (ka, va), (kb, vb)
+
+
+def _assert_chunk_matches(dtype, inputs, rows, got, ref, pools_ref,
+                          pools_got):
+    st = inputs[1]
+    tol = TOL[dtype]
+    for r, (_, nv, _, act) in enumerate(rows):
+        if act:
+            torch.testing.assert_close(got[0][r, :, :, :nv].float(),
+                                       ref[0][r, :, :, :nv].float(),
+                                       atol=tol, rtol=tol)
+        else:
+            assert torch.all(got[0][r] == 0)
+    for a, b in zip(pools_ref, pools_got):
+        assert torch.equal(a[:-1], b[:-1].float())
+    for i, name in enumerate(("lm_q", "lm_v", "expert_idx", "expert_valid",
+                              "q_sum", "pre_lm_q", "pre_q_sum")):
+        a, b = ref[1 + i], got[1 + i]
+        if name.startswith("expert"):
+            assert torch.equal(a.int(), b.int()), name
+        else:
+            torch.testing.assert_close(b.float(), a.float(), atol=tol,
+                                       rtol=tol, msg=name)
+        for r, (_, _, _, act) in enumerate(rows):
+            if not act:
+                assert torch.equal(b[r].to(st[i].dtype), st[i][r]), name
 
 
 @pytest.mark.gpu
@@ -236,39 +295,146 @@ def _chunk_inputs(dtype, dev, nc=16, m_slot=4, hkv=2, g=2, d=32, seed=3):
                                               (1, False)])
 def test_chunk_prefill_kernel_vs_plain(cuda_device, dtype, n_route,
                                        external):
-    (q, k, v), st, pools, sched = _chunk_inputs(dtype, cuda_device)
+    inputs = _chunk_inputs(dtype, cuda_device)
     kw = dict(window=W, k_width=K, n_route=n_route,
               external_finalize=external)
-    ka, va = (x.float() for x in pools)
-    ref = mcp.chunk_prefill_plain(
-        q.float(), k.float(), v.float(),
-        *[x.float() if x.is_floating_point() else x for x in st], ka, va,
-        *sched, **kw, round_dtype=dtype)
-    kb, vb = (x.clone() for x in pools)
-    ops.reset_launch_counts()
-    got = ops.batched_chunk_prefill(q, k, v, *st, kb, vb, *sched, **kw)
+    got, ref, pools_ref, pools_got = _chunk_vs_plain(dtype, inputs,
+                                                     CHUNK_ROWS, kw)
+    _assert_chunk_matches(dtype, inputs, CHUNK_ROWS, got, ref, pools_ref,
+                          pools_got)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d,n_route,external,g", [(128, 1, True, 2),
+                                                  (64, 2, True, 2),
+                                                  (128, 1, False, 2),
+                                                  (128, 2, True, 1),
+                                                  (64, 1, True, 4)])
+def test_chunk_prefill_head_dims_of_the_tensor_core_path(cuda_device, dtype,
+                                                         d, n_route,
+                                                         external, g):
+    """Head dims 64 and 128, where bf16 runs the attend step on the tensor
+    cores (float32 on the CUDA cores), and group sizes 1, 2 and 4 (64 / G
+    positions per block), against the plain version."""
+    inputs = _chunk_inputs(dtype, cuda_device, d=d, g=g,
+                           seed=d + n_route + g)
+    kw = dict(window=W, k_width=K, n_route=n_route,
+              external_finalize=external)
+    got, ref, pools_ref, pools_got = _chunk_vs_plain(dtype, inputs,
+                                                     CHUNK_ROWS, kw)
+    _assert_chunk_matches(dtype, inputs, CHUNK_ROWS, got, ref, pools_ref,
+                          pools_got)
+    assert mcp.chunk_path(dtype, d) == (
+        mcp.TENSOR_CORES if dtype == torch.bfloat16 else mcp.CUDA_CORES)
+
+
+# chunk-size invariance: (tokens, n_train) per row -- whole-window
+# prompts, a prompt followed by generated tokens (the recompute shape) and
+# a prompt of less than one chunk
+INVARIANCE_ROWS = [(512, 512), (512, 384), (384, 384), (100, 100)]
+
+
+def _chunked_prefill(dtype, dev, nc, w=16, hkv=2, g=2, d=128, seed=21):
+    """Prefill INVARIANCE_ROWS from an empty state in chunks of ``nc``.
+    Returns (outputs at every position, final state, pools)."""
+    rng = np.random.default_rng(seed)
+    p_rows, n_tok = len(INVARIANCE_ROWS), max(n for n, _ in INVARIANCE_ROWS)
+    m_slot = n_tok // w
+    n_pages = p_rows * m_slot + 2
+    table = torch.from_numpy(rng.permutation(n_pages)[: p_rows * m_slot]
+                             .reshape(p_rows, m_slot).astype(np.int32)).to(
+                                 dev)
+
+    def rnd(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32)).to(dev, dtype)
+
+    q, k, v = (rnd(p_rows, hkv, g, n_tok, d), rnd(p_rows, hkv, n_tok, d),
+               rnd(p_rows, hkv, n_tok, d))
+    pools = [torch.zeros((n_pages * w + 1, hkv, d), dtype=dtype, device=dev)
+             for _ in range(2)]
+
+    def z(*shape, dt=dtype):
+        return torch.zeros(shape, dtype=dt, device=dev)
+
+    st = [z(p_rows, hkv, m_slot, d), z(p_rows, hkv, m_slot, d),
+          z(p_rows, hkv, m_slot, w, dt=torch.int32),
+          z(p_rows, hkv, m_slot, w, dt=torch.bool),
+          z(p_rows, hkv, d, dt=torch.float32), z(p_rows, hkv, m_slot, d),
+          z(p_rows, hkv, d, dt=torch.float32)]
+    outs = torch.zeros_like(q)
+    ntr = torch.tensor([t for _, t in INVARIANCE_ROWS], dtype=torch.int32,
+                       device=dev)
+    for t0 in range(0, n_tok, nc):
+        nv = torch.tensor([min(max(n - t0, 0), nc)
+                           for n, _ in INVARIANCE_ROWS], dtype=torch.int32,
+                          device=dev)
+        out, *st = ops.batched_chunk_prefill(
+            q[:, :, :, t0:t0 + nc], k[:, :, t0:t0 + nc], v[:, :, t0:t0 + nc],
+            *st, *pools, table, torch.full_like(nv, t0), nv, ntr, nv > 0,
+            window=w, k_width=w, n_route=1, external_finalize=True)
+        outs[:, :, :, t0:t0 + nc] = out
     torch.cuda.synchronize()
-    assert ops.launch_counts()["mita_chunk_prefill_fused"] == 1
+    return outs, st, pools
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_chunk_prefill_chunk_size_invariance(cuda_device, dtype):
+    """Chunks of 128 and of 256 give every position's output, the final
+    state and the pools bit for bit: a position's bits depend only on its
+    own inputs, not on nc, t0 or the other positions of its tile."""
+    a = _chunked_prefill(dtype, cuda_device, 128)
+    b = _chunked_prefill(dtype, cuda_device, 256)
+    assert torch.equal(a[0], b[0])
+    for x, y in zip(a[1] + a[2], b[1] + b[2]):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_chunk_prefill_ties_pick_the_first_index(cuda_device, dtype):
+    """Exact ties (integer queries and keys, three distinct key rows per
+    head) at contexts of 1024 and 2048 positions, beyond one pass of the
+    kernel's sort buffer (1024 - K new keys), so the slices' top-K lists
+    are merged: the expert rows equal the plain version's first-index
+    top-K."""
+    rows = [(1792, 256, 2048, True), (768, 256, 1024, True)]
+    w = k = 128
+    inputs = _chunk_inputs(dtype, cuda_device, nc=256, m_slot=16, d=64,
+                           rows=rows, w=w, k=k, int_values=True)
+    kw = dict(window=w, k_width=k, n_route=1, external_finalize=True)
+    got, ref, pools_ref, pools_got = _chunk_vs_plain(dtype, inputs, rows, kw)
+    _assert_chunk_matches(dtype, inputs, rows, got, ref, pools_ref,
+                          pools_got)
+    # the sort buffer's slices were merged: contexts past 1024 - K
+    assert max(t0 + nv for t0, nv, _, _ in rows) > mcp.SORT_N - k
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_chunk_tolerance_detects_a_dropped_tile(cuda_device, dtype):
+    """The control of the chunk check: the kernel run with keys 64..127 of
+    one routed expert made invalid (landmark 0 of row 0, in the state that
+    its generated positions route to) lies outside the tolerance of the
+    plain version on the full state, while the whole run lies inside it."""
+    rows = [(256, 256, 300, True), (0, 256, 320, True)]
+    w = k = 128
+    inputs = _chunk_inputs(dtype, cuda_device, nc=256, m_slot=6, d=128,
+                           rows=rows, w=w, k=k)
+    kw = dict(window=w, k_width=k, n_route=1, external_finalize=True)
+    got, ref, pools_ref, pools_got = _chunk_vs_plain(dtype, inputs, rows, kw)
+    _assert_chunk_matches(dtype, inputs, rows, got, ref, pools_ref,
+                          pools_got)
+    st = list(inputs[1])
+    st[3] = st[3].clone()
+    st[3][0, :, 0, 64:128] = False
+    dropped, ref, _, _ = _chunk_vs_plain(dtype, inputs, rows, kw, state=st)
     tol = TOL[dtype]
-    for r, (_, nv, _, act) in enumerate(CHUNK_ROWS):
-        if act:
-            torch.testing.assert_close(got[0][r, :, :, :nv].float(),
-                                       ref[0][r, :, :, :nv].float(),
-                                       atol=tol, rtol=tol)
-        else:
-            assert torch.all(got[0][r] == 0)
-    assert torch.equal(ka[:-1], kb[:-1].float())
-    assert torch.equal(va[:-1], vb[:-1].float())
-    for i, name in enumerate(("lm_q", "lm_v", "expert_idx", "expert_valid",
-                              "q_sum", "pre_lm_q", "pre_q_sum")):
-        a, b = ref[1 + i], got[1 + i]
-        if name.startswith("expert"):
-            if dtype == torch.float32:
-                assert torch.equal(a.int(), b.int()), name
-        else:
-            torch.testing.assert_close(b.float(), a.float(), atol=tol,
-                                       rtol=tol, msg=name)
-        assert torch.equal(b[-1].to(st[i].dtype), st[i][-1]), name
+    a, b = dropped[0][0].float(), ref[0][0].float()
+    assert (a - b).abs().max().item() > tol
+    assert not torch.allclose(a, b, atol=tol, rtol=tol)
 
 
 # ------------------------------------------------ routed-expert attention --
@@ -318,6 +484,102 @@ def test_expert_kernel_vs_plain(cuda_device, dtype, ns, kw, shuffle):
     assert torch.all(got[0][inactive] == 0)
     assert torch.all(got[2][inactive] == 0)
     assert torch.all(got[1][inactive] == torch.finfo(torch.float32).min)
+
+
+def _normalised(o, m, l):
+    """(o / l, m) on the active rows and l: the comparison of the JAX
+    kernel tests (o is rounded to the input dtype before l divides it)."""
+    act = l > 0
+    return ((o.float() / l.clamp(min=1e-30)[..., None])[act], m[act], l)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d,ns,kw", [(128, 512, 128), (128, 203, 200),
+                                     (64, 256, 40)])
+def test_expert_kernel_head_dims_of_the_tensor_core_path(cuda_device, dtype,
+                                                         d, ns, kw):
+    """Head dims 64 and 128, where bf16 runs on the tensor cores (P rounded
+    to bf16 before the value product, as the plain version does on
+    request), with ragged NS, a key width of two tiles and of a part of
+    one: within the tolerance, inactive rows exactly empty."""
+    args = _expert_inputs(dtype, cuda_device, ns, kw, d=d, m=8, seed=d + kw)
+    tc = mea.expert_path(dtype, d) == mea.TENSOR_CORES
+    assert tc == (dtype == torch.bfloat16)
+    ref = mea.expert_attention_plain(*args, round_p=tc)
+    ops.reset_launch_counts()
+    got = ops.routed_expert_partial(*args)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["mita_expert_attention"] == 1
+    tol = TOL[dtype]
+    for x, y in zip(_normalised(*got), _normalised(*ref)):
+        torch.testing.assert_close(x.float(), y.float(), atol=tol, rtol=tol)
+    inactive = args[1] >= 8
+    assert torch.all(got[0][inactive] == 0)
+    assert torch.all(got[2][inactive] == 0)
+    assert torch.all(got[1][inactive] == torch.finfo(torch.float32).min)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_expert_kernel_rows_are_bit_invariant(cuda_device, dtype):
+    """A row's (o, m, l) bits depend only on its own query, expert and
+    keys: a shuffled assignment, a shift of the rows against the tiles,
+    and new neighbours (the other rows' queries and experts redrawn) give
+    the sorted run's bits after un-permuting."""
+    q, a, ke, ve, valid = _expert_inputs(dtype, cuda_device, 512, 128,
+                                         d=128, m=8, seed=3)
+    base = mea.mita_expert_attention(q, a, ke, ve, valid)
+    rng = np.random.default_rng(0)
+    ns = q.shape[-2]
+    for perm in (rng.permutation(ns), np.roll(np.arange(ns), 17)):
+        p = torch.from_numpy(perm).to(cuda_device)
+        inv = torch.argsort(p)
+        got = mea.mita_expert_attention(q[..., p, :], a[..., p], ke, ve,
+                                        valid)
+        assert torch.equal(got[0][..., inv, :], base[0])
+        assert torch.equal(got[1][..., inv], base[1])
+        assert torch.equal(got[2][..., inv], base[2])
+    keep = torch.arange(ns, device=cuda_device) % 2 == 0
+    q2 = torch.where(keep[:, None], q, torch.randn_like(q.float()).to(dtype))
+    a2 = torch.where(keep, a, torch.randint_like(a, 0, 9))
+    a2, order = torch.sort(a2, dim=-1, stable=True)
+    q2 = torch.gather(q2, -2, order[..., None].expand_as(q2))
+    inv = torch.argsort(order, dim=-1)
+    got = mea.mita_expert_attention(q2, a2, ke, ve, valid)
+    for x, y in zip(got, base):
+        x = torch.gather(x, x.dim() - 1 - (x.dim() == 5),
+                         inv[..., None].expand_as(x) if x.dim() == 5
+                         else inv)
+        assert torch.equal(x[..., keep, :] if x.dim() == 5 else x[..., keep],
+                           y[..., keep, :] if y.dim() == 5 else y[..., keep])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_expert_tolerance_detects_a_dropped_tile(cuda_device, dtype):
+    """The control of the expert check: the kernel run with keys 64..127
+    of one expert made invalid lies outside the tolerance of the plain
+    version on the rows that use that expert, while the whole run lies
+    inside it."""
+    q, a, ke, ve, valid = _expert_inputs(dtype, cuda_device, 512, 128,
+                                         d=128, m=8, seed=5)
+    tc = mea.expert_path(dtype, 128) == mea.TENSOR_CORES
+    ref = _normalised(*mea.expert_attention_plain(q, a, ke, ve, valid,
+                                                  round_p=tc))
+    tol = TOL[dtype]
+    for x, y in zip(_normalised(*mea.mita_expert_attention(q, a, ke, ve,
+                                                           valid)), ref):
+        torch.testing.assert_close(x, y, atol=tol, rtol=tol)
+    dropped = valid.clone()
+    dropped[..., 2, 64:128] = False
+    o, m, l = mea.mita_expert_attention(q, a, ke, ve, dropped)
+    ro, rm, rl = mea.expert_attention_plain(q, a, ke, ve, valid, round_p=tc)
+    use = a == 2
+    x = o.float()[use] / l[use][:, None]
+    y = ro.float()[use] / rl[use][:, None]
+    assert (x - y).abs().max().item() > tol
+    assert not torch.allclose(x, y, atol=tol, rtol=tol)
 
 
 @pytest.mark.gpu

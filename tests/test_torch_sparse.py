@@ -142,6 +142,58 @@ def test_routed_expert_partial_broadcast_leads(ns):
     _assert_partials(*got, *ref, 3e-5)
 
 
+@pytest.mark.parametrize("b,h,ns,d,m,kw", [
+    (2, 2, 128, 32, 8, 16),
+    (1, 1, 128, 128, 2, 64),
+])
+def test_expert_plain_bf16_weights_vs_ref(b, h, ns, d, m, kw):
+    """``round_p=True`` (the tensor-core kernel's rounding: the softmax
+    weights rounded to bf16 before the value product) against the oracle
+    with bf16 values, which multiplies bf16 weights too: within the bf16
+    tolerance, and not the same bits as the float32 weights."""
+    q, assign, ke, ve, valid = _expert_inputs(ns + d, b, h, ns, d, m, kw)
+    (jq, tq), (jke, tke), (jve, tve) = (_both(x, "bfloat16")
+                                        for x in (q, ke, ve))
+    args = (tq, torch.from_numpy(assign), tke, tve, torch.from_numpy(valid))
+    got = tmea.expert_attention_plain(*args, round_p=True)
+    ref = mita_expert_attention_ref(
+        jq.astype(jnp.float32), jnp.asarray(assign), jke.astype(jnp.float32),
+        jve, jnp.asarray(valid))
+    _assert_partials(*got, *ref, 3e-2)
+    assert not torch.equal(got[0], tmea.expert_attention_plain(*args)[0])
+
+
+@pytest.mark.parametrize("lead,kv_lead", [
+    ((1, 8, 2), (1, 8, 1)),      # qwen3-0.6b: one expert bank per KV head
+    ((2, 4, 3), (2, 4, 1)),
+    ((2, 4, 3), (1, 4, 1)),      # the batch broadcast too
+    ((1, 8, 2), (8, 1)),         # a shorter KV lead
+    ((3, 5), (1,)),              # one bank for every row
+    ((16,), (16,)),
+    ((1, 2, 3, 4, 5), (1, 2, 3, 4, 5)),
+])
+def test_kv_lead_strides_match_the_expand_map(lead, kv_lead):
+    """The kernel's KV lead row of each query lead row, from the host's
+    (dims, strides), is the old index map arange(kv_lead).expand(lead)."""
+    dims, strides = tmea.kv_lead_strides(lead, kv_lead)
+    n_kv = int(np.prod(kv_lead))
+    want = torch.arange(n_kv).reshape(kv_lead).expand(lead).reshape(-1)
+    got = []
+    for i in range(int(np.prod(lead))):     # as the kernel walks the digits
+        row, rest = 0, i
+        for n, st in zip(reversed(dims), reversed(strides)):
+            row += (rest % n) * st
+            rest //= n
+        got.append(row)
+    assert got == want.tolist()
+    assert len(dims) == len(strides) == 4
+
+
+def test_kv_lead_strides_refuse_five_dims():
+    with pytest.raises(ValueError, match="at most 4"):
+        tmea.kv_lead_strides((2, 3, 4, 5, 6), (2, 1, 4, 1, 6))
+
+
 def test_expert_path_is_forward_only():
     """The expert kernel has no backward in either package: the routed
     dispatch refuses inputs that require grad, and accepts them without
