@@ -16,7 +16,11 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
          one block per SM), also at S = 32, M = 32 (4096 tokens of
          context), and paged finalize (a non-due slot; expert rows and
          validity exact in both dtypes: the bf16 check rounds the plain
-         version's landmark query as the kernel does);
+         version's landmark query as the kernel does), also at S = 32,
+         M = 32 (ragged t_new, a due slot with fewer than K positions) and
+         on exact ties across splits (first index, 0 mismatches), its two
+         launches (split, merge) from the trace, and a control with one
+         split's partials dropped between them that must fail the check;
        * chunk prefill (nc=256): a fresh, a resumed, a non-aligned
          (n_train 320) and an inactive row, then two recompute rows
          (n_train < t0 + n_valid) and a fresh non-aligned row; outputs,
@@ -92,15 +96,20 @@ def fail(msg: str) -> None:
     raise SystemExit(f"chip_smoke FAILED: {msg}")
 
 
-def cuda_ms(fn, iters: int = 50, warmup: int = 5) -> float:
+def cuda_ms(fn, iters: int = 50, warmup: int = 5, setup=None) -> float:
     """Mean device time of one ``fn()`` with a cold L2: a 64 MiB write
     before each timed call evicts the 50 MB L2, as the decode step does
-    (each layer's state is reached after the other layers' weights)."""
+    (each layer's state is reached after the other layers' weights).
+    ``setup()``, where given, runs before each call, outside the timed
+    span (it restores inputs that a call consumes)."""
     scrub = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+    setup = setup or (lambda: None)
     for _ in range(warmup):
+        setup()
         fn()
     marks = []
     for _ in range(iters):
+        setup()
         scrub.zero_()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
@@ -129,7 +138,7 @@ def _spin_cycles_per_s() -> float:
     return _SPIN_CYCLES_PER_S[0]
 
 
-def card_ms(fn, iters: int = 50, warmup: int = 5) -> float:
+def card_ms(fn, iters: int = 50, warmup: int = 5, setup=None) -> float:
     """As `cuda_ms`, but each timed call is queued behind a spin kernel
     that outlasts the host's time to issue it, so the events time the
     card's work alone.  `cuda_ms` also counts the host's launch cost
@@ -137,8 +146,11 @@ def card_ms(fn, iters: int = 50, warmup: int = 5) -> float:
     ``card_ms`` field of the kernels line is this number, ``ms`` is
     `cuda_ms`'s."""
     scrub = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+    setup = setup or (lambda: None)
     for _ in range(warmup):
+        setup()
         fn()
+    setup()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     fn()
@@ -147,6 +159,7 @@ def card_ms(fn, iters: int = 50, warmup: int = 5) -> float:
     spin = int(_spin_cycles_per_s() * (2 * host_s + 50e-6))
     marks = []
     for _ in range(iters):
+        setup()
         scrub.zero_()
         torch.cuda._sleep(spin)
         start = torch.cuda.Event(enable_timing=True)
@@ -227,11 +240,12 @@ def record_text(rec: dict) -> str:
             "blocks")
 
 
-def kernel_record(kern, iters: int = 50) -> dict:
+def kernel_record(kern, iters: int = 50, setup=None) -> dict:
     """`card_ms` and `host_ms` of ``kern``, and what one call launches,
     from its trace."""
     launched = traced_kernels(kern)
-    return dict(card_ms=card_ms(kern, iters=iters), host_ms=host_ms(kern),
+    return dict(card_ms=card_ms(kern, iters=iters, setup=setup),
+                host_ms=host_ms(kern),
                 cuda_launches_per_call=len(launched),
                 cuda_kernels=[re.search(r"(\w+)[<(]", n).group(1)
                               for n, _ in launched],
@@ -333,16 +347,25 @@ def attn_bound(st, q, t, active, m_cnt, dtype):
     return nbytes, ops
 
 
-def finalize_bound(t_new, due, dtype):
+def finalize_bound(st, t_new, due, dtype):
+    """Least bytes and operations of one finalize call on this data: a due
+    slot that commits reads its visible K and V rows once and writes its
+    landmark, expert rows and q_sum; one that commits nothing only zeroes
+    its q_sum."""
+    S, _, M, _ = st.lm_q.shape
     es = torch.tensor([], dtype=dtype).element_size()
     nbytes = S * 9
     ops = 0
     for tn, dv in zip(t_new.cpu().numpy(), due.cpu().numpy()):
         if not dv:
             continue
-        nbytes += HKV * (2 * tn * D * es + 2 * D * 4 + M * 4
+        if not 0 <= tn // W - 1 < M:
+            nbytes += HKV * D * 4
+            continue
+        nvis = min(int(tn), M * W)
+        nbytes += HKV * (2 * nvis * D * es + 2 * D * 4 + M * 4
                          + 2 * D * es + K * 5)
-        ops += HKV * (4 * tn * D + K * tn)
+        ops += HKV * (4 * nvis * D + K * nvis)
     return nbytes, ops
 
 
@@ -417,14 +440,203 @@ def check_paged_attn(dtype, what, state, t, active, mod=None):
                 bound_by=by, tol=tol, **rec)
 
 
-def phase_kernels():
-    from repro_torch.kernels import mita_paged_finalize as mpf
+def finalize_cases(dtype):
+    """B.2's checks.  Yields (what, state, t_new, due, near_ties): the
+    serving shape (one slot not due); S = 32 slots of M = 32 pages (4096
+    tokens of context: several sort slices), ragged t_new, some slots not
+    due, a due slot whose context holds fewer than K positions (it commits
+    nothing and zeroes its q_sum) and a full one, twice: with real-valued
+    keys, where another summation order can swap two positions whose scores
+    differ by float32 rounding (``near_ties``: such rows pass, see
+    `pick_gaps`), and with its keys and landmark queries moved to a grid of
+    1/4, so every score is exact in float32 in any order and the picks must
+    equal the plain version's bit for bit; exact ties, with integer keys
+    from three distinct rows per head and integer landmark queries, so
+    every tie group spans splits."""
     dev = "cuda"
     t_new = torch.tensor([256, 640, 300, 768], dtype=torch.int32, device=dev)
     due = torch.tensor([True, True, False, True], device=dev)
+    yield "serving", make_state(dtype, seed=2), t_new, due, False
+    state = make_state(dtype, seed=5, S=LONG_S, M=LONG_M)
+    g = torch.Generator(device=dev).manual_seed(6)
+    t_new = torch.randint(0, LONG_M * W + 1, (LONG_S,), generator=g,
+                          device=dev).to(torch.int32)
+    due = torch.rand(LONG_S, generator=g, device=dev) > 0.25
+    t_new[:2] = torch.tensor([K - 28, LONG_M * W], dtype=torch.int32)
+    due[:2] = True
+    what = f"long context S={LONG_S} M={LONG_M}"
+    yield f"{what} real-valued", state, t_new, due, True
+    st = clone_state(state[0])
+    st.k_pool.copy_((st.k_pool.float() * 4).round() / 4)
+    st.q_sum.copy_((st.q_sum * 4 / W).round() * W / 4)
+    yield what, (st, *state[1:]), t_new, due, False
+    st, table, q, kn, vn = make_state(dtype, seed=7)
+    base = torch.randint(-3, 4, (3, HKV, D), generator=g, device=dev)
+    pick = torch.randint(0, 3, (st.k_pool.shape[0],), generator=g,
+                         device=dev)
+    st.k_pool.copy_(base[pick])
+    st.q_sum.copy_(torch.randint(-3, 4, st.q_sum.shape, generator=g,
+                                 device=dev) * W)
+    t_new = torch.tensor([768, 640, 512, 384], dtype=torch.int32, device=dev)
+    due = torch.ones(S, dtype=torch.bool, device=dev)
+    yield "exact ties", (st, table, q, kn, vn), t_new, due, False
+
+
+FIN_FIELDS = ("lm_q", "lm_v", "expert_idx", "expert_valid", "q_sum")
+
+
+def pick_gaps(a, b):
+    """For each expert row where the kernel's pick (state ``b``) differs
+    from the plain version's (``a``): the gap between the two picks'
+    scores, in float64 from the plain version's landmark query, and the
+    most that float32 rounding can make of such a gap.  A float32 dot
+    product of D terms in any summation order, then the divide by
+    sqrt(D), errs by at most (D + 1) u sum|k q| / sqrt(D) (u = 2^-24); two
+    implementations that rank a pair differently can each err so on each
+    of its two scores, hence twice that, on the larger sum of the two."""
+    s_, h_, m_, r_ = (b.expert_idx != a.expert_idx).nonzero().T
+    q = a.lm_q[s_, h_, m_].double()
+
+    def terms(x):
+        rows = x[s_, h_, m_, r_].long()
+        return a.k_pool[rows, h_].double() * q
+
+    ta, tb = terms(a.expert_idx), terms(b.expert_idx)
+    gap = (ta.sum(-1) - tb.sum(-1)).abs() / D ** 0.5
+    mag = torch.maximum(ta.abs().sum(-1), tb.abs().sum(-1)) / D ** 0.5
+    return gap, 2 * (D + 1) * 2.0 ** -24 * mag
+
+
+def finalize_vs_plain(mod, dtype, state, t_new, due, near_ties=False):
+    """One call of ``mod``'s finalize kernel on a copy of the state against
+    this tree's plain version on float32 copies, the landmark query
+    rounded as the kernel rounds it.  Returns (max_abs_err of lm_q, lm_v
+    and q_sum, expert-row mismatches, validity mismatches, the largest
+    score gap of a differing pair over its rounding bound (0 where none
+    differs), the first failure or None): floats within TOL, validity
+    exact, slots not due bit-identical, and expert rows exact -- with
+    ``near_ties``, a row may differ where its two picks' scores lie within
+    float32 rounding of each other (`pick_gaps`), and no other."""
+    from repro_torch.kernels import mita_paged_finalize as plain
+    st, table, _, _, _ = state
+    tol = TOL[dtype]
+    a, b = clone_state(st, torch.float32), clone_state(st)
+    plain.paged_finalize_plain(a.q_sum, a.lm_q, a.lm_v, a.expert_idx,
+                               a.expert_valid, a.k_pool, a.v_pool, table,
+                               t_new, due, window=W, k_width=K,
+                               round_dtype=dtype)
+    mod.mita_paged_finalize_fused(b.q_sum, b.lm_q, b.lm_v, b.expert_idx,
+                                  b.expert_valid, b.k_pool, b.v_pool, table,
+                                  t_new, due, window=W, k_width=K)
+    torch.cuda.synchronize()
+    errs = {f: (getattr(b, f).float() - getattr(a, f).float()).abs().max()
+            .item() for f in ("lm_q", "lm_v", "q_sum")}
+    idx = int((b.expert_idx != a.expert_idx).sum())
+    val = int((b.expert_valid != a.expert_valid).sum())
+    bad = [f"{f} max_abs_err {e}" for f, e in errs.items()
+           if not torch.allclose(getattr(b, f).float(), getattr(a, f).float(),
+                                 atol=tol, rtol=tol)]
+    gap = ratio = 0.0
+    if idx:
+        gaps, bounds = pick_gaps(a, b)
+        gap, ratio = gaps.max().item(), (gaps / bounds).max().item()
+    if val or (idx and not (near_ties and ratio <= 1.0)):
+        bad.append(f"integer outputs differ: {idx} rows, {val} validity "
+                   f"flags (largest score gap of a differing pair {gap:.3e}, "
+                   f"{ratio:.3g} x its float32 rounding bound)")
+    nd = ~due
+    bad += [f"non-due slot field {f} changed" for f in FIN_FIELDS
+            if not torch.equal(getattr(b, f)[nd], getattr(st, f)[nd])]
+    return max(errs.values()), idx, val, ratio, "; ".join(bad) or None
+
+
+def check_finalize(dtype, case, mod=None, strict=True):
+    """The finalize kernel of ``mod`` (default: this tree's) against this
+    tree's plain version on one of `finalize_cases`, then timed beside it;
+    its launches and grids read from a trace.  ``strict=False`` records a
+    failed check under ``check_failed`` instead of failing (the A/B tool
+    times a parent kernel that a new check may reject).
+
+    A call zeroes the due slots' q_sum, and a repeated call on that state
+    scores an all-zero landmark query: every score ties, the radix select's
+    worst case.  ``ms`` and ``card_ms`` give each timed call its q_sum
+    back; ``card_ms_reused`` times repeated calls on one state without
+    it, the timing that the kernels line's finalize row had before the
+    timers took a ``setup``."""
+    from repro_torch.kernels import mita_paged_finalize as plain
+    mod = mod or plain
+    what, state, t_new, due, near_ties = case
+    tol = TOL[dtype]
+    err, idx, val, ratio, bad = finalize_vs_plain(mod, dtype, state, t_new,
+                                                  due, near_ties)
+    if bad and strict:
+        fail(f"mita_paged_finalize_fused {what} {dtype}: {bad}")
+    st, table = state[0], state[1]
+    c = clone_state(st)
+    kern = lambda: mod.mita_paged_finalize_fused(  # noqa: E731
+        c.q_sum, c.lm_q, c.lm_v, c.expert_idx, c.expert_valid, c.k_pool,
+        c.v_pool, table, t_new, due, window=W, k_width=K)
+    pl = lambda: plain.paged_finalize_plain(  # noqa: E731
+        c.q_sum, c.lm_q, c.lm_v, c.expert_idx, c.expert_valid, c.k_pool,
+        c.v_pool, table, t_new, due, window=W, k_width=K)
+    setup = lambda: c.q_sum.copy_(st.q_sum)  # noqa: E731
+    ms, pms = cuda_ms(kern, setup=setup), cuda_ms(pl, iters=10, setup=setup)
+    rec = kernel_record(kern, setup=setup)
+    reused = card_ms(kern)
+    bms, by = bound_ms(*finalize_bound(st, t_new, due, dtype), dtype)
+    n_rows = int(due.sum()) * HKV * K
+    ties = (f" (near ties: largest gap {ratio:.3g} x its rounding bound)"
+            if near_ties and idx else "")
+    print(f"mita_paged_finalize_fused {what} {dtype}: max_abs_err "
+          f"{err:.3e} (tol {tol}), expert-row mismatches {idx}/{n_rows}"
+          f"{ties}, validity mismatches {val}"
+          f"{'; CHECK FAILED: ' + bad if bad else ''}, kernel {ms:.4f} ms, "
+          f"plain {pms:.4f} ms, bound {bms:.5f} ms ({by}); "
+          f"{record_text(rec)}; card {reused:.4f} ms on a reused state")
+    out = dict(max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=bms,
+               bound_by=by, tol=tol, idx_mismatch=idx, valid_mismatch=val,
+               gap_over_bound=ratio, card_ms_reused=reused, **rec)
+    if bad:
+        out["check_failed"] = bad
+    return out
+
+
+def finalize_control(dtype):
+    """The control of the finalize check: the kernel's two stages run with
+    one split's partials (slot 1, every head, the third of its five
+    splits) dropped between them lie outside the tolerance of the plain
+    version in ``lm_v``."""
+    from repro_torch.kernels import mita_paged_finalize as mpf
+    _, (st, table, *_), t_new, due, _ = next(finalize_cases(dtype))
+    a, b = clone_state(st, torch.float32), clone_state(st)
+    mpf.paged_finalize_plain(a.q_sum, a.lm_q, a.lm_v, a.expert_idx,
+                             a.expert_valid, a.k_pool, a.v_pool, table,
+                             t_new, due, window=W, k_width=K,
+                             round_dtype=dtype)
+    call = mpf.prepare(b.q_sum, b.lm_q, b.lm_v, b.expert_idx,
+                       b.expert_valid, b.k_pool, b.v_pool, table, t_new, due,
+                       window=W, k_width=K)
+    mpf.launch_stage(call, mpf.SPLIT)
+    parts = mpf.workspace_views(call)
+    parts["l"][1, :, 2] = 0.0
+    parts["o"][1, :, 2] = 0.0
+    mpf.launch_stage(call, mpf.MERGE)
+    torch.cuda.synchronize()
+    got, want = b.lm_v.float(), a.lm_v.float()
+    err = (got - want).abs().max().item()
+    tol = TOL[dtype]
+    if err <= tol or torch.allclose(got, want, atol=tol, rtol=tol):
+        fail(f"finalize {dtype}: the control with one split's partials "
+             f"dropped passes the lm_v check (max_abs_err {err})")
+    print(f"mita_paged_finalize_fused {dtype}: control with split 2 of "
+          f"slot 1 dropped: lm_v max_abs_err {err:.3e}, fails the check "
+          f"(tol {tol}), as it must")
+    return err
+
+
+def phase_kernels():
     res = {"attn": {}, "fin": {}}
     for dtype in (torch.float32, torch.bfloat16):
-        tol = TOL[dtype]
         # --- paged decode attention at the serving and the long-context
         # shape; the serving shape must spread over at least one block
         # per SM
@@ -436,52 +648,22 @@ def phase_kernels():
                  f"{n_sm} SMs at the serving shape")
         r["long_context"] = check_paged_attn(dtype, *long_case)
 
-        # --- paged finalize
-        st, table, _, _, _ = make_state(dtype, seed=2)
-        a, b = clone_state(st, torch.float32), clone_state(st)
-        # float32 copies; the landmark query rounded as the kernel rounds it
-        mpf.paged_finalize_plain(a.q_sum, a.lm_q, a.lm_v, a.expert_idx,
-                                 a.expert_valid, a.k_pool, a.v_pool, table,
-                                 t_new, due, window=W, k_width=K,
-                                 round_dtype=dtype)
-        mpf.mita_paged_finalize_fused(b.q_sum, b.lm_q, b.lm_v, b.expert_idx,
-                                      b.expert_valid, b.k_pool, b.v_pool,
-                                      table, t_new, due, window=W, k_width=K)
-        torch.cuda.synchronize()
-        err = max((getattr(b, f).float() - getattr(a, f).float()).abs()
-                  .max().item() for f in ("lm_q", "lm_v", "q_sum"))
-        for f in ("lm_q", "lm_v", "q_sum"):
-            if not torch.allclose(getattr(b, f).float(),
-                                  getattr(a, f).float(), atol=tol, rtol=tol):
-                fail(f"mita_paged_finalize_fused {dtype} {f} "
-                     f"max_abs_err {err}")
-        idx_mismatch = int((b.expert_idx != a.expert_idx).sum())
-        val_mismatch = int((b.expert_valid != a.expert_valid).sum())
-        if idx_mismatch or val_mismatch:
-            fail(f"finalize integer outputs differ: {idx_mismatch} rows, "
-                 f"{val_mismatch} validity flags")
-        nd = ~due
-        for f in ("lm_q", "lm_v", "expert_idx", "expert_valid", "q_sum"):
-            if not torch.equal(getattr(b, f)[nd], getattr(st, f)[nd]):
-                fail(f"finalize changed non-due slot field {f}")
-        c = clone_state(st)
-        kern = lambda: mpf.mita_paged_finalize_fused(  # noqa: E731
-            c.q_sum, c.lm_q, c.lm_v, c.expert_idx, c.expert_valid, c.k_pool,
-            c.v_pool, table, t_new, due, window=W, k_width=K)
-        plain = lambda: mpf.paged_finalize_plain(  # noqa: E731
-            c.q_sum, c.lm_q, c.lm_v, c.expert_idx, c.expert_valid, c.k_pool,
-            c.v_pool, table, t_new, due, window=W, k_width=K)
-        ms, pms = cuda_ms(kern), cuda_ms(plain)
-        rec = kernel_record(kern)
-        bms, by = bound_ms(*finalize_bound(t_new, due, dtype), dtype)
-        res["fin"][dtype] = dict(max_abs_err=err, ms=ms, plain_ms=pms,
-                                 bound_ms=bms, bound_by=by, tol=tol,
-                                 idx_mismatch=idx_mismatch, **rec)
-        print(f"mita_paged_finalize_fused {dtype}: max_abs_err {err:.3e} "
-              f"(tol {tol}), expert-row mismatches {idx_mismatch}/"
-              f"{3 * HKV * K}, validity mismatches {val_mismatch}, kernel "
-              f"{ms:.4f} ms, plain {pms:.4f} ms, bound {bms:.5f} ms ({by}); "
-              f"{record_text(rec)}")
+        # --- paged finalize: the serving shape, the long context real-
+        # valued and on a grid, exact ties; two launches a call (split,
+        # merge); the control
+        serving, long_real, long_case, ties = finalize_cases(dtype)
+        r = res["fin"][dtype] = check_finalize(dtype, serving)
+        want = ["finalize_split_kernel", "finalize_merge_kernel"]
+        if r["cuda_kernels"] != want:
+            fail(f"finalize {dtype}: the trace shows {r['cuda_kernels']}, "
+                 f"expected {want}")
+        real = check_finalize(dtype, long_real)
+        r["long_context_real_valued"] = {
+            k: real[k] for k in ("max_abs_err", "idx_mismatch",
+                                 "gap_over_bound", "card_ms")}
+        r["long_context"] = check_finalize(dtype, long_case)
+        r["ties_idx_mismatch"] = check_finalize(dtype, ties)["idx_mismatch"]
+        r["control_max_abs_err"] = finalize_control(dtype)
     return res
 
 
@@ -1587,13 +1769,17 @@ def main() -> int:
             "f32": {k: r32.get(k) for k in ("max_abs_err", "ms", "plain_ms",
                                             "bound_ms", "bound_by", "tol",
                                             "library_ms") + traced}}
-        if key == "attn":
+        if key in ("attn", "fin"):
             row["long_context"] = {k: r["long_context"][k] for k in (
                 "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")
                 + traced}
             row["long_context"]["shape"] = f"S={LONG_S}, M={LONG_M}"
             row["f32"]["long_context"] = {k: r32["long_context"][k] for k in (
                 "max_abs_err", "ms", "plain_ms", "bound_ms") + traced}
+        if key == "fin":
+            for k in ("ties_idx_mismatch", "control_max_abs_err",
+                      "long_context_real_valued", "card_ms_reused"):
+                row[k], row["f32"][k] = r[k], r32[k]
         if key in ("chunk", "expert"):
             for k in ("path", "control_max_abs_err"):
                 row[k], row["f32"][k] = r[k], r32[k]

@@ -2,7 +2,7 @@
 own check and timers:
 
     python3 scripts/ab_kernel.py --parent <tree> \
-        --kernel expert|chunk|paged_attn
+        --kernel expert|chunk|paged_attn|finalize
 
 ``<tree>`` is the root of another checkout of this repository (for example
 the parent commit unpacked with ``git archive`` into ``build/parent``).
@@ -28,7 +28,8 @@ import torch
 
 ROOT = Path(__file__).resolve().parents[1]
 MODULES = {"expert": "mita_expert_attn", "chunk": "mita_chunk_prefill",
-           "paged_attn": "mita_paged_attn"}
+           "paged_attn": "mita_paged_attn",
+           "finalize": "mita_paged_finalize"}
 
 
 def _purge() -> dict:
@@ -59,6 +60,10 @@ def run_check(cs, kernel: str, dtype, mod) -> list:
         return [("forward", cs.check_expert(dtype, mod))]
     if kernel == "chunk":
         return [("serve", cs.check_chunk(dtype, mod))]
+    if kernel == "finalize":
+        # a parent kernel that a check of this tree rejects is still timed
+        return [(case[0], cs.check_finalize(dtype, case, mod, strict=False))
+                for case in cs.finalize_cases(dtype)]
     return [(what, cs.check_paged_attn(dtype, what, *case, mod=mod))
             for what, *case in cs.paged_attn_cases(dtype)]
 

@@ -2,12 +2,18 @@
 forward of the port spends its time.
 
     PYTHONPATH=src python -m repro_torch.launch.profile_decode \\
-        [--compute-dtype bfloat16|float32] [--steps 20] [--prefill-chunk 256]
-        [--forward 4096 [--attn-impl pallas|sorted|capacity]]
+        [--compute-dtype bfloat16|float32] [--steps 20] [--window-close]
+        [--prefill-chunk 256] [--forward 4096 [--attn-impl ...]]
 
 Fills the engine's slots with one admission group (qwen3-0.6b, random
 weights from seed 0), warms up, then records ``--steps`` decode steps
-under ``torch.profiler`` (CPU + CUDA).  With ``--prefill-chunk N`` it
+under ``torch.profiler`` (CPU + CUDA).  With ``--window-close`` the
+recorded steps are instead the ``--steps`` decode steps around the first
+window close after the prompt (prompt 512: the step at position 640, which
+finalizes a landmark in every layer); each step is recorded as its own
+range, and the summary adds the due step's device time, its busy share
+and the finalize kernels' share of it beside the other steps' mean.
+With ``--prefill-chunk N`` it
 records instead the chunked-prefill dispatches that admit one group of
 ``--batch`` prompts (after a warm-up group), and reports per dispatch.
 With ``--forward N`` it records one ``lm_forward`` of a batch of one
@@ -91,6 +97,9 @@ def main(argv=None) -> dict:
     ap.add_argument("--prompt-len", type=int, default=512)
     ap.add_argument("--steps", type=int, default=20)
     ap.add_argument("--prefill-chunk", type=int, default=0)
+    ap.add_argument("--window-close", action="store_true",
+                    help="profile the decode steps around the first window "
+                         "close after the prompt (the finalizing step)")
     ap.add_argument("--forward", type=int, default=0,
                     help="profile one lm_forward of this many tokens")
     ap.add_argument("--attn-impl", default="pallas",
@@ -110,7 +119,11 @@ def main(argv=None) -> dict:
                         {"forward": args.forward,
                          "attn_impl": args.attn_impl})
     w = cfg.attn.window
-    gen = args.steps + 8
+    # the first window close after the prompt: the decode step that starts
+    # at this position finalizes the window before it
+    close = (args.prompt_len // w + 1) * w if args.window_close else 0
+    first = close - args.steps // 2         # first recorded step's position
+    gen = args.steps + 8 + max(first - args.prompt_len, 0)
     params = tfm.lm_init(torch.Generator(device=device).manual_seed(0),
                          cfg, device)
     prompts = synthetic_batch(DataConfig(vocab=cfg.vocab,
@@ -130,6 +143,8 @@ def main(argv=None) -> dict:
         eng.submit(Request(rid=i, prompt=prompts[i], max_new_tokens=gen))
     for _ in range(0 if chunked else 4):   # admission + warm-up decode
         eng.step()
+    while close and int(eng.t.max()) < first:
+        eng.step()
 
     def run():
         if chunked:                    # prefill dispatches only, no decode
@@ -139,13 +154,19 @@ def main(argv=None) -> dict:
                 eng._advance_prefill(time.perf_counter())
             return eng.prefill_dispatches - before
         for _ in range(args.steps):
-            eng.step()
+            if close:       # one range per step, named by its position
+                with torch.profiler.record_function(
+                        f"decode_step_t{int(eng.t.max())}"):
+                    eng.step()
+            else:
+                eng.step()
         return args.steps
 
     what = "prefill dispatch" if chunked else "decode step"
     return _profile(args, device, run, what,
                     {"batch": args.batch,
-                     "prefill_chunk": args.prefill_chunk})
+                     "prefill_chunk": args.prefill_chunk},
+                    close_step=f"decode_step_t{close}" if close else None)
 
 
 def _forward_runner(args, cfg, device):
@@ -166,8 +187,48 @@ def _forward_runner(args, cfg, device):
     return run
 
 
-def _profile(args, device, run, what: str, extra: dict) -> dict:
-    """Record ``run()`` under the profiler; print and return the summary."""
+def _step_breakdown(prof, due_step: str) -> dict:
+    """Device time of each ``decode_step_t*`` range of the window (kernels
+    that start inside the range's host span: each step ends by copying
+    its tokens to the host, so its kernels have ended by then), from the
+    profiler's trace.  Returns the due step's device and wall ms, its busy
+    share and the finalize kernels' share of its device time, and the
+    other steps' mean device ms."""
+    import tempfile
+    from pathlib import Path
+    build = Path(__file__).resolve().parents[3] / "build"
+    build.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build) as tmp:
+        path = Path(tmp) / "trace.json"
+        prof.export_chrome_trace(str(path))
+        events = json.loads(path.read_text())["traceEvents"]
+    steps = [e for e in events if e.get("cat") == "user_annotation"
+             and e.get("name", "").startswith("decode_step_t")]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    dev, fin = {}, {}
+    for e in steps:
+        lo, hi = e["ts"], e["ts"] + e["dur"]
+        inside = [k for k in kernels if lo <= k["ts"] < hi]
+        dev[e["name"]] = sum(k["dur"] for k in inside) / 1e3
+        fin[e["name"]] = sum(k["dur"] for k in inside
+                             if "finalize" in k["name"]) / 1e3
+    due = next(e for e in steps if e["name"] == due_step)
+    others = [v for k, v in dev.items() if k != due_step]
+    return {"due_step": due_step,
+            "due_step_device_ms": dev[due_step],
+            "due_step_wall_ms": due["dur"] / 1e3,
+            "due_step_busy_share": dev[due_step] / (due["dur"] / 1e3),
+            "due_step_finalize_ms": fin[due_step],
+            "due_step_finalize_share": fin[due_step] / dev[due_step],
+            "other_steps_device_ms_mean": sum(others) / len(others),
+            "device_ms_by_step": dev}
+
+
+def _profile(args, device, run, what: str, extra: dict,
+             close_step: str | None = None) -> dict:
+    """Record ``run()`` under the profiler; print and return the summary
+    (``close_step``: the name of the recorded window-closing step, whose
+    breakdown the summary adds)."""
     cuda = device.type == "cuda"
     acts = [torch.profiler.ProfilerActivity.CPU]
     if cuda:
@@ -195,6 +256,8 @@ def _profile(args, device, run, what: str, extra: dict) -> dict:
                "port_kernels": (_top_kernels(avgs, dev_us, port=True)
                                 if cuda else {}),
                "device": (torch.cuda.get_device_name(0) if cuda else "cpu")}
+    if close_step and cuda:
+        summary["window_close"] = _step_breakdown(prof, close_step)
     print(json.dumps(summary))
     return summary
 

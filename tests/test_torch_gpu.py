@@ -194,6 +194,161 @@ def test_finalize_kernel_workspace_path(cuda_device):
     assert torch.equal(b.expert_idx, a.expert_idx)
 
 
+def _finalize_both(st, pt, td, dd, dtype, w, k):
+    """The plain version on float32 copies (landmark query rounded as the
+    kernel rounds it) and the kernel on a copy: (plain, kernel) states."""
+    a, b = _clone(st, torch.float32), _clone(st)
+    fargs = lambda s: (s.q_sum, s.lm_q, s.lm_v, s.expert_idx,  # noqa: E731
+                       s.expert_valid, s.k_pool, s.v_pool, pt, td, dd)
+    mpf.paged_finalize_plain(*fargs(a), window=w, k_width=k,
+                             round_dtype=dtype)
+    mpf.mita_paged_finalize_fused(*fargs(b), window=w, k_width=k)
+    torch.cuda.synchronize()
+    return a, b
+
+
+def _assert_finalize(st, a, b, dd, dtype, near_ties=False):
+    """Floats within TOL, expert rows and validity exact, slots not due
+    bit-identical.  ``near_ties``: another summation order may swap two
+    positions whose scores lie within float32 rounding of each other, so
+    an expert row may differ where the gap of its two picks' scores
+    (float64, from the plain version's landmark query) is at most
+    2 (d + 1) 2^-24 sum|k q| / sqrt(d), twice the most a float32 dot
+    product in any order, then the divide, can err by; nowhere else."""
+    tol = TOL[dtype]
+    for f in ("lm_q", "lm_v", "q_sum"):
+        torch.testing.assert_close(getattr(b, f).float(),
+                                   getattr(a, f).float(), atol=tol, rtol=tol)
+    if near_ties:
+        s_, h_, m_, r_ = (b.expert_idx != a.expert_idx).nonzero().T
+        q = a.lm_q[s_, h_, m_].double()
+        terms = [a.k_pool[x[s_, h_, m_, r_].long(), h_].double() * q
+                 for x in (a.expert_idx, b.expert_idx)]
+        d = q.shape[-1]
+        gap = (terms[0].sum(-1) - terms[1].sum(-1)).abs() / d ** 0.5
+        mag = torch.maximum(*(t.abs().sum(-1) for t in terms)) / d ** 0.5
+        assert torch.all(gap <= 2 * (d + 1) * 2.0 ** -24 * mag), gap.max()
+    else:
+        assert torch.equal(b.expert_idx, a.expert_idx)
+    assert torch.equal(b.expert_valid, a.expert_valid)
+    for f in FIN_FIELDS:
+        assert torch.equal(getattr(b, f)[~dd], getattr(st, f)[~dd]), f
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [16, 128])
+def test_finalize_kernel_exact_ties_across_splits(cuda_device, dtype, d):
+    """Integer keys from three distinct rows per head and integer landmark
+    queries: every score is exact and each tie group spans several splits
+    (pages).  The picks are the first-index top-K, as the plain version's,
+    at the scalar (d = 16) and the vectorised (d = 128) instance."""
+    w, k = 16, 16
+    st, pt, _, _, _ = _state(13, dtype, cuda_device, m_slot=6, d=d, w=w,
+                             k=k)
+    rng = np.random.default_rng(14)
+    base = torch.from_numpy(rng.integers(-3, 4, (3, 2, d)).astype(
+        np.float32)).to(cuda_device)
+    pick = torch.from_numpy(rng.integers(0, 3, st.k_pool.shape[0])).to(
+        cuda_device)
+    st.k_pool.copy_(base[pick])
+    st.q_sum.copy_(torch.from_numpy(rng.integers(
+        -3, 4, st.q_sum.shape).astype(np.float32) * w))
+    td = torch.tensor([96, 64, 48, 32], dtype=torch.int32, device=cuda_device)
+    dd = torch.ones(4, dtype=torch.bool, device=cuda_device)
+    a, b = _finalize_both(st, pt, td, dd, dtype, w, k)
+    _assert_finalize(st, a, b, dd, dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("grid", [True, False])
+def test_finalize_kernel_long_context(cuda_device, dtype, grid):
+    """4096 positions of context (several passes of the sort buffer) at
+    the serving head dim: ragged t_new, slots not due, a due slot with
+    fewer than K visible positions and a full one.  ``grid``: keys and
+    landmark queries lie on a grid of 1/4, so every score is exact in any
+    summation order and the picks must equal the plain version's; else
+    they are real-valued and a pick may differ at a near tie only."""
+    w, k, m_slot, s_n = 128, 128, 32, 6
+    st, pt, _, _, _ = _state(15, dtype, cuda_device, s_n=s_n, m_slot=m_slot,
+                             d=128, w=w, k=k)
+    if grid:
+        st.k_pool.copy_((st.k_pool.float() * 4).round() / 4)
+        st.q_sum.copy_((st.q_sum * 4).round() * w / 4)
+    else:
+        st.q_sum.mul_(w)             # landmark queries of unit scale
+    td = torch.tensor([100, 4096, 3000, 1100, 2048, 777], dtype=torch.int32,
+                      device=cuda_device)
+    dd = torch.tensor([True, True, True, False, True, False],
+                      device=cuda_device)
+    a, b = _finalize_both(st, pt, td, dd, dtype, w, k)
+    _assert_finalize(st, a, b, dd, dtype, near_ties=not grid)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("t_new,k", [
+    ((0, 5, 40, 16), 8),      # nvis = 0, ordinal < 0, ordinal >= M, one
+    ((16, 24, 32, 8), 24),    # K > nvis: masked lanes in index order
+])
+def test_finalize_kernel_edge_contexts(cuda_device, dtype, t_new, k):
+    """Due slots that commit nothing (no visible position, or an ordinal
+    outside [0, M)) only zero their q_sum, as the plain version and the
+    JAX reference do; with K above the visible context the masked lanes
+    follow the picks in index order, invalid."""
+    st, pt, _, _, _ = _state(17, dtype, cuda_device, k=k)
+    td = torch.tensor(t_new, dtype=torch.int32, device=cuda_device)
+    dd = torch.ones(4, dtype=torch.bool, device=cuda_device)
+    a, b = _finalize_both(st, pt, td, dd, dtype, W, k)
+    _assert_finalize(st, a, b, dd, dtype)
+    assert torch.all(b.q_sum == 0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", [600, 2100])
+def test_finalize_kernel_large_k(cuda_device, k):
+    """K above the default sort buffer: a larger buffer in shared memory
+    (K = 600) or in global memory (K = 2100)."""
+    dtype, w = torch.float32, 1024
+    st, pt, _, _, _ = _state(19, dtype, cuda_device, s_n=2, m_slot=4, w=w,
+                             k=k)
+    td = torch.tensor([4096, 3 * w], dtype=torch.int32, device=cuda_device)
+    dd = torch.ones(2, dtype=torch.bool, device=cuda_device)
+    a, b = _finalize_both(st, pt, td, dd, dtype, w, k)
+    _assert_finalize(st, a, b, dd, dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_finalize_kernel_batch_invariance(cuda_device, dtype):
+    """A slot's five outputs are bit-identical whether it is finalized
+    alone or among 31 other due slots: the split plan depends on the
+    shapes only."""
+    w = k = 128
+    s_n, m_slot = 32, 6
+    st, pt, _, _, _ = _state(21, dtype, cuda_device, s_n=s_n, m_slot=m_slot,
+                             d=128, w=w, k=k)
+    rng = np.random.default_rng(22)
+    td = torch.from_numpy(rng.integers(1, m_slot + 1, s_n).astype(
+        np.int32) * w).to(cuda_device)
+    dd = torch.ones(s_n, dtype=torch.bool, device=cuda_device)
+    full = _clone(st)
+    mpf.mita_paged_finalize_fused(
+        full.q_sum, full.lm_q, full.lm_v, full.expert_idx, full.expert_valid,
+        full.k_pool, full.v_pool, pt, td, dd, window=w, k_width=k)
+    state = ("q_sum", "lm_q", "lm_v", "expert_idx", "expert_valid")
+    for i in (0, 13, 31):
+        sl = slice(i, i + 1)
+        alone = [getattr(st, f)[sl].clone() for f in state]
+        mpf.mita_paged_finalize_fused(
+            *alone, st.k_pool, st.v_pool, pt[sl], td[sl], dd[sl],
+            window=w, k_width=k)
+        torch.cuda.synchronize()
+        for f, x in zip(state, alone):
+            assert torch.equal(x, getattr(full, f)[sl]), (i, f)
+
+
 # rows of the chunk-prefill check: (t0, n_valid, n_train, active) -- a
 # fresh chunk, a resumed chunk, the last chunk of a non-aligned prompt
 # (n_train 20: m = 2, w' = 10), a recompute row (n_train < t0 + n_valid)

@@ -217,12 +217,16 @@ def test_gather_pages_owned_redirects_to_scratch():
 @pytest.mark.parametrize("t_new,due", [
     ((8, 16, 0, 29), (True, True, False, False)),
     ((32, 8, 24, 5), (True, True, True, False)),
+    ((0, 40, 16, 5), (True, True, False, True)),
 ])
 def test_finalize_plain_vs_xla_and_pallas(t_new, due):
     """Plain finalize against `_paged_finalize` (XLA) and the Pallas
     kernel in interpret mode: shuffled table, ragged t_new (first, middle
-    and last ordinals), non-due and t = 0 slots.  Non-due rows pass
-    through bit-exactly; the pools are never written."""
+    and last ordinals), non-due and t = 0 slots, and due slots whose
+    ordinal t_new // w - 1 lies outside [0, M) (t_new 0, 5 and 40 of a
+    32-position context), which commit nothing but still zero their
+    q_sum.  Non-due rows pass through bit-exactly; the pools are never
+    written."""
     st, table, _, _, _ = _random_state(9)
     td, dd = np.asarray(t_new, np.int32), np.asarray(due)
     cfg_j = jdec.DecodeConfig(window=W, k=K, finalize_impl="xla",
