@@ -37,7 +37,14 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
        controls that must fail the check (the kernel with its first key
        tile dropped, and with keys 2048..2175 dropped for the rows after
        them);
-  3. parity (float32, TF32 off, 28 layers, random weights from a seed):
+     * the sampler (`repro_torch.prng`, `models.transformer.
+       sample_tokens`) at [S, 151936] against the same calls on the CPU:
+       threefry words and per-slot keys exact, gumbel within 4 float32 /
+       1 bfloat16 ulp of 1 + |g|, tempered tokens equal away from
+       near-ties; one fused tempered sample timed (CUDA events) with its
+       CUDA launches from a trace;
+  3. parity (float32, TF32 off, random weights from a seed; the serves
+     of the earlier slices at 8 layers, the rest at 28):
      8 requests (batch 4, prompt 512, gen 160) through the monolithic and
      the chunked (prefill chunk 256) engine, and 4 requests of the
      non-aligned prompt length 96 through the chunked engine, every greedy
@@ -49,7 +56,11 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      against ``impl="sorted"`` at expert_span = m at N = 4096: every
      layer's attention on the same input, the logits' greedy tokens and
      ``lm_loss``; ``static_generate`` with ``impl="pallas"`` against the
-     chunked engine at prompt 1024 (m = 8 > span 4);
+     chunked engine at prompt 1024 (m = 8 > span 4); speculative decoding
+     (chunked 256, fused sampling, prompts 96 and 512, 48 new tokens):
+     tempered (0.8) spec_k = 3 streams equal spec_k = 0's, host-sampled
+     tempered streams equal the fused ones, greedy spec_k = 3 equals
+     ``static_generate`` except at recorded near-ties;
   4. production serves: the same trace at the production dtypes (bf16
      compute) through ``repro_torch.launch.serve.main``, monolithic and
      then chunked (``--prefill-chunk 256``, the slice's main path), the
@@ -58,11 +69,17 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      full-sequence path at bf16: ``lm_forward`` tokens/s at B = 1,
      N = 4096 for ``impl="pallas"`` and ``impl="sorted"``, and one
      monolithic serve with ``--attn-impl pallas`` (expert launches = 28
-     layers x full-sequence forwards);
+     layers x full-sequence forwards); then the slice's main path: a bf16
+     chunked, fused, tempered (0.8) serve at ``--spec-k 3`` and its
+     ``--spec-k 0`` twin in turns (tok/s, the speculation counters, equal
+     streams; decode launches = 28 layers x decode steps, every verify
+     position counted);
   5. summary: one JSON line of per-kernel results (launches from each
-     kernel's main path: the chunked serve for the serving kernels, the
-     bf16 full-sequence path for the expert kernel, 0 for flash attention,
-     which no model path calls), then the final line
+     kernel's main path: the spec_k = 3 serve for the serving kernels,
+     with the plain chunked serve's beside them, the bf16 full-sequence
+     path for the expert kernel, 0 for flash attention, which no model
+     path calls; plus the sampler's and the spec serve's numbers), then
+     the final line
      ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, printing no result, when no CUDA device is present or the
@@ -88,6 +105,7 @@ PEAK_OPS = {torch.float32: 67e12,   # FP32 outside the tensor cores
 TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
 S, HKV, G, D, W, K, M = 4, 8, 2, 128, 128, 128, 6
 PARITY_GAP = 1e-3
+PARITY_LAYERS = 8     # depth of the earlier slices' f32 serves (from 28)
 LAYER_TOL = 1e-5      # float32 routed partials, expert kernel vs span = m
 LOSS_TOL = 1e-3       # float32 lm_loss (nats), pallas vs sorted span = m
 
@@ -665,6 +683,93 @@ def phase_kernels():
         r["ties_idx_mismatch"] = check_finalize(dtype, ties)["idx_mismatch"]
         r["control_max_abs_err"] = finalize_control(dtype)
     return res
+
+
+# ----------------------------------------------------- phase 2 (sampler) ---
+
+SAMPLE_V = 151936           # qwen3-0.6b's vocabulary
+GUMBEL_TOL = {torch.float32: 2.0 ** -21,    # 4 float32 ulps of 1 + |g|
+              torch.bfloat16: 2.0 ** -7}    # 1 bfloat16 ulp of 1 + |g|
+SAMPLE_GAP = 2.0 ** -19
+
+
+def phase_sampler():
+    """The threefry replica and the fused tempered sampler on the card
+    against the same calls on CPU copies: threefry words and the per-slot
+    keys exact, gumbel within GUMBEL_TOL in both dtypes, tokens equal
+    wherever the CPU's top-2 gap of gumbel + logits / T clears SAMPLE_GAP
+    relative.  Then the time of one fused tempered sample over
+    [S, SAMPLE_V] bf16 logits (CUDA events) and its CUDA launches (trace).
+    Returns the record."""
+    from repro_torch import prng
+    from repro_torch.models.transformer import sample_tokens
+
+    rng = np.random.default_rng(9)
+    rid = rng.integers(0, 2 ** 31, S).astype(np.int32)
+    idx = rng.integers(0, 4096, S).astype(np.int32)
+    temp = np.full(S, 0.8, np.float32)
+    rec = {"gumbel_err_f32": 0.0, "gumbel_err_bf16": 0.0,
+           "near_tie_rows_f32": 0, "near_tie_rows_bf16": 0}
+    for seed in (0, 1):
+        key = prng.PRNGKey(seed)
+        keys = {dev: prng.fold_in(prng.fold_in(
+            key.to(dev), torch.as_tensor(rid, device=dev)),
+            torch.as_tensor(idx, device=dev)) for dev in ("cpu", "cuda")}
+        if not torch.equal(keys["cuda"].cpu(), keys["cpu"]):
+            fail("fold_in keys differ between the card and the CPU")
+        words = {dev: prng.random_bits(k, 32, (SAMPLE_V,))
+                 for dev, k in keys.items()}
+        if not torch.equal(words["cuda"].cpu(), words["cpu"]):
+            n = int((words["cuda"].cpu() != words["cpu"]).sum())
+            fail(f"threefry words differ at {n} of {S * SAMPLE_V}")
+        for dtype in (torch.float32, torch.bfloat16):
+            g = {dev: prng.gumbel(k, (SAMPLE_V,), dtype).float().cpu()
+                 for dev, k in keys.items()}
+            err = ((g["cuda"] - g["cpu"]).abs()
+                   / (1 + g["cpu"].abs())).max().item()
+            if err > GUMBEL_TOL[dtype]:
+                fail(f"gumbel {dtype}: card vs CPU {err:.3e} relative to "
+                     f"1 + |g| > {GUMBEL_TOL[dtype]:.3e}")
+            lg = torch.randn(S, SAMPLE_V, generator=torch.Generator()
+                             .manual_seed(seed)).mul_(3).to(dtype)
+            tok = {dev: sample_tokens(lg.to(dev), rid, idx, temp, key).cpu()
+                   for dev in ("cpu", "cuda")}
+            z = g["cpu"] + lg.float() / 0.8
+            top2 = torch.topk(z.double(), 2, dim=-1).values
+            clear = ((top2[:, 0] - top2[:, 1])
+                     > SAMPLE_GAP * (1 + top2[:, 0].abs())).numpy()
+            bad = (tok["cuda"] != tok["cpu"]).numpy() & clear
+            if bad.any():
+                fail(f"sample_tokens {dtype}: card and CPU tokens differ "
+                     f"in rows {np.nonzero(bad)[0]} away from near-ties")
+            name = "bf16" if dtype == torch.bfloat16 else "f32"
+            rec[f"gumbel_err_{name}"] = max(rec[f"gumbel_err_{name}"], err)
+            rec[f"near_tie_rows_{name}"] += int((~clear).sum())
+
+    lg = torch.randn(S, SAMPLE_V, device="cuda").mul_(3).bfloat16()
+    key = prng.PRNGKey(0)
+
+    def sample():
+        return sample_tokens(lg, rid, idx, temp, key)
+
+    rec["cuda_launches_per_call"] = len(traced_kernels(sample))
+    rec["card_ms"] = card_ms(sample, iters=20)
+    rec["host_ms"] = host_ms(sample)
+    rec["ms"] = cuda_ms(sample, iters=20)
+    greedy = np.zeros(S, np.float32)
+    rec["greedy_ms"] = cuda_ms(
+        lambda: sample_tokens(lg, rid, idx, greedy, key), iters=20)
+    print(f"sampler: threefry words and keys equal on the card and the CPU "
+          f"over [{S}, {SAMPLE_V}] (2 keys); gumbel card vs CPU "
+          f"{rec['gumbel_err_f32']:.3e} (f32) / {rec['gumbel_err_bf16']:.3e} "
+          f"(bf16) relative to 1 + |g|; tokens equal away from near-ties "
+          f"({rec['near_tie_rows_f32']} / {rec['near_tie_rows_bf16']} "
+          f"near-tie rows); one fused tempered sample over [{S}, "
+          f"{SAMPLE_V}] bf16: {rec['ms']:.4f} ms (card {rec['card_ms']:.4f} "
+          f"ms, host {rec['host_ms']:.4f} ms, "
+          f"{rec['cuda_launches_per_call']} CUDA launches); greedy "
+          f"{rec['greedy_ms']:.4f} ms")
+    return rec
 
 
 # ------------------------------------------------------- phase 2 (chunk) ---
@@ -1310,9 +1415,10 @@ def check_vs_static(params, scfg, done, prompts, gen, capacity, batch,
 
 
 def phase_parity():
-    """float32 (TF32 off), 28 layers: the monolithic and the chunked engine
-    against the static path, a preemption round trip and a prefix-cache
-    run against their plain runs."""
+    """float32 (TF32 off), PARITY_LAYERS layers (full width): the
+    monolithic and the chunked engine against the static path, a
+    preemption round trip and a prefix-cache run against their plain
+    runs."""
     import dataclasses
     from repro_torch.configs.registry import get_arch
     from repro_torch.data import DataConfig, synthetic_batch
@@ -1320,7 +1426,8 @@ def phase_parity():
     from repro_torch.serve import EngineConfig, Request, ServingEngine
 
     cfg = dataclasses.replace(get_arch("qwen3-0.6b").model,
-                              compute_dtype=torch.float32)
+                              compute_dtype=torch.float32,
+                              n_layers=PARITY_LAYERS)
     batch, n, gen, n_req = 4, 512, 160, 8
     params = tfm.lm_init(torch.Generator(device="cuda").manual_seed(0), cfg,
                          "cuda")
@@ -1559,6 +1666,85 @@ def phase_fullseq_parity():
     torch.cuda.empty_cache()
 
 
+def phase_spec_parity():
+    """float32 (TF32 off), 28 layers: this slice's path.  4 requests (two
+    of prompt 96, whose first window closes at 128 while they decode, two
+    of prompt 512 with four finalised landmarks to draft from), 48 new
+    tokens, batch 4, chunked prefill 256, fused sampling:
+      * at temperature 0.8, spec_k = 3 streams equal spec_k = 0's;
+      * the host sampler at temperature 0.8 emits the fused sampler's
+        tokens (gumbel drawn on the CPU from the float32 logits);
+      * greedy spec_k = 3 equals `static_generate` except at recorded
+        near-ties (top-two logit gap < PARITY_GAP)."""
+    import dataclasses
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.data import DataConfig, synthetic_batch
+    from repro_torch.models import transformer as tfm
+    from repro_torch.serve import EngineConfig, Request, ServingEngine
+
+    cfg = dataclasses.replace(get_arch("qwen3-0.6b").model,
+                              compute_dtype=torch.float32)
+    batch, gen = 4, 48
+    params = tfm.lm_init(torch.Generator(device="cuda").manual_seed(0), cfg,
+                         "cuda")
+    long = list(synthetic_batch(DataConfig(
+        vocab=cfg.vocab, seq_len=512, global_batch=2), 2)["tokens"])
+    prompts = [p[:96] for p in long] + long
+    pages = -(-(512 + gen) // W)
+
+    def serve(temperature, **kw):
+        ecfg = EngineConfig(n_slots=batch, pages_per_slot=pages,
+                            n_pages=2 * batch * pages, prefill_chunk=256,
+                            **kw)
+        eng = ServingEngine(params, cfg, ecfg, device="cuda")
+        t0 = time.perf_counter()
+        done = eng.run([Request(rid=i, prompt=p, max_new_tokens=gen,
+                                temperature=temperature)
+                        for i, p in enumerate(prompts)])
+        torch.cuda.synchronize()
+        if [f.reason for f in done] != ["complete"] * len(prompts):
+            fail(f"spec parity serve {kw} reasons "
+                 f"{[f.reason for f in done]}")
+        return eng, done, time.perf_counter() - t0
+
+    def spec_text(eng):
+        st = eng.stats()
+        return (f"drafted {st['spec_drafted']} accepted "
+                f"{st['spec_accepted']} rollbacks {st['spec_rollbacks']}")
+
+    runs = {}
+    for what, temp, kw in (
+            ("tempered fused spec_k=0", 0.8, dict(sample_device="fused")),
+            ("tempered fused spec_k=3", 0.8,
+             dict(sample_device="fused", spec_k=3)),
+            ("tempered host", 0.8, dict(sample_device="host")),
+            ("greedy fused spec_k=3", 0.0,
+             dict(sample_device="fused", spec_k=3))):
+        runs[what] = serve(temp, **kw)
+        eng, _, dt = runs[what]
+        print(f"spec parity serve (float32, {cfg.n_layers} layers, {what}): "
+              f"{len(prompts)} requests x {gen} tokens in {dt:.2f} s, "
+              f"{eng.steps} steps, {spec_text(eng)}")
+    base = {f.rid: f.tokens for f in runs["tempered fused spec_k=0"][1]}
+    for what in ("tempered fused spec_k=3", "tempered host"):
+        for f in runs[what][1]:
+            if not np.array_equal(f.tokens, base[f.rid]):
+                i = int(np.nonzero(f.tokens != base[f.rid])[0][0])
+                fail(f"{what}: request {f.rid} differs from the fused "
+                     f"spec_k=0 serve at token {i}")
+    eng, done, _ = runs["greedy fused spec_k=3"]
+    div = 0
+    for lo, hi in ((0, 2), (2, 4)):
+        div += check_vs_static(params, eng.backend.cfg, done[lo:hi],
+                               prompts[lo:hi], gen, pages * W, 2,
+                               f"greedy spec_k=3, prompt {len(prompts[lo])}")
+    print(f"spec parity (float32): tempered spec_k=3 and host-sampled "
+          f"streams equal the fused spec_k=0 streams; greedy spec_k=3 "
+          f"equals static_generate with {div} near-tie divergences")
+    del params, eng, runs
+    torch.cuda.empty_cache()
+
+
 # ------------------------------------------------------------ phase 4 ------
 
 def production_serve(card: str, extra: list, what: str):
@@ -1612,6 +1798,66 @@ def phase_production(card: str):
         fail(f"chunk launches {launches['mita_chunk_prefill_fused']} != "
              f"{n_layers} layers x {disp} prefill dispatches (> 0)")
     return launches
+
+
+def phase_spec_production(card: str):
+    """This slice's path at the production dtypes (bf16 compute) through
+    `repro_torch.launch.serve.main`: a chunked (256), fused, tempered
+    (0.8) serve at spec_k = 3 and its spec_k = 0 twin, in turns (0, 3,
+    3, 0), prompt 600 (the window closes at 640 while decoding), 64 new
+    tokens, 4 requests, batch 4.  Launch counters set to 0 just before
+    each and read just after: paged-decode launches = 28 layers x decode
+    steps (every verify position is one), finalize and chunk launches
+    > 0.  Streams of the two must be equal.  Returns the first spec_k = 3
+    serve's (summary, launches) and the tok/s of both."""
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import main as serve_main
+    from repro_torch.models import transformer as tfm
+
+    n_layers = get_arch("qwen3-0.6b").model.n_layers
+    runs = {0: [], 3: []}
+    for k in (0, 3, 3, 0):
+        ops.reset_launch_counts()
+        with _Counted(tfm, "lm_paged_decode_step") as steps, \
+                _Counted(tfm, "lm_landmark_draft") as drafts:
+            summary = serve_main([
+                "--engine", "continuous", "--batch", "4", "--prompt-len",
+                "600", "--gen", "64", "--requests", "4", "--device", "cuda",
+                "--prefill-chunk", "256", "--sample-device", "fused",
+                "--temperature", "0.8", "--spec-k", str(k)])
+            torch.cuda.synchronize()
+        launches = ops.launch_counts()
+        if summary["finished"] != 4 or set(summary["reasons"]) != \
+                {"complete"}:
+            fail(f"spec_k={k} serve finished {summary['reasons']}")
+        if launches["mita_paged_attention"] != n_layers * steps.calls:
+            fail(f"spec_k={k}: decode launches "
+                 f"{launches['mita_paged_attention']} != {n_layers} layers "
+                 f"x {steps.calls} decode steps")
+        if launches["mita_paged_finalize_fused"] <= 0 \
+                or launches["mita_chunk_prefill_fused"] <= 0:
+            fail(f"spec_k={k} serve never launched the finalize or the "
+                 f"chunk kernel: {launches}")
+        st = summary["stats"]
+        if k and (st["spec_drafted"] <= 0 or drafts.calls <= 0):
+            fail(f"spec_k=3 serve drafted nothing: {st}")
+        runs[k].append((summary, launches, steps.calls, drafts.calls))
+        print(f"spec serve ({card}), bf16, spec_k={k}: "
+              f"{summary['tok_s']:.1f} tok/s, {summary['steps']} engine "
+              f"steps, {steps.calls} decode steps ({drafts.calls} draft "
+              f"calls), drafted {st['spec_drafted']} accepted "
+              f"{st['spec_accepted']} rollbacks {st['spec_rollbacks']}, "
+              f"launches {launches}")
+    for (a, *_), (b, *_) in zip(runs[0], runs[3]):
+        for rid, toks in a["tokens"].items():
+            if not np.array_equal(toks, b["tokens"][rid]):
+                fail(f"bf16 spec_k=3 request {rid} differs from spec_k=0")
+    tps = {k: [r[0]["tok_s"] for r in v] for k, v in runs.items()}
+    print(f"spec serve ({card}), bf16: spec_k=3 streams equal spec_k=0; "
+          f"tok/s spec_k=0 {tps[0]}, spec_k=3 {tps[3]}")
+    summary, launches = runs[3][0][:2]
+    return summary, launches, tps
 
 
 class _Counted:
@@ -1724,16 +1970,33 @@ def main() -> int:
     sys.path.insert(0, str(src))
     import repro_torch  # noqa: F401  (TF32 off, default device)
 
-    card = phase_env()
-    kern = phase_kernels()
-    kern["chunk"] = phase_chunk_kernel()
-    kern.update(phase_fullseq_kernels())
-    phase_parity()
-    phase_fullseq_parity()
-    launches = phase_production(card)
-    fs_launches, _ = phase_fullseq_production(card)
+    t_start = time.perf_counter()
+    seconds = {}
+
+    def timed(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        seconds[name] = round(time.perf_counter() - t0, 1)
+        return out
+
+    card = timed("env", phase_env)
+    kern = timed("kernels", phase_kernels)
+    kern["chunk"] = timed("chunk_kernel", phase_chunk_kernel)
+    kern.update(timed("fullseq_kernels", phase_fullseq_kernels))
+    sampler = timed("sampler", phase_sampler)
+    timed("parity", phase_parity)
+    timed("fullseq_parity", phase_fullseq_parity)
+    timed("spec_parity", phase_spec_parity)
+    chunked_launches = timed("production", phase_production, card)
+    fs_launches, _ = timed("fullseq_production", phase_fullseq_production,
+                           card)
+    spec_summary, launches, spec_tps = timed(
+        "spec_production", phase_spec_production, card)
+    launches = dict(launches)
     launches["mita_expert_attention"] = fs_launches["mita_expert_attention"]
     launches["flash_attention"] = fs_launches["flash_attention"]
+    print(f"phase seconds {seconds}, total "
+          f"{time.perf_counter() - t_start:.1f} s")
 
     bf = torch.bfloat16
     # card time, host issue time and what one call launches (from its
@@ -1761,6 +2024,7 @@ def main() -> int:
         row = {
             "name": name, "route": "cuda", "source": src_file,
             "replaces": replaces, "launches": launches[name],
+            "launches_chunked_serve": chunked_launches[name],
             "max_abs_err": r["max_abs_err"], "max_err": r["max_abs_err"],
             "ms": r["ms"], "kernel_ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
@@ -1791,7 +2055,14 @@ def main() -> int:
             row["control_max_abs_err"] = r["control_max_abs_err"]
             row["f32"]["control_max_abs_err"] = r32["control_max_abs_err"]
         rows.append(row)
-    print(json.dumps({"kernels": rows}))
+    st = spec_summary["stats"]
+    print(json.dumps({"kernels": rows, "sampler": {
+        k: sampler[k] for k in ("ms", "greedy_ms", "card_ms", "host_ms",
+                                "cuda_launches_per_call", "gumbel_err_f32",
+                                "gumbel_err_bf16")}, "spec_serve": {
+        "tok_s_spec_k3": spec_tps[3], "tok_s_spec_k0": spec_tps[0],
+        **{k: st[k] for k in ("spec_drafted", "spec_accepted",
+                              "spec_rollbacks")}}}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -301,6 +301,30 @@ def mita_paged_decode_step(state: PagedMiTAState, q, k_new, v_new,
     return out, state
 
 
+def mita_paged_landmark_attend(state: PagedMiTAState, q, m_cnt,
+                               cfg: DecodeConfig) -> torch.Tensor:
+    """Landmark-branch-only attention for the speculative drafter: no
+    expert gather, no page walk, no append, no ``q_sum`` change.
+
+    q: [S, Hkv, G, d] draft-position queries (RoPE'd by the caller);
+    m_cnt: [S] finalised landmark count per slot — only the first
+    ``m_cnt`` landmark rows are read.  Returns [S, Hkv, G, d].  A slot
+    with ``m_cnt == 0`` attends a zero-value sink (a zero output, no
+    NaN).  Scores are masked in float32."""
+    d = q.shape[-1]
+    m_max = state.lm_q.shape[-2]
+    lm_mask = (torch.arange(m_max, device=q.device)[None, None, None, :]
+               < m_cnt[:, None, None, None])
+    r = torch.einsum("shgd,shmd->shgm", q, state.lm_q) / math.sqrt(d)
+    r = torch.where(lm_mask, r.float(), NEG_INF)
+    sink = partial_from_scores(
+        torch.zeros(r.shape[:-1] + (1,), dtype=torch.float32,
+                    device=q.device),
+        torch.zeros_like(state.lm_v[:, :, :1]),
+        mask=(m_cnt == 0)[:, None, None, None])
+    return combine([partial_from_scores(r, state.lm_v), sink])
+
+
 def pack_prefill_into_pages(state: PagedMiTAState, pre: MiTADecodeState,
                             slot: int, pages: torch.Tensor,
                             cfg: DecodeConfig) -> PagedMiTAState:

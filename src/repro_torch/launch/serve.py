@@ -14,11 +14,16 @@
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-0.6b \\
       --batch 4 --prompt-len 512 --gen 160 --engine continuous \\
-      [--prefill-chunk 256 [--prefix-cache]] [--attn-impl pallas]
+      [--prefill-chunk 256 [--prefix-cache]] [--attn-impl pallas] \\
+      [--temperature 0.8] [--sample-device fused [--spec-k 3]]
   (add ``--smoke --device cpu`` for the reduced config on the CPU)
 
-Weights are random, drawn from seed 0.  Supervision (``Supervisor``),
-speculative decoding and temperature sampling come in later slices.
+``--temperature T`` samples with the port's threefry (`repro_torch.prng`);
+``--spec-k K --sample-device fused`` turns on lossless speculative decoding
+(landmark-branch drafts, verified by the exact decode step).
+
+Weights are random, drawn from seed 0.  Supervision (``Supervisor``) and
+the per-job prefill mode come in later slices.
 """
 
 from __future__ import annotations
@@ -31,6 +36,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from repro_torch import prng
 from repro_torch.configs.registry import get_arch
 from repro_torch.core import mita_decode as mdec
 from repro_torch.data import DataConfig, synthetic_batch
@@ -47,35 +53,46 @@ def _sync(device: torch.device) -> None:
 def static_generate(params, cfg: ModelConfig, prompts: torch.Tensor,
                     gen: int, temperature: float = 0.0,
                     capacity: Optional[int] = None,
+                    sample_key: Optional[torch.Tensor] = None,
                     record_gaps: bool = False):
-    """Fixed-batch prefill + greedy decode.  prompts: [B, N] on the model's
+    """Fixed-batch prefill + decode.  prompts: [B, N] on the model's
     device.  Returns (tokens [B, gen] int32 numpy, timings dict).  With
     ``cfg.attn.external_finalize`` the landmark finalize runs at window
     boundaries (skipping windows the prefill already finalised).
+
+    Greedy takes the first-index argmax.  ``temperature`` > 0 draws token
+    ``i`` of every row with ONE ``categorical`` over the whole [B, V]
+    logits divided by the temperature (in the logits' dtype), keyed by
+    ``fold_in(sample_key, i)`` (default key ``PRNGKey(1000)``): the
+    reference's static rule, not the engine's per-request one.
     ``record_gaps`` adds ``top2_gap`` [gen, B]: the gap between the two
-    largest logits behind each token (a near-tie marks where float
-    reduction order may flip a greedy token)."""
-    if temperature > 0:
-        raise NotImplementedError(
-            "temperature sampling needs the threefry replica (ROADMAP A.6)")
+    largest values the token was picked from (logits, or logits plus
+    gumbel noise when tempered) — a near-tie marks where float reduction
+    order may flip a token."""
     b, n = prompts.shape
     w = cfg.attn.window
     capacity = mdec.window_aligned(capacity or n + gen, w)
     dev = prompts.device
+    if sample_key is None:
+        sample_key = prng.PRNGKey(1000)
     gaps = []
 
-    def sample(lg):
+    def sample(lg, i):
+        if temperature > 0:
+            key = prng.fold_in(sample_key.cpu(), i).to(dev)
+            lg = lg / torch.tensor(temperature, dtype=lg.dtype, device=dev)
+            lg = prng.gumbel(key, tuple(lg.shape), lg.dtype) + lg
         if record_gaps:
             top2 = torch.topk(lg.float(), 2, dim=-1).values
             gaps.append((top2[:, 0] - top2[:, 1]).cpu().numpy())
-        return tfm.sample_tokens(lg)
+        return prng.argmax_first(lg)
 
     with torch.inference_mode():
         t0 = time.perf_counter()
         logits, states = tfm.lm_prefill(params, prompts, cfg, capacity)
         _sync(dev)
         t_prefill = time.perf_counter() - t0
-        tok = sample(logits)
+        tok = sample(logits, 0)
         out = [tok]
         m_done = n // w
         t0 = time.perf_counter()
@@ -87,7 +104,7 @@ def static_generate(params, cfg: ModelConfig, prompts: torch.Tensor,
                 m_done = pos // w
             logits, states = tfm.lm_decode_step(params, states, tok, pos,
                                                 cfg)
-            tok = sample(logits)
+            tok = sample(logits, i + 1)
             out.append(tok)
         _sync(dev)
         t_decode = time.perf_counter() - t0
@@ -109,6 +126,7 @@ def main(argv=None) -> dict:
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=128)
     ap.add_argument("--gen", type=int, default=32)
+    ap.add_argument("--temperature", type=float, default=0.0)
     ap.add_argument("--requests", type=int, default=0,
                     help="continuous: total requests (default 2x batch)")
     ap.add_argument("--sample-device", choices=("host", "fused"),
@@ -128,6 +146,15 @@ def main(argv=None) -> dict:
                          "window-aligned prompt prefixes — repeated "
                          "prompts attach cached pages by reference and "
                          "skip straight to the first unshared chunk")
+    ap.add_argument("--spec-k", type=int, default=0,
+                    help="continuous: lossless speculative decoding — "
+                         "draft up to K tokens per slot per round and "
+                         "verify them with the exact decode step "
+                         "(requires --sample-device fused; 0 = off)")
+    ap.add_argument("--spec-mode", default="auto",
+                    choices=("auto", "landmark"),
+                    help="drafting strategy: the MiTA backend drafts "
+                         "against the compressed landmark branch")
     ap.add_argument("--attn-impl", choices=("sorted", "capacity", "pallas"),
                     default=None,
                     help="routed branch of the monolithic prefill "
@@ -138,6 +165,9 @@ def main(argv=None) -> dict:
     args = ap.parse_args(argv)
     if args.prefix_cache and not args.prefill_chunk:
         ap.error("--prefix-cache requires --prefill-chunk > 0")
+    if args.spec_k and args.sample_device != "fused":
+        ap.error("--spec-k requires --sample-device fused (verification "
+                 "samples inside the fused step)")
 
     device = resolve_device(args.device)
     arch = get_arch(args.arch, smoke=args.smoke)
@@ -161,14 +191,16 @@ def main(argv=None) -> dict:
                         prefill_chunk=args.prefill_chunk,
                         reserve_pages=args.reserve_pages,
                         sample_device=args.sample_device,
-                        prefix_cache=args.prefix_cache)
+                        prefix_cache=args.prefix_cache,
+                        spec_k=args.spec_k, spec_mode=args.spec_mode)
     summary = {"engine": args.engine, "arch": arch.arch_id,
                "device": str(device)}
 
     if args.engine == "static":
         toks, tm = static_generate(
             params, cfg, torch.as_tensor(prompts[: args.batch],
-                                         device=device), args.gen)
+                                         device=device), args.gen,
+            temperature=args.temperature)
         tps = args.batch * (args.gen - 1) / max(tm["decode_s"], 1e-9)
         print(f"prefill: {args.batch}x{args.prompt_len} in "
               f"{tm['prefill_s']:.3f}s")
@@ -180,7 +212,9 @@ def main(argv=None) -> dict:
         backend = backends.for_arch(arch, params, ecfg, device=device)
         eng = ServingEngine(params, cfg, ecfg, backend=backend)
         reqs = [Request(rid=i, prompt=prompts[i % len(prompts)],
-                        max_new_tokens=args.gen, priority=args.priority)
+                        max_new_tokens=args.gen,
+                        temperature=args.temperature,
+                        priority=args.priority)
                 for i in range(n_req)]
         _sync(device)
         start = time.perf_counter()
@@ -202,6 +236,8 @@ def main(argv=None) -> dict:
               f"preemptions={st['preemptions']}, "
               f"pages_hw={st['pages_high_water']}, "
               f"prefix_hits={st['prefix_cache_hits']}, "
+              f"spec_accepted={st['spec_accepted']}/"
+              f"{st['spec_drafted']}, "
               f"rejected={st['rejected']}")
         summary.update(
             requests=n_req, finished=len(done), tokens_out=total,

@@ -10,8 +10,9 @@ Entry points: ``lm_forward``, ``lm_loss`` and ``lm_prefill`` (full
 sequence; ``AttnConfig.impl`` picks the routed branch: "sorted",
 "capacity", or "pallas" for the expert kernel),
 ``lm_decode_step`` + ``lm_finalize_states`` (the static path's monolithic
-caches), ``lm_paged_decode_step`` and ``lm_prefill_chunks`` (the serving
-engine's paged pools).
+caches), ``lm_paged_decode_step``, ``lm_prefill_chunks`` and
+``lm_landmark_draft`` (the serving engine's paged pools; `sample_tokens`
+samples on the device).
 """
 
 from __future__ import annotations
@@ -21,6 +22,7 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
+from repro_torch import prng
 from repro_torch.core import mita_decode as mdec
 from repro_torch.models import modules as nn
 
@@ -253,29 +255,46 @@ def block_decode_paged(params: Params, x, state, cfg: nn.ModelConfig, pos,
     return _ffn_residual(params, x + h, cfg), state
 
 
-def sample_tokens(logits, temperature=None) -> torch.Tensor:
-    """Greedy first-index argmax per slot ([S, V] -> [S] int32), NaN read
-    as +inf so a NaN row picks its first NaN, like ``np.argmax``.
-    ``temperature`` > 0 needs the threefry sampler, not ported yet."""
-    if temperature is not None and (np.asarray(temperature) > 0).any():
-        raise NotImplementedError(
-            "temperature sampling needs the threefry / fold_in / gumbel "
-            "replica (ROADMAP A.6); only greedy decoding is ported")
-    v = logits.shape[-1]
-    x = torch.where(torch.isnan(logits), torch.inf, logits)
-    mx = x.amax(dim=-1, keepdim=True)
-    ids = torch.arange(v, dtype=torch.int32, device=logits.device)
-    return torch.where(x == mx, ids, v).amin(dim=-1).to(torch.int32)
+def sample_tokens(logits, rid, index, temperature, key) -> torch.Tensor:
+    """Per-slot sampling on the logits' device: greedy first-index argmax,
+    or a categorical keyed by ``fold_in(fold_in(key, rid), index)`` — the
+    derivation the host sampler uses, so tokens do not depend on batching,
+    slot placement or preemption.
+
+    logits: [S, V]; rid / index: [S] int32 and temperature: [S] float32,
+    HOST arrays (<= 0 means greedy); key: a threefry key [2] (`prng`) on
+    the host.  Returns [S] int32.  A batch with no tempered slot does no
+    threefry work, decided on the host as the reference's ``lax.cond``
+    decides it.  The per-slot keys are derived on the host (a few [S]
+    words) and uploaded once; the gumbel draw over [S, V] runs on the
+    logits' device.  The tempered sum is float32 (``temperature`` is a
+    float32 array, so bfloat16 logits are promoted by the division); the
+    gumbel draw itself is made in the logits' dtype."""
+    greedy = prng.argmax_first(logits)
+    temp = np.asarray(temperature, np.float32)
+    if not (temp > 0.0).any():
+        return greedy
+    dev = logits.device
+
+    def host(x):
+        return torch.as_tensor(np.asarray(x))
+
+    keys = prng.fold_in(prng.fold_in(host(key), host(rid)), host(index))
+    noise = prng.gumbel(keys.to(dev), (logits.shape[-1],), logits.dtype)
+    z = noise + logits / torch.clamp_min(host(temp).to(dev), 1e-6)[:, None]
+    return torch.where(host(temp > 0.0).to(dev), prng.argmax_first(z),
+                       greedy)
 
 
 def lm_paged_decode_step(params: Params, states, token, pos, page_table,
                          active, cfg: nn.ModelConfig,
                          due: Optional[np.ndarray] = None,
-                         temperature: Optional[np.ndarray] = None):
+                         sample: Optional[tuple] = None):
     """token, pos: [S]; page_table: [S, M]; active: [S] bool.  Returns
-    (logits [S, V], states), or, with the per-slot host ``temperature``
-    set, (tokens [S] int32, states) sampled on the device (greedy only).
-    Pools update in place.
+    (logits [S, V], states), or, with ``sample`` = (rid, index,
+    temperature, key) set (host arrays and a key, see `sample_tokens`),
+    (tokens [S] int32, states) sampled on the device.  Pools update in
+    place.
 
     ``due`` (external finalize): HOST [S] bool — slots whose last completed
     window still needs its landmark.  The branch is taken once per step in
@@ -293,9 +312,73 @@ def lm_paged_decode_step(params: Params, states, token, pos, page_table,
         x, _ = block_decode_paged(layer_params(params["blocks"], i), x, st,
                                   cfg, pos, page_table, active)
     logits = nn.unembed(params["emb"], nn.rms_norm(x, params["ln_f"]), cfg)
-    if temperature is None:
+    if sample is None:
         return logits, states
-    return sample_tokens(logits, temperature), states
+    return sample_tokens(logits, *sample), states
+
+
+# ------------------------------------------------------ landmark drafter ---
+
+def attention_decode_landmark(params: Params, x, state, cfg: nn.ModelConfig,
+                              pos, m_cnt):
+    """Landmark-branch-only attention for the speculative drafter: the q
+    projection alone (nothing is appended), qk-normed and RoPE'd at the
+    per-slot draft position ``pos`` [S], attending the slot's first
+    ``m_cnt`` [S] landmarks (`core.mita_decode.mita_paged_landmark_attend`).
+    Reads ``state`` only."""
+    b = x.shape[0]
+    kv, g, dh = cfg.n_kv, cfg.group, cfg.dh
+    ct = cfg.compute_dtype
+    q = (x @ params["wq"].to(ct)).reshape(b, kv, g, dh)
+    if cfg.qk_norm:
+        q = nn.rms_norm(q, params["q_norm"], cfg.norm_eps)
+    q = nn.rope(q[..., None, :], pos[:, None, None, None],
+                cfg.rope_theta)[..., 0, :]
+    o = mdec.mita_paged_landmark_attend(state, q, m_cnt, _decode_cfg(cfg))
+    return o.reshape(b, cfg.n_heads * dh) @ params["wo"].to(ct)
+
+
+def block_decode_landmark(params: Params, x, state, cfg: nn.ModelConfig,
+                          pos, m_cnt):
+    h = attention_decode_landmark(params["attn"],
+                                  nn.rms_norm(x, params["ln1"]), state, cfg,
+                                  pos, m_cnt)
+    return _ffn_residual(params, x + h, cfg)
+
+
+def lm_landmark_draft(params: Params, states, tokens, t, active, m_cnt,
+                      cfg: nn.ModelConfig, n_pos: int, rid, sample_idx,
+                      temperature, key) -> torch.Tensor:
+    """Self-drafting forward: propose ``n_pos`` tokens per slot against the
+    landmark branch only, feeding each draft to the next position.
+
+    tokens: [S] last committed token per slot (device); t: [S] position of
+    the first draft (device); active: [S] bool, HOST — an inactive slot's
+    token passes through unchanged; m_cnt: [S] finalised landmark count
+    (device), frozen across the draft.  rid / sample_idx / temperature are
+    host arrays: position ``i`` samples with ``(rid, sample_idx + i)``, the
+    key the verify step uses at the same output index, so a tempered draft
+    can match its verification.  Returns drafts [n_pos, S] int32.  Reads
+    the states only: no append, no ``q_sum`` change, nothing to undo."""
+    _no_moe(cfg)
+    active = np.asarray(active, bool)
+    ac_dev = torch.as_tensor(active, device=tokens.device)
+    si = np.asarray(sample_idx, np.int32).copy()
+    tok = tokens
+    drafts = []
+    for i in range(n_pos):
+        x = nn.embed(params["emb"], tok, cfg)
+        for j in range(cfg.n_layers):
+            x = block_decode_landmark(layer_params(params["blocks"], j), x,
+                                      layer_state(states, j), cfg, t + i,
+                                      m_cnt)
+        logits = nn.unembed(params["emb"], nn.rms_norm(x, params["ln_f"]),
+                            cfg)
+        tok = torch.where(ac_dev, sample_tokens(logits, rid, si, temperature,
+                                                key), tok)
+        si = si + active
+        drafts.append(tok)
+    return torch.stack(drafts)
 
 
 def _chunk_block_body(lp: Params, h, st, cfg: nn.ModelConfig, positions,

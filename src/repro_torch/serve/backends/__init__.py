@@ -15,10 +15,15 @@ chunked modes:
   * the prefix cache: ``supports_prefix_cache``, ``prefix_snapshot``,
     ``attach_prefix``;
   * ``stats()`` and ``static_reference(...)`` (the oracle the engine's
-    greedy tokens must equal).
+    greedy tokens must equal), ``fresh()`` (a zeroed twin);
+  * speculation: ``supports_speculation``, ``draft_horizon(t)``,
+    ``draft_steps(...)`` (cheap drafts [k, S] that change no state),
+    ``verify_step(...)`` (the exact decode rule over the k + 1 positions
+    [input, drafts...], tokens [k + 1, S]) and ``rollback(commits,
+    active)`` (state back to ``commits`` tokens past the round's start).
 
-Per-job chunk prefill and speculation raise ``NotImplementedError``: they
-are not ported yet (ROADMAP).
+Per-job chunk prefill raises ``NotImplementedError``: it is not ported yet
+(ROADMAP).
 """
 
 from __future__ import annotations
@@ -26,7 +31,9 @@ from __future__ import annotations
 from typing import Any
 
 import numpy as np
+import torch
 
+from repro_torch import prng
 from repro_torch.core.mita_decode import window_aligned
 
 ENGINE_STAT_KEYS = frozenset({
@@ -47,14 +54,25 @@ STATS_SCHEMA = ENGINE_STAT_KEYS | BACKEND_STAT_KEYS
 NOT_PORTED = "not ported yet (ROADMAP, next slice)"
 
 
-def sample_host(logits, rid: int, index: int, temperature: float) -> int:
-    """The host sampling rule: greedy first-index argmax.  Temperature
-    sampling needs the threefry replica (ROADMAP A.6)."""
-    if temperature > 0.0:
-        raise NotImplementedError(
-            "temperature sampling needs the threefry / fold_in / gumbel "
-            "replica (ROADMAP A.6); only greedy decoding is ported")
-    return int(np.argmax(logits))
+def sample_host(logits, rid: int, index: int, temperature: float,
+                key) -> int:
+    """THE host sampling rule, shared by the engine and every backend's
+    `static_reference`: greedy first-index argmax, or a categorical keyed
+    by ``fold_in(fold_in(key, rid), index)`` with the 1e-6 temperature
+    floor of the device sampler (`models.transformer.sample_tokens`).
+
+    ``logits``: [V] on the host, a numpy array or a CPU tensor in the
+    compute dtype.  The divisor is a Python float, weakly typed in the
+    reference, so it takes the logits' dtype: bfloat16 logits stay
+    bfloat16 through the division and the argmax (the device sampler
+    divides by a float32 array instead; the two may part in bfloat16 as
+    they do in the reference)."""
+    lg = torch.as_tensor(logits)
+    if temperature <= 0.0:
+        return int(prng.argmax_first(lg))
+    k = prng.fold_in(prng.fold_in(torch.as_tensor(key).cpu(), rid), index)
+    div = torch.tensor(max(temperature, 1e-6), dtype=lg.dtype)
+    return int(prng.categorical(k, lg / div))
 
 
 class BackendBase:
@@ -63,6 +81,7 @@ class BackendBase:
 
     name = "backend"
     supports_prefix_cache = False
+    supports_speculation = False
 
     def __init__(self, params: Any, cfg: Any, ecfg: Any):
         self.params = params
@@ -107,14 +126,29 @@ class BackendBase:
         raise NotImplementedError(
             f"{self.name} backend does not support the prefix cache")
 
-    def draft_steps(self, *args, **kwargs):
-        raise NotImplementedError(f"{self.name} speculation: {NOT_PORTED}")
+    # --- speculative decoding (EngineConfig.spec_k > 0) ------------------
+    # A backend sets `supports_speculation = True` and implements the
+    # triple; the engine never calls it on a backend that does not.
 
-    def verify_step(self, *args, **kwargs):
-        raise NotImplementedError(f"{self.name} speculation: {NOT_PORTED}")
+    def draft_horizon(self, t: np.ndarray) -> np.ndarray:
+        """Per-slot cap on draftable tokens past position ``t``.  Default:
+        no backend-internal boundary."""
+        return np.full_like(np.asarray(t), np.iinfo(np.int32).max)
 
-    def rollback(self, commits, active) -> None:
-        raise NotImplementedError(f"{self.name} speculation: {NOT_PORTED}")
+    def draft_steps(self, tokens_in, t, active, page_table, rid,
+                    temperature, sample_idx, key, spec_len) -> np.ndarray:
+        raise NotImplementedError(
+            f"{self.name} backend does not support speculative decoding")
+
+    def verify_step(self, tokens_in, t, active, page_table, rid,
+                    temperature, sample_idx, key, spec_len,
+                    drafts) -> np.ndarray:
+        raise NotImplementedError(
+            f"{self.name} backend does not support speculative decoding")
+
+    def rollback(self, commits: np.ndarray, active: np.ndarray) -> None:
+        raise NotImplementedError(
+            f"{self.name} backend does not support speculative decoding")
 
     def invalidate(self) -> None:
         self._dirty = True

@@ -11,7 +11,10 @@ the scheduler tensors.  Per engine step it runs at most:
   * `decode_step`    — one fused step for the whole slot batch; in external
     finalize mode the window-boundary finalize runs inside it for the
     slots that are due, decided on the host (``due`` is known there) so
-    no layer waits on a device flag.
+    no layer waits on a device flag;
+  * or, with speculation, `draft_steps` (landmark-branch-only drafts,
+    read-only), `verify_step` (the decode step at every drafted position)
+    and `rollback` (the query sums back to the last committed position).
 
 All of it runs under ``torch.inference_mode``.  The pools update in place.
 """
@@ -24,11 +27,12 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
+from repro_torch import prng
 from repro_torch.core import mita_decode as mdec
 from repro_torch.kernels.ops import default_block_q
 from repro_torch.models import transformer as tfm
 from repro_torch.models.modules import ModelConfig
-from repro_torch.serve.backends import BackendBase
+from repro_torch.serve.backends import BackendBase, sample_host
 
 
 def _params_device(params) -> torch.device:
@@ -43,6 +47,7 @@ class MiTABackend(BackendBase):
 
     name = "mita"
     supports_prefix_cache = True
+    supports_speculation = True
 
     def __init__(self, params: Any, cfg: ModelConfig, ecfg: Any,
                  device=None):
@@ -50,6 +55,13 @@ class MiTABackend(BackendBase):
         if cfg.attn.backend not in ("mita", "mita_ref"):
             raise ValueError("MiTABackend drives MiTA decode caches "
                              f"(got attention backend {cfg.attn.backend!r})")
+        mode = getattr(ecfg, "spec_mode", "auto")
+        if getattr(ecfg, "spec_k", 0) and mode not in ("auto", "landmark"):
+            raise ValueError(
+                f"MiTABackend speculates by self-drafting against the "
+                f"compressed landmark branch (spec_mode='landmark'; got "
+                f"{mode!r})")
+        self._q_stack = None                  # verify -> rollback handoff
         self.device = (torch.device(device) if device is not None
                        else _params_device(params))
         self.cfg = dataclasses.replace(
@@ -62,6 +74,11 @@ class MiTABackend(BackendBase):
                                             device=self.device)
         self.m_done = np.zeros(s, np.int32)   # finalised landmarks per slot
         self._t_dev = self._pt_dev = self._ac_dev = None
+
+    def fresh(self) -> "MiTABackend":
+        """A new instance with zeroed state and the same configuration."""
+        return type(self)(self.params, self.cfg, self.ecfg,
+                          device=self.device)
 
     # ------------------------------------------------------------ sizing --
 
@@ -119,7 +136,7 @@ class MiTABackend(BackendBase):
                                         device=self.device)
                 tfm.pack_prefill_into_states(self.states, pre_i, slots[i],
                                              pages, self.cfg)
-            return logits.float().cpu().numpy()
+            return logits.cpu()
 
     def prefill_chunks(self, slot_ids: list[int], toks: np.ndarray,
                        job_active: np.ndarray, page_table: np.ndarray,
@@ -138,7 +155,7 @@ class MiTABackend(BackendBase):
                 self.params, self.states, up(toks),
                 up(job_active, torch.bool), up(page_table), up(slot_ids),
                 up(t0), up(n_valid), up(n_train), self.cfg)
-            return logits.float().cpu().numpy()
+            return logits.cpu()
 
     # ------------------------------------------------------ slot lifecycle --
 
@@ -192,7 +209,10 @@ class MiTABackend(BackendBase):
     def decode_step(self, tokens_in: np.ndarray, t: np.ndarray,
                     active: np.ndarray, page_table: np.ndarray,
                     rid: np.ndarray, temperature: np.ndarray,
-                    sample_idx: np.ndarray) -> np.ndarray:
+                    sample_idx: np.ndarray, key) -> Any:
+        """One fused step.  Fused sampling returns [S] int32 tokens (numpy);
+        host sampling the [S, V] logits as a CPU tensor in the compute
+        dtype, so tempered host sampling divides in that dtype."""
         dev = self.device
         if self._dirty:
             self._t_dev = torch.as_tensor(t, dtype=torch.int32, device=dev)
@@ -207,30 +227,169 @@ class MiTABackend(BackendBase):
             due = active & (t % w == 0) & (t // w > self.m_done)
             self.m_done = np.where(due, t // w, self.m_done)
         fused = self.ecfg.sample_device == "fused"
+        sample = (rid, sample_idx, temperature, key) if fused else None
         with torch.inference_mode():
             out, self.states = tfm.lm_paged_decode_step(
                 self.params, self.states,
                 torch.as_tensor(tokens_in, dtype=torch.int32, device=dev),
                 self._t_dev, self._pt_dev, self._ac_dev, self.cfg, due=due,
-                temperature=temperature if fused else None)
+                sample=sample)
             self._t_dev = self._t_dev + self._ac_dev.to(torch.int32)
             self.decode_dispatches += 1
-            return (out.cpu().numpy() if fused
-                    else out.float().cpu().numpy())
+            return out.cpu().numpy() if fused else out.cpu()
+
+    # -------------------------------------------------------- speculation --
+
+    def draft_horizon(self, t: np.ndarray) -> np.ndarray:
+        """Stop drafting short of the next landmark finalize, so that it can
+        only fire at verify position 0 (which always commits): a rejected
+        draft then never needs a landmark/expert/``m_done`` rollback, and
+        every speculative append stays inside the slot's current page.
+        With ``r = t % window``: external finalize fires when a position
+        hits a window boundary; inline finalize fires one position earlier
+        (it closes window ``(t+1) // w`` after the append), so at
+        ``r == w - 1`` the round degenerates to plain decode."""
+        r = np.asarray(t) % self.window
+        if self.cfg.attn.external_finalize:
+            return np.where(r != 0, self.window - r - 1, self.window - 1)
+        return np.where(r < self.window - 1, self.window - 2 - r, 0)
+
+    def draft_steps(self, tokens_in: np.ndarray, t: np.ndarray,
+                    active: np.ndarray, page_table: np.ndarray,
+                    rid: np.ndarray, temperature: np.ndarray,
+                    sample_idx: np.ndarray, key,
+                    spec_len: np.ndarray) -> np.ndarray:
+        """Drafts [n, S] against the finalised landmark tiles only (the page
+        table is unused), n = the longest ``spec_len`` of an active slot
+        (<= spec_k; no forward at all when it is 0).  The landmark count
+        is frozen at the round's start: the host ``m_done`` in external
+        mode (the position-0 finalize lands in the verify step), ``t // w``
+        inline."""
+        dev = self.device
+        ac = np.asarray(active) & (np.asarray(spec_len) > 0)
+        n_pos = int(np.asarray(spec_len)[ac].max(initial=0))
+        if n_pos == 0:
+            return np.zeros((0, len(ac)), np.int32)
+        m_cnt = (self.m_done.copy() if self.cfg.attn.external_finalize
+                 else np.asarray(t) // self.window)
+        with torch.inference_mode():
+            drafts = tfm.lm_landmark_draft(
+                self.params, self.states,
+                torch.as_tensor(tokens_in, dtype=torch.int32, device=dev),
+                torch.as_tensor(t, dtype=torch.int32, device=dev), ac,
+                torch.as_tensor(m_cnt, dtype=torch.int32, device=dev),
+                self.cfg, n_pos, rid, sample_idx, temperature, key)
+        self.decode_dispatches += 1
+        return drafts.cpu().numpy()
+
+    def verify_step(self, tokens_in: np.ndarray, t: np.ndarray,
+                    active: np.ndarray, page_table: np.ndarray,
+                    rid: np.ndarray, temperature: np.ndarray,
+                    sample_idx: np.ndarray, key, spec_len: np.ndarray,
+                    drafts: np.ndarray) -> np.ndarray:
+        """Teacher-forced verify: the exact fused decode step (finalize,
+        kernels and sampling included) over the positions [input,
+        drafts...], one `lm_paged_decode_step` call per position at the
+        same slot batch, so its streams are those of plain decode.  At
+        position ``i`` only slots with ``i <= spec_len`` are active, and
+        only they advance ``t`` and the sample index.  Positions past
+        every slot's ``spec_len`` are skipped: they change no state and
+        their tokens are never committed.  A copy of ``q_sum`` is kept
+        after every position for `rollback` (the pools update in place,
+        so a view would be overwritten).  Returns tokens [n, S], n <=
+        spec_k + 1."""
+        dev = self.device
+        t = np.asarray(t).astype(np.int32)
+        active = np.asarray(active, bool)
+        spec_len = np.asarray(spec_len)
+        si = np.asarray(sample_idx).astype(np.int32)
+        w = self.window
+        m_done = self.m_done.copy()
+        toks = np.concatenate([np.asarray(tokens_in, np.int32)[None],
+                               np.asarray(drafts, np.int32)], 0)
+        n_pos = int(spec_len[active].max(initial=0)) + 1
+        pt = torch.as_tensor(page_table, dtype=torch.int32, device=dev)
+        out, q_stack = [], []
+        with torch.inference_mode():
+            for i in range(n_pos):
+                ac_i = active & (i <= spec_len)
+                due = None
+                if self.cfg.attn.external_finalize:
+                    due = ac_i & (t % w == 0) & (t // w > m_done)
+                    m_done = np.where(due, t // w, m_done)
+                tok_i, self.states = tfm.lm_paged_decode_step(
+                    self.params, self.states,
+                    torch.as_tensor(toks[i], device=dev),
+                    torch.as_tensor(t, device=dev), pt,
+                    torch.as_tensor(ac_i, device=dev), self.cfg, due=due,
+                    sample=(rid, si, temperature, key))
+                out.append(tok_i)
+                q_stack.append(self.states.q_sum.clone())
+                t = t + ac_i
+                si = si + ac_i
+            self.m_done = m_done
+            self._q_stack = torch.stack(q_stack)   # [n, L, S, Hkv, d]
+            self.decode_dispatches += 1
+            return torch.stack(out).cpu().numpy()
+
+    def rollback(self, commits: np.ndarray, active: np.ndarray) -> None:
+        """Rewind the running query sums to the copy taken after the last
+        committed verify position: ``q_stack[commits - 1]`` per slot
+        (commits >= 1; inactive slots pass 1, whose copy equals their
+        untouched sums since the verify steps mask them)."""
+        commits = np.where(np.asarray(active), np.asarray(commits), 1)
+        idx = torch.as_tensor(commits - 1, dtype=torch.int64,
+                              device=self.device)
+        with torch.inference_mode():
+            slots = torch.arange(len(commits), device=self.device)
+            picked = self._q_stack[idx, :, slots]      # [S, L, Hkv, d]
+            self.states.q_sum.copy_(picked.transpose(0, 1))
+        self._q_stack = None
 
     # ------------------------------------------------------------- oracle --
 
     def static_reference(self, prompts: np.ndarray, max_new: int,
                          temperature: float = 0.0,
-                         rids: Optional[list[int]] = None) -> np.ndarray:
+                         rids: Optional[list[int]] = None,
+                         sample_key=None) -> np.ndarray:
         """Static fixed-batch baseline at the slot capacity — the oracle
-        the engine's greedy tokens are held to."""
+        the engine's tokens are held to.  Greedy delegates to
+        `launch.serve.static_generate`; ``temperature`` > 0 drives the same
+        static steps one by one but samples with the engine's
+        (rid, index)-keyed host rule (`serve.backends.sample_host`, key
+        ``sample_key``, default ``PRNGKey(0)``)."""
         from repro_torch.launch.serve import static_generate
         capacity = self.ecfg.pages_per_slot * self.window
+        toks = torch.as_tensor(prompts, dtype=torch.int32, device=self.device)
+        if temperature <= 0.0:
+            with torch.inference_mode():
+                gen, _ = static_generate(self.params, self.cfg, toks,
+                                         max_new, capacity=capacity)
+            return gen
+        if sample_key is None:
+            sample_key = prng.PRNGKey(0)
+        b, n = prompts.shape
+        rids = list(rids) if rids is not None else list(range(b))
+        w = self.window
+        cap = mdec.window_aligned(capacity, w)
         with torch.inference_mode():
-            gen, _ = static_generate(
-                self.params, self.cfg,
-                torch.as_tensor(prompts, dtype=torch.int32,
-                                device=self.device),
-                max_new, temperature=temperature, capacity=capacity)
-        return gen
+            logits, states = tfm.lm_prefill(self.params, toks, self.cfg, cap)
+            logits = logits.cpu()
+            out = [[sample_host(logits[row], rids[row], 0, temperature,
+                                sample_key)] for row in range(b)]
+            m_done = n // w
+            for i in range(1, max_new):
+                pos = n + i - 1
+                if self.cfg.attn.external_finalize and pos % w == 0 \
+                        and pos // w > m_done:
+                    states = tfm.lm_finalize_states(states, self.cfg)
+                    m_done = pos // w
+                tok = torch.as_tensor([o[-1] for o in out], dtype=torch.int32,
+                                      device=self.device)
+                logits, states = tfm.lm_decode_step(self.params, states, tok,
+                                                    pos, self.cfg)
+                logits = logits.cpu()
+                for row in range(b):
+                    out[row].append(sample_host(logits[row], rids[row], i,
+                                                temperature, sample_key))
+        return np.asarray(out, np.int32)

@@ -20,10 +20,19 @@ lowest-priority victim is evicted (its pages released) and later rebuilt
 by chunk-prefilling prompt + generated-so-far (recompute-from-prompt), and
 the optional radix prefix cache (`serve.prefix_cache`).
 
+With ``spec_k`` > 0 the decode step becomes one speculative round: the
+backend drafts up to ``spec_k`` tokens per slot (``draft_steps``),
+re-derives them plus one correction with its exact decode rule
+(``verify_step``), and the engine commits the longest draft prefix the
+verification reproduced plus the first corrected token, rewinding the
+backend past the commit point (``rollback``).
+
 Greedy tokens are exact w.r.t. the backend's static reference: a request
 decoded here emits the tokens it would emit in a fixed batch, preempted or
-not.  Speculative decoding and the per-job prefill mode are not ported
-yet; `EngineConfig` rejects them.
+not.  Tempered tokens are keyed by (request id, token index), so they do
+not depend on batching either; speculative streams are bit-identical to
+``spec_k = 0`` at any temperature.  The per-job prefill mode is not ported
+yet; `EngineConfig` rejects it.
 """
 
 from __future__ import annotations
@@ -35,6 +44,7 @@ from typing import Any, Optional
 
 import numpy as np
 
+from repro_torch import prng
 from repro_torch.serve import backends as _backends
 
 
@@ -85,8 +95,11 @@ class EngineConfig:
     enables batched chunked prefill AND priority preemption.
     ``reserve_pages`` may only be claimed by decode appends.
     ``prefix_cache`` (chunked mode only) keeps a radix cache of committed
-    window-aligned prompt prefixes.  ``spec_k`` > 0 and
-    ``prefill_mode="per-job"`` are not ported yet."""
+    window-aligned prompt prefixes.  ``spec_k`` > 0 turns on lossless
+    speculative decoding (requires ``sample_device="fused"`` and a backend
+    with ``supports_speculation``); ``spec_mode`` picks the backend's
+    drafting strategy ("auto": its native one).
+    ``prefill_mode="per-job"`` is not ported yet."""
     n_slots: int = 8
     n_pages: int = 64
     pages_per_slot: int = 8
@@ -96,17 +109,15 @@ class EngineConfig:
     sample_device: str = "host"     # host | fused
     prefill_mode: str = "batched"   # batched (per-job is not ported)
     prefix_cache: bool = False
-    spec_k: int = 0
+    spec_k: int = 0                 # speculative tokens per round (0 = off)
+    spec_mode: str = "auto"         # backend drafting strategy
 
     def __post_init__(self):
-        for name, on in (("spec_k > 0", self.spec_k > 0),
-                         ("prefill_mode='per-job'",
-                          self.prefill_mode == "per-job")):
-            if on:
-                raise NotImplementedError(
-                    f"EngineConfig {name} is not ported yet: speculative "
-                    "decoding and the per-job chunk prefill come in a later "
-                    "slice of the port (ROADMAP)")
+        if self.prefill_mode == "per-job":
+            raise NotImplementedError(
+                "EngineConfig prefill_mode='per-job' is not ported yet: the "
+                "per-job chunk prefill comes in a later slice of the port "
+                "(ROADMAP)")
 
 
 class _PageAllocator:
@@ -214,7 +225,8 @@ class ServingEngine:
 
     def __init__(self, params: Any, cfg: Any,
                  ecfg: EngineConfig = EngineConfig(),
-                 backend: Optional[Any] = None, device=None):
+                 sample_key=None, backend: Optional[Any] = None,
+                 device=None):
         if ecfg.finalize not in ("external", "inline"):
             raise ValueError(f"unknown finalize mode {ecfg.finalize!r}")
         if ecfg.n_pages - ecfg.reserve_pages < ecfg.pages_per_slot:
@@ -230,8 +242,19 @@ class ServingEngine:
             raise ValueError("prefix_cache requires chunked prefill "
                              "(prefill_chunk > 0): cache hits resume the "
                              "chunk program at the first unshared chunk")
+        if ecfg.spec_k < 0:
+            raise ValueError("spec_k must be >= 0")
         self.backend = (backend if backend is not None
                         else _backends.resolve(params, cfg, ecfg, device))
+        if ecfg.spec_k:
+            if ecfg.sample_device != "fused":
+                raise ValueError(
+                    "speculative decoding samples inside the verify step "
+                    "(spec_k > 0 requires sample_device='fused')")
+            if not getattr(self.backend, "supports_speculation", False):
+                raise ValueError(
+                    f"the {self.backend.name!r} backend does not support "
+                    "speculative decoding (spec_k > 0)")
         self.params = params
         self.cfg = cfg
         self.ecfg = ecfg
@@ -240,6 +263,7 @@ class ServingEngine:
                                    or ecfg.prefill_chunk % self.w):
             raise ValueError("prefill_chunk must be a positive multiple of "
                              f"the backend window ({self.w})")
+        self._key = prng.PRNGKey(0) if sample_key is None else sample_key
 
         s, m = ecfg.n_slots, ecfg.pages_per_slot
         self.alloc = _PageAllocator(ecfg.n_pages, ecfg.reserve_pages)
@@ -282,6 +306,11 @@ class ServingEngine:
         self.n_prefix_tokens_reused = 0
         self.prefix_hits: dict[int, int] = {}  # rid -> tokens reused
 
+        # speculative-decoding counters (zero when spec_k == 0)
+        self.n_spec_drafted = 0           # draft tokens proposed
+        self.n_spec_accepted = 0          # draft tokens verification kept
+        self.n_spec_rollbacks = 0         # rounds that rejected a draft
+
         self.n_rejected = 0
         self.n_deadline_expired = 0
         self._deadline: dict[int, float] = {}
@@ -289,8 +318,9 @@ class ServingEngine:
 
     # ------------------------------------------------------------ plumbing --
 
-    def _sample(self, logits: np.ndarray, req: Request, index: int) -> int:
-        return _backends.sample_host(logits, req.rid, index, req.temperature)
+    def _sample(self, logits, req: Request, index: int) -> int:
+        return _backends.sample_host(logits, req.rid, index,
+                                     req.temperature, self._key)
 
     def pages_needed(self, req: Request) -> int:
         return self.backend.pages_needed(len(req.prompt)
@@ -298,7 +328,7 @@ class ServingEngine:
 
     def stats(self) -> dict[str, Any]:
         """Scheduler counters merged with the backend's; every key of
-        `backends.STATS_SCHEMA` (speculation and supervision read 0)."""
+        `backends.STATS_SCHEMA` (supervision reads 0)."""
         s = {"backend": self.backend.name, "steps": self.steps,
              "chunks": self.n_chunks,
              "prefill_dispatches": self.prefill_dispatches,
@@ -313,7 +343,9 @@ class ServingEngine:
                                     if self.cache is not None else 0),
              "prefix_cache_evictions": (self.cache.evictions
                                         if self.cache is not None else 0),
-             "spec_drafted": 0, "spec_accepted": 0, "spec_rollbacks": 0,
+             "spec_drafted": self.n_spec_drafted,
+             "spec_accepted": self.n_spec_accepted,
+             "spec_rollbacks": self.n_spec_rollbacks,
              "rejected": self.n_rejected,
              "deadline_expired": self.n_deadline_expired,
              "retries": 0, "quarantined": 0, "degradation_level": 0}
@@ -844,12 +876,72 @@ class ServingEngine:
                 self.page_table[slot, need_idx] = page
                 self.backend.invalidate()
 
+    # ---------------------------------------------------- speculative round --
+
+    def _spec_round(self, now: float) -> None:
+        """One draft/verify/commit round for the whole active batch.
+
+        Per-slot draft length = min(spec_k, remaining - 1, the backend's
+        draft horizon), floored at 0 — a zero-length slot still runs verify
+        position 0 and commits one token, so every request retires after
+        exactly the tokens the non-speculative engine emits.  The commit
+        rule is the lossless one: keep the longest draft prefix the exact
+        decode rule reproduced token for token, plus its first correction;
+        the backend rewinds the rejected suffix."""
+        k = self.ecfg.spec_k
+        act = [int(s) for s in np.nonzero(self.active)[0]]
+        remaining = np.zeros_like(self.t)
+        for slot in act:
+            remaining[slot] = (self.slot_req[slot].max_new_tokens
+                               - len(self.slot_out[slot]))
+        horizon = np.asarray(self.backend.draft_horizon(self.t))
+        spec_len = np.where(
+            self.active,
+            np.minimum(np.minimum(k, remaining - 1), horizon),
+            0).astype(np.int32)
+        spec_len = np.maximum(spec_len, 0)
+
+        drafts = self.backend.draft_steps(
+            self.tokens_in, self.t, self.active, self.page_table,
+            self.slot_rid, self.slot_temp, self.sample_idx, self._key,
+            spec_len)
+        verify = self.backend.verify_step(
+            self.tokens_in, self.t, self.active, self.page_table,
+            self.slot_rid, self.slot_temp, self.sample_idx, self._key,
+            spec_len, drafts)
+
+        commits = np.ones(len(self.t), np.int32)
+        for slot in act:
+            sl = int(spec_len[slot])
+            j = 0
+            while j < sl and drafts[j, slot] == verify[j, slot]:
+                j += 1
+            commits[slot] = j + 1
+            self.n_spec_drafted += sl
+            self.n_spec_accepted += j
+            self.n_spec_rollbacks += int(j < sl)
+        self.backend.rollback(commits, self.active)
+
+        for slot in act:
+            req = self.slot_req[slot]
+            c = int(commits[slot])
+            for i in range(c):
+                self._emit(slot, int(verify[i, slot]), now)
+            self.t[slot] += c
+            self.sample_idx[slot] += c
+            self.tokens_in[slot] = int(verify[c - 1, slot])
+            if len(self.slot_out[slot]) >= req.max_new_tokens:
+                self._retire(slot, now)
+        # positions moved by per-slot amounts: the device copies are stale
+        self.backend.invalidate()
+
     # ---------------------------------------------------------------- step --
 
     def step(self) -> bool:
         """One iteration: expire deadlines, admit, advance prefill (one
-        dispatch), ensure append pages, then one fused decode step for the
-        active batch.  False when there is nothing left to do."""
+        dispatch), ensure append pages, then one fused decode step — or,
+        with ``spec_k`` > 0, one speculative round — for the active batch.
+        False when there is nothing left to do."""
         self._expire_deadlines()
         now = time.perf_counter()
         self._admit(now)
@@ -858,10 +950,14 @@ class ServingEngine:
             self._ensure_append_pages()
         if not self.active.any():
             return bool(self.waiting or self.prefilling)
+        if self.ecfg.spec_k:
+            self._spec_round(time.perf_counter())
+            self.steps += 1
+            return True
         fused = self.ecfg.sample_device == "fused"
         out = self.backend.decode_step(
             self.tokens_in, self.t, self.active, self.page_table,
-            self.slot_rid, self.slot_temp, self.sample_idx)
+            self.slot_rid, self.slot_temp, self.sample_idx, self._key)
         self.steps += 1
         now = time.perf_counter()
         for slot in np.nonzero(self.active)[0]:

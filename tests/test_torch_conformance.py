@@ -1,0 +1,324 @@
+"""The MiTA cell of the backend conformance battery
+(``tests/test_backend_conformance.py``) run against the port, and the
+main-path gate: the port's engine against the JAX engine on the serving
+benchmark's traces.
+
+The battery (port backend, CPU, float32, the reference's MiTA cell:
+2 layers, d_model 64, 4 heads / 2 KV heads, vocab 97, window 8,
+``mita_ref``):
+
+  * chunked admission with slot reuse: greedy streams equal the backend's
+    own static reference; a preempted victim re-emits its stream;
+  * a drained trace releases every page, reference and slot;
+  * ``stats()`` has exactly `STATS_SCHEMA`;
+  * ``spec_k = 3`` streams equal ``spec_k = 0`` at temperatures 0 and 0.8,
+    with drafts both accepted and rolled back (this cell's drafter agrees
+    with verification on some tokens: both counters are asserted > 0);
+  * the speculation contract surface, and `BackendBase` refusing it;
+  * a backend raising mid-step (before it changes any state) leaves the
+    engine consistent: draining it releases everything and every stream
+    still equals the static reference.
+
+Chaos under a supervisor and the schedule fuzzer wait for the supervision
+slice.
+
+The gate imports ``benchmarks/serve_bench.py``'s Poisson trace (`_trace`,
+8 of its 32 requests, monolithic engine, 8 slots) and its interference
+trace (`_interference_trace`, 6 short requests of its 48 and 1 long of its
+3, chunked + preemptive engine) with the bench's model and engine
+configurations, runs each through the JAX engine and the port's engine on
+the same weights, arrivals queued up front, and requires equal greedy
+tokens per request.
+"""
+
+import dataclasses
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from benchmarks.common import tiny_lm_cfg
+from benchmarks.serve_bench import _interference_trace, _trace
+from repro.core.mita_decode import window_aligned
+from repro.models import transformer as jtfm
+from repro.models.modules import AttnConfig as JAttnConfig
+from repro.models.modules import ModelConfig as JModelConfig
+from repro.serve import EngineConfig as JEngineConfig
+from repro.serve import ServingEngine as JServingEngine
+from repro_torch.convert import params_from_jax
+from repro_torch.models.modules import AttnConfig, ModelConfig
+from repro_torch.serve import EngineConfig, Request, ServingEngine
+from repro_torch.serve.backends import (BACKEND_STAT_KEYS, ENGINE_STAT_KEYS,
+                                        STATS_SCHEMA, BackendBase)
+from repro_torch.serve.backends.mita import MiTABackend
+
+W = 8
+
+
+@pytest.fixture(autouse=True)
+def _threads():
+    prev = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(prev)
+
+
+def _port_cfg(jc: JModelConfig) -> ModelConfig:
+    """The port's config with the JAX config's values (float32)."""
+    def common(cls, obj):
+        names = {f.name for f in dataclasses.fields(cls)}
+        return {f.name: getattr(obj, f.name)
+                for f in dataclasses.fields(obj)
+                if f.name in names and not f.name.endswith("dtype")}
+    kw = common(ModelConfig, jc)
+    kw["attn"] = AttnConfig(**common(AttnConfig, jc.attn))
+    return ModelConfig(**kw)
+
+
+@pytest.fixture(scope="module")
+def cell():
+    """``(cfg, params, engine factory)`` of the reference's MiTA cell."""
+    jc = JModelConfig(n_layers=2, d_model=64, n_heads=4, n_kv=2, d_ff=128,
+                      vocab=97, attn=JAttnConfig(window=W, k=W,
+                                                 backend="mita_ref"))
+    cfg = _port_cfg(jc)
+    params = params_from_jax(jax.device_get(
+        jtfm.lm_init(jax.random.PRNGKey(0), jc)))
+
+    def engine(ecfg, backend=None):
+        backend = backend or MiTABackend(params, cfg, ecfg, device="cpu")
+        return ServingEngine(params, cfg, ecfg, backend=backend)
+
+    return cfg, params, engine
+
+
+def _requests(vocab, specs, temperature=0.0, seed=7):
+    rng = np.random.default_rng(seed)
+    return [Request(rid=i, prompt=rng.integers(0, vocab, ln).astype(np.int32),
+                    max_new_tokens=g, temperature=temperature)
+            for i, (ln, g) in enumerate(specs)]
+
+
+def _tokens(done):
+    return {f.rid: f.tokens.tolist() for f in done if not f.cancelled}
+
+
+# --------------------------------------------------------------- the battery
+
+def test_alloc_prefill_decode_reference_parity(cell):
+    cfg, params, engine = cell
+    reqs = _requests(cfg.vocab, [(W, 4), (2 * W, 7), (3 * W, 3), (W, 6)])
+    eng = engine(EngineConfig(n_slots=2, pages_per_slot=5, n_pages=12,
+                              prefill_chunk=W))
+    done = eng.run(reqs)
+    assert len(done) == len(reqs)
+    ref = eng.backend.fresh()
+    for f, r in zip(done, reqs):
+        expect = ref.static_reference(r.prompt[None], r.max_new_tokens)
+        np.testing.assert_array_equal(f.tokens, expect[0],
+                                      err_msg=f"req {f.rid}")
+
+
+def test_preempt_recompute_parity(cell):
+    cfg, params, engine = cell
+    rng = np.random.default_rng(3)
+    victim = rng.integers(0, cfg.vocab, 2 * W).astype(np.int32)
+    ecfg = EngineConfig(n_slots=2, pages_per_slot=6, n_pages=8,
+                        prefill_chunk=2 * W)
+    ref = engine(ecfg).run(
+        [Request(rid=0, prompt=victim, max_new_tokens=16)])[0].tokens
+    eng = engine(ecfg)
+    eng.submit(Request(rid=0, prompt=victim, max_new_tokens=16, priority=0))
+    for _ in range(6):
+        eng.step()
+    hp = rng.integers(0, cfg.vocab, (2, 2 * W)).astype(np.int32)
+    for i in (1, 2):
+        eng.submit(Request(rid=i, prompt=hp[i - 1], max_new_tokens=16,
+                           priority=5))
+    while eng.step():
+        pass
+    done = sorted(eng.finished, key=lambda f: f.rid)
+    assert len(done) == 3
+    assert eng.n_preemptions >= 1, "scenario no longer triggers preemption"
+    np.testing.assert_array_equal(done[0].tokens, ref)
+
+
+def test_retire_releases_everything(cell):
+    cfg, params, engine = cell
+    ecfg = EngineConfig(n_slots=3, pages_per_slot=5, n_pages=15,
+                        prefill_chunk=W)
+    eng = engine(ecfg)
+    eng.run(_requests(cfg.vocab, [(W, 3), (2 * W, 5), (W, 2), (2 * W, 4)]))
+    assert eng.alloc.in_use == 0 and eng.alloc.refs == {}
+    assert sorted(eng.alloc.free) == list(range(ecfg.n_pages))
+    assert not eng.active.any() and not eng.slot_pages
+    assert sorted(eng.free_slots) == list(range(ecfg.n_slots))
+
+
+def test_stats_schema_is_exact(cell):
+    cfg, params, engine = cell
+    eng = engine(EngineConfig(n_slots=2, pages_per_slot=4, n_pages=8,
+                              prefill_chunk=W))
+    eng.run(_requests(cfg.vocab, [(W, 2)]))
+    st = eng.stats()
+    assert set(st) == STATS_SCHEMA, (set(st) ^ STATS_SCHEMA)
+    assert set(eng.backend.stats()) == BACKEND_STAT_KEYS
+    assert st["backend"] == "mita" and "backend" in ENGINE_STAT_KEYS
+
+
+@pytest.mark.parametrize("temperature", [0.0, 0.8])
+def test_speculative_parity(cell, temperature):
+    """spec_k = 3 streams are bit-identical to spec_k = 0, requests retire
+    after the same tokens, drafts are both accepted and rolled back, and
+    the counters are consistent."""
+    cfg, params, engine = cell
+    specs = [(W, 5), (2 * W - 3, 9), (2 * W, 4), (5, 11)]
+    base_ecfg = EngineConfig(n_slots=3, pages_per_slot=4, n_pages=24,
+                             prefill_chunk=W, sample_device="fused")
+    base = _tokens(engine(base_ecfg).run(
+        _requests(cfg.vocab, specs, temperature=temperature)))
+    eng = engine(dataclasses.replace(base_ecfg, spec_k=3))
+    got = _tokens(eng.run(_requests(cfg.vocab, specs,
+                                    temperature=temperature)))
+    assert got == base
+    st = eng.stats()
+    assert 0 < st["spec_accepted"] < st["spec_drafted"]
+    assert 0 < st["spec_rollbacks"] \
+        <= st["spec_drafted"] - st["spec_accepted"]
+
+
+def test_speculation_contract_surface(cell):
+    cfg, params, engine = cell
+    eng = engine(EngineConfig(n_slots=2, pages_per_slot=4, n_pages=8))
+    assert eng.backend.supports_speculation
+    h = eng.backend.draft_horizon(np.array([0, 5, W - 1, W, 3 * W + 2]))
+    assert h.shape == (5,) and np.issubdtype(h.dtype, np.integer)
+    assert (h >= 0).all()
+    with pytest.raises(ValueError, match="fused"):
+        engine(EngineConfig(n_slots=2, pages_per_slot=4, n_pages=8,
+                            spec_k=2))
+    with pytest.raises(ValueError, match="landmark"):
+        MiTABackend(params, cfg, EngineConfig(spec_k=2, spec_mode="stress",
+                                              sample_device="fused"),
+                    device="cpu")
+
+
+def test_base_backend_refuses_speculation(cell):
+    cfg, params, _ = cell
+    b = BackendBase(None, None, EngineConfig())
+    assert not b.supports_speculation
+    for call in (lambda: b.draft_steps(*[None] * 9),
+                 lambda: b.verify_step(*[None] * 10),
+                 lambda: b.rollback(None, None)):
+        with pytest.raises(NotImplementedError, match="speculative"):
+            call()
+    assert (b.draft_horizon(np.zeros(3, np.int32))
+            == np.iinfo(np.int32).max).all()
+
+    class NoSpec(MiTABackend):
+        supports_speculation = False
+
+    ecfg = EngineConfig(n_slots=2, pages_per_slot=4, n_pages=8, spec_k=2,
+                        sample_device="fused")
+    with pytest.raises(ValueError, match="does not support speculative"):
+        ServingEngine(params, cfg, ecfg,
+                      backend=NoSpec(params, cfg, ecfg, device="cpu"))
+
+
+class _Fault(RuntimeError):
+    pass
+
+
+class _FaultOnce:
+    """Delegates to a backend; once armed, the next call of ``op`` raises
+    before it reaches the wrapped backend."""
+
+    def __init__(self, inner, op):
+        self.inner, self.op, self.armed = inner, op, False
+
+    def __getattr__(self, name):
+        attr = getattr(self.inner, name)
+        if name != self.op or not self.armed:
+            return attr
+
+        def fault(*args, **kwargs):
+            self.armed = False
+            raise _Fault(name)
+        return fault
+
+
+@pytest.mark.parametrize("chunk,op", [(0, "prefill_group"),
+                                      (W, "prefill_chunks"),
+                                      (W, "decode_step")])
+def test_midstep_exception_leaks_no_pages(cell, chunk, op):
+    cfg, params, engine = cell
+    specs = [(W, 3), (2 * W, 4)]
+    ecfg = EngineConfig(n_slots=2, pages_per_slot=4, n_pages=10,
+                        prefill_chunk=chunk)
+    inner = MiTABackend(params, cfg, ecfg, device="cpu")
+    fb = _FaultOnce(inner, op)
+    eng = engine(ecfg, backend=fb)
+    for r in _requests(cfg.vocab, specs):
+        eng.submit(r)
+    if op == "decode_step":        # land the fault after prefill finished
+        while not eng.active.any():
+            eng.step()
+    fb.armed = True
+    with pytest.raises(_Fault):
+        while eng.step():
+            pass
+    while eng.step():              # fault healed: the same engine drains
+        pass
+    assert eng.alloc.in_use == 0 and eng.alloc.refs == {}
+    ref = inner.fresh()
+    for f, r in zip(sorted(eng.finished, key=lambda f: f.rid),
+                    _requests(cfg.vocab, specs)):
+        np.testing.assert_array_equal(
+            f.tokens, ref.static_reference(r.prompt[None],
+                                           r.max_new_tokens)[0])
+
+
+# ------------------------------------------------------------ main-path gate
+
+def _port_requests(reqs):
+    return [Request(rid=r.rid, prompt=np.asarray(r.prompt),
+                    max_new_tokens=r.max_new_tokens,
+                    temperature=r.temperature, arrival=r.arrival,
+                    priority=r.priority) for r in reqs]
+
+
+def _gate(jc, ecfg_kw, reqs):
+    jp = jtfm.lm_init(jax.random.PRNGKey(0), jc)
+    want = JServingEngine(jp, jc, JEngineConfig(**ecfg_kw)).run(reqs)
+    tp = params_from_jax(jax.device_get(jp))
+    eng = ServingEngine(tp, _port_cfg(jc), EngineConfig(**ecfg_kw),
+                        device="cpu")
+    got = eng.run(_port_requests(reqs))
+    assert [f.reason for f in got] == ["complete"] * len(reqs)
+    assert [f.rid for f in got] == [f.rid for f in want]
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.tokens, w.tokens,
+                                      err_msg=f"rid {g.rid}")
+    return eng
+
+
+def test_main_path_gate_poisson_trace():
+    """``serve_poisson``'s model and engine (monolithic prefill)."""
+    jc = tiny_lm_cfg("mita", m=8, k=16, layers=2, d=64, seq=256)
+    w = jc.attn.window
+    pages = window_aligned(2 * w + 4 * w, w) // w
+    _gate(jc, dict(n_slots=8, pages_per_slot=pages, n_pages=16 * pages),
+          _trace(jc.vocab, w, 8))
+
+
+def test_main_path_gate_interference_trace():
+    """``serve_interference``'s model and chunked + preemptive engine."""
+    jc = tiny_lm_cfg("mita_ref", m=8, k=16, layers=2, d=64, seq=256)
+    w = jc.attn.window
+    pages = window_aligned(12 * w + 8, w) // w
+    eng = _gate(jc, dict(n_slots=8, pages_per_slot=pages,
+                         n_pages=3 * pages + 6, prefill_chunk=2 * w,
+                         reserve_pages=4),
+                _interference_trace(jc.vocab, w, 6, 1))
+    assert eng.stats()["chunks"] > 1

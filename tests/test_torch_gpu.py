@@ -827,3 +827,71 @@ def test_flash_tolerance_detects_a_dropped_tile(cuda_device, dtype):
         assert err > tol
         assert not torch.allclose(dropped.float(), want.float(), atol=tol,
                                   rtol=tol)
+
+
+# ---------------------------------------------- sampler and speculation ---
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_sampler_on_the_card_vs_cpu(cuda_device, dtype):
+    """Threefry words and the per-slot keys are exact on the card; gumbel
+    within 4 float32 / 1 bfloat16 ulp of 1 + |g|; tempered tokens equal
+    wherever the CPU's top-2 gap clears 2**-19 relative."""
+    from repro_torch import prng
+    from repro_torch.models.transformer import sample_tokens
+    rng = np.random.default_rng(3)
+    s, v = 4, 151936
+    rid = rng.integers(0, 2 ** 31, s).astype(np.int32)
+    idx = rng.integers(0, 4096, s).astype(np.int32)
+    temp = np.asarray([0.8, 0.0, 1.3, 0.5], np.float32)
+    key = prng.PRNGKey(7)
+    keys = {dev: prng.fold_in(prng.fold_in(
+        key.to(dev), torch.as_tensor(rid, device=dev)),
+        torch.as_tensor(idx, device=dev)) for dev in ("cpu", cuda_device)}
+    assert torch.equal(keys[cuda_device].cpu(), keys["cpu"])
+    assert torch.equal(prng.random_bits(keys[cuda_device], 32, (v,)).cpu(),
+                       prng.random_bits(keys["cpu"], 32, (v,)))
+    g = {dev: prng.gumbel(k, (v,), dtype).float().cpu()
+         for dev, k in keys.items()}
+    tol = 2.0 ** -21 if dtype == torch.float32 else 2.0 ** -7
+    assert ((g[cuda_device] - g["cpu"]).abs()
+            / (1 + g["cpu"].abs())).max() <= tol
+    lg = torch.from_numpy(rng.standard_normal((s, v)).astype(np.float32)
+                          * 3).to(dtype)
+    got = sample_tokens(lg.to(cuda_device), rid, idx, temp, key).cpu()
+    want = sample_tokens(lg, rid, idx, temp, key)
+    z = g["cpu"] + lg.float() / torch.from_numpy(np.maximum(temp, 1e-6))[
+        :, None]
+    top2 = torch.topk(z.double(), 2, dim=-1).values
+    clear = (top2[:, 0] - top2[:, 1]) > 2.0 ** -19 * (1 + top2[:, 0].abs())
+    assert torch.equal(got[clear], want[clear])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("temperature", [0.0, 0.8])
+@pytest.mark.parametrize("finalize", ["external", "inline"])
+def test_speculative_streams_equal_plain_decode_on_the_card(
+        cuda_device, finalize, temperature):
+    """spec_k = 3 streams equal spec_k = 0 streams through the card's
+    kernels (smoke widths, float32, chunked prefill, fused sampling)."""
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.models import transformer as tfm
+    from repro_torch.serve import EngineConfig, Request, ServingEngine
+    cfg = get_arch("qwen3-0.6b", smoke=True).model
+    w = cfg.attn.window
+    params = tfm.lm_init(torch.Generator(device=cuda_device).manual_seed(0),
+                         cfg, cuda_device)
+    specs = [(w, 5), (2 * w, 9), (2 * w, 4), (w, 20)]
+    out = {}
+    for k in (0, 3):
+        eng = ServingEngine(params, cfg, EngineConfig(
+            n_slots=3, pages_per_slot=4, n_pages=24, prefill_chunk=w,
+            sample_device="fused", finalize=finalize, spec_k=k),
+            device=cuda_device)
+        rng = np.random.default_rng(5)
+        done = eng.run([Request(rid=i, prompt=rng.integers(
+            0, cfg.vocab, n).astype(np.int32), max_new_tokens=g,
+            temperature=temperature) for i, (n, g) in enumerate(specs)])
+        out[k] = {f.rid: f.tokens.tolist() for f in done}
+    assert out[3] == out[0]
+    assert eng.stats()["spec_drafted"] > 0

@@ -16,6 +16,7 @@ import torch
 from repro.configs.registry import get_arch as jget_arch
 from repro.core import mita_decode as jdec
 from repro.models import transformer as jtfm
+from repro_torch import prng
 from repro_torch.configs.registry import get_arch as tget_arch
 from repro_torch.convert import (decode_state_from_jax, params_from_jax,
                                  paged_state_from_jax, to_numpy)
@@ -199,13 +200,25 @@ def test_state_converters_keep_layout(weights):
 
 
 def test_sample_tokens_first_index_and_nan():
+    """Greedy rows take the first index of the maximum (a NaN row its first
+    NaN); a tempered row in the same batch leaves the greedy rows alone
+    and draws what `jax.random` draws for its (rid, index) key."""
     logits = torch.tensor([[1.0, 3.0, 3.0, 0.0],
                            [float("nan"), 5.0, float("nan"), 1.0],
                            [2.0, 2.0, 2.0, 2.0]])
-    np.testing.assert_array_equal(ttfm.sample_tokens(logits).numpy(),
-                                  [1, 0, 0])
-    with pytest.raises(NotImplementedError, match="threefry"):
-        ttfm.sample_tokens(logits, np.asarray([0.0, 0.5, 0.0]))
+    rid = np.asarray([4, 5, 6], np.int32)
+    idx = np.asarray([0, 1, 2], np.int32)
+    greedy = np.zeros(3, np.float32)
+    np.testing.assert_array_equal(
+        ttfm.sample_tokens(logits, rid, idx, greedy, prng.PRNGKey(0))
+        .numpy(), [1, 0, 0])
+    temp = np.asarray([0.0, 0.0, 0.5], np.float32)
+    got = ttfm.sample_tokens(logits, rid, idx, temp, prng.PRNGKey(0))
+    want = jtfm.sample_tokens(jnp.asarray(logits.numpy()), jnp.asarray(rid),
+                   jnp.asarray(idx), jnp.asarray(temp),
+                   jax.random.PRNGKey(0))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    assert got.numpy()[:2].tolist() == [1, 0]
 
 
 def test_moe_config_raises():

@@ -133,15 +133,21 @@ def test_cancel_and_deadline(setup):
 @pytest.mark.parametrize("field", ["spec_k", "prefill_mode",
                                    "prefill_chunk", "prefix_cache"])
 def test_engine_config_rejects_next_slice_features(setup, field):
-    """Speculation and the per-job prefill mode are not ported yet
-    (NotImplementedError); a chunk that is not a multiple of the window,
-    and a prefix cache without chunked prefill, are refused as in the
-    reference (ValueError)."""
+    """The per-job prefill mode is not ported yet (NotImplementedError).
+    Speculation is, and is refused as in the reference without fused
+    sampling or with a negative ``spec_k``; so are a chunk that is not a
+    multiple of the window and a prefix cache without chunked prefill
+    (ValueError)."""
     _, tc, _, tp, _ = setup
-    if field in ("spec_k", "prefill_mode"):
-        val = {"spec_k": 2, "prefill_mode": "per-job"}[field]
+    if field == "prefill_mode":
         with pytest.raises(NotImplementedError, match="not ported"):
-            EngineConfig(**{field: val})
+            EngineConfig(prefill_mode="per-job")
+        return
+    if field == "spec_k":
+        with pytest.raises(ValueError, match="fused"):
+            ServingEngine(tp, tc, EngineConfig(spec_k=2), device="cpu")
+        with pytest.raises(ValueError, match=">= 0"):
+            ServingEngine(tp, tc, EngineConfig(spec_k=-1), device="cpu")
         return
     kw = ({"prefill_chunk": W + 1} if field == "prefill_chunk"
           else {"prefix_cache": True})
