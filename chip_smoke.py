@@ -37,6 +37,11 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
        controls that must fail the check (the kernel with its first key
        tile dropped, and with keys 2048..2175 dropped for the rows after
        them);
+     * the routed-expert kernel at recurrentgemma-9b's forward shape
+       (lead [1, 1, 16] over one KV head, head dim 256, m = 32 at N =
+       4096; the CUDA-core wide instance in both dtypes): within 1e-5 /
+       2e-2 of its plain version, shuffled rows bit for bit, a control
+       with keys 64..127 of an expert dropped that must fail, timed;
      * the sampler (`repro_torch.prng`, `models.transformer.
        sample_tokens`) at [S, 151936] against the same calls on the CPU:
        threefry words and per-slot keys exact, gumbel within 4 float32 /
@@ -60,7 +65,19 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      (chunked 256, fused sampling, prompts 96 and 512, 48 new tokens):
      tempered (0.8) spec_k = 3 streams equal spec_k = 0's, host-sampled
      tempered streams equal the fused ones, greedy spec_k = 3 equals
-     ``static_generate`` except at recorded near-ties;
+     ``static_generate`` except at recorded near-ties; then
+     mamba2-370m (8 layers) and recurrentgemma-9b (2 super-blocks) at
+     full width: the monolithic, batched-chunked and per-job-chunked
+     (128) engines held to the backend's ``static_reference`` except at
+     near-ties, a preemption round trip token-exact, spec_k = 3 (self)
+     equal to spec_k = 0 at temperatures 0 and 0.8; the qwen3-0.6b
+     per-job serve (8 layers) against the batched serve and
+     ``static_generate`` (first-token logits within 1e-4 of
+     ``lm_prefill``'s unless a landmark top-K near-tie is proven pick by
+     pick); the hybrid's full-sequence forward (2
+     super-blocks, N = 4096), impl="pallas" against "sorted" at span = m
+     layer by layer within 1e-5, expert launches = attention layers x
+     forwards;
   4. production serves: the same trace at the production dtypes (bf16
      compute) through ``repro_torch.launch.serve.main``, monolithic and
      then chunked (``--prefill-chunk 256``, the slice's main path), the
@@ -73,7 +90,13 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      chunked, fused, tempered (0.8) serve at ``--spec-k 3`` and its
      ``--spec-k 0`` twin in turns (tok/s, the speculation counters, equal
      streams; decode launches = 28 layers x decode steps, every verify
-     position counted);
+     position counted); then the bf16 qwen3-0.6b per-job serve
+     (decode = 28 x steps, finalize > 0, chunk 0), mamba2-370m (48
+     layers) and recurrentgemma-9b (13 super-blocks) served through
+     ``launch.serve.main`` at full width and depth (8 requests, prompt
+     256 + 64, 4 slots, chunk 128: tok/s, TTFT, peak memory, launches),
+     and the hybrid's bf16 ``rg_forward`` with impl="pallas" at N = 4096
+     (expert launches = 13 x forwards);
   5. summary: one JSON line of per-kernel results (launches from each
      kernel's main path: the spec_k = 3 serve for the serving kernels,
      with the plain chunked serve's beside them, the bf16 full-sequence
@@ -108,6 +131,7 @@ PARITY_GAP = 1e-3
 PARITY_LAYERS = 8     # depth of the earlier slices' f32 serves (from 28)
 LAYER_TOL = 1e-5      # float32 routed partials, expert kernel vs span = m
 LOSS_TOL = 1e-3       # float32 lm_loss (nats), pallas vs sorted span = m
+PREFILL_LOGIT_TOL = 1e-4  # float32 first-token logits, engine vs lm_prefill
 
 
 def fail(msg: str) -> None:
@@ -1117,24 +1141,25 @@ FWD_N = 4096                        # the forward cell: B = 1, N = 4096
 FWD_M = FWD_N // W                  # 32 landmarks / experts
 
 
-def expert_inputs(dtype, ns, seed):
+def expert_inputs(dtype, ns, seed, hkv=HKV, g_n=G, d=D):
     """Sub-queries of one forward layer of qwen3-0.6b (lead [1, 8, 2], KV
-    lead [1, 8, 1], M = 32, K = d = 128), sorted by expert.  Causal
+    lead [1, 8, 1], M = 32, K = d = 128; recurrentgemma-9b's: ``hkv`` 1,
+    ``g_n`` 16, ``d`` 256), sorted by expert.  Causal
     routing: position p can route to experts 0 .. (p+1)//W - 1, drawn
     uniformly (early experts take more queries); the first window's
     positions have none (inactive id M), so the sorted tail holds whole
     inactive tiles."""
     g = torch.Generator(device="cuda").manual_seed(seed)
     dev = "cuda"
-    lead = (1, HKV, G)
+    lead = (1, hkv, g_n)
     vis = (torch.arange(ns, device=dev) + 1) // W            # experts seen
     draw = torch.rand(lead + (ns,), generator=g, device=dev)
     a = torch.where(vis > 0, (draw * vis).long(), FWD_M)
     a = torch.sort(a, dim=-1).values.to(torch.int32)
-    q = torch.randn(lead + (ns, D), generator=g, device=dev).to(dtype)
-    ke, ve = (torch.randn((1, HKV, 1, FWD_M, K, D), generator=g,
+    q = torch.randn(lead + (ns, d), generator=g, device=dev).to(dtype)
+    ke, ve = (torch.randn((1, hkv, 1, FWD_M, K, d), generator=g,
                           device=dev).to(dtype) for _ in range(2))
-    valid = torch.rand((1, HKV, 1, FWD_M, K), generator=g, device=dev) > 0.05
+    valid = torch.rand((1, hkv, 1, FWD_M, K), generator=g, device=dev) > 0.05
     return q, a, ke, ve, valid
 
 
@@ -1143,17 +1168,18 @@ def expert_bound(args, dtype):
     KV head, m and l out.  Operations: each active row's score and value
     products over the valid keys of its own expert."""
     q, a, ke, _, valid = args
+    hkv, d = q.shape[1], q.shape[-1]
     es = torch.tensor([], dtype=dtype).element_size()
-    rows = q.numel() // D
+    rows = q.numel() // d
     nbytes = 2 * q.numel() * es + rows * (4 + 8) \
         + 2 * ke.numel() * es + valid.numel()
-    n_valid = valid.sum(-1).reshape(HKV, FWD_M)               # [Hkv, M]
+    n_valid = valid.sum(-1).reshape(hkv, FWD_M)               # [Hkv, M]
     act = a < FWD_M                                           # [1,Hkv,G,NS]
-    keys = torch.where(act, n_valid[torch.arange(HKV, device="cuda")
+    keys = torch.where(act, n_valid[torch.arange(hkv, device="cuda")
                                     [:, None, None],
                                     a[0].long().clamp(max=FWD_M - 1)][None],
                        0)
-    return nbytes, 4 * D * int(keys.sum())
+    return nbytes, 4 * d * int(keys.sum())
 
 
 def flash_bound(n, nk, causal, dtype, bh=16):
@@ -1269,6 +1295,87 @@ def expert_control(dtype):
           f"expert 1 dropped ({int(use.sum())} rows): max_abs_err "
           f"{err:.3e}, fails the check (tol {tol}), as it must")
     return err
+
+
+RG_HKV, RG_G, RG_D = 1, 16, 256     # recurrentgemma-9b: MQA, head dim 256
+
+
+def phase_expert_wide():
+    """The routed-expert kernel at recurrentgemma-9b's forward shape (lead
+    [1, 1, 16] over one KV head, d = 256, K = 128, m = 32 at N = 4096;
+    the CUDA-core wide instance in both dtypes) against its plain version
+    (bf16: P rounded to bf16 in the plain version, tolerance 2e-2; f32:
+    1e-5); inactive rows exactly empty; shuffled rows bit for bit; a
+    control with keys 64..127 of expert 1 dropped that must fail; timed
+    (CUDA events, cold L2), its launches read from a trace."""
+    from repro_torch.kernels import mita_expert_attn as mea
+    res = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        tol = TOL[dtype]
+        args = expert_inputs(dtype, FWD_N, 40, hkv=RG_HKV, g_n=RG_G, d=RG_D)
+        q, a, ke, ve, valid = args
+        rp = dtype == torch.bfloat16
+        if mea.expert_path(dtype, RG_D) != mea.CUDA_CORES:
+            fail(f"expert_path {dtype} d {RG_D}: "
+                 f"{mea.expert_path(dtype, RG_D)}")
+        ref = mea.expert_attention_plain(*args, round_p=rp)
+        got = mea.mita_expert_attention(*args)
+        torch.cuda.synchronize()
+        if not torch.equal(got[2] > 0, ref[2] > 0):
+            fail(f"expert d {RG_D} {dtype}: active rows differ")
+        errs = []
+        for name, x, y in zip(("o / l", "m", "l"), expert_partials(got),
+                              expert_partials(ref)):
+            errs.append((x - y).abs().max().item())
+            if not torch.allclose(x, y, atol=tol, rtol=tol):
+                fail(f"expert d {RG_D} {dtype} {name} max_abs_err {errs[-1]}")
+        inactive = a >= FWD_M
+        if got[0][inactive].abs().max() != 0 \
+                or got[2][inactive].abs().max() != 0:
+            fail(f"expert d {RG_D} {dtype}: inactive rows are not empty")
+        g = torch.Generator(device="cuda").manual_seed(41)
+        perm = torch.randperm(FWD_N, generator=g, device="cuda")
+        inv = torch.argsort(perm)
+        sh = mea.mita_expert_attention(q[..., perm, :], a[..., perm], ke, ve,
+                                       valid)
+        for name, x, y in (("o", sh[0][..., inv, :], got[0]),
+                           ("m", sh[1][..., inv], got[1]),
+                           ("l", sh[2][..., inv], got[2])):
+            if not torch.equal(x, y):
+                fail(f"expert d {RG_D} {dtype}: shuffled rows give other "
+                     f"{name} bits")
+        dropped = valid.clone()
+        dropped[..., 1, 64:128] = False
+        o, _, l = mea.mita_expert_attention(q, a, ke, ve, dropped)
+        use = a == 1
+        x = o.float()[use] / l[use][:, None]
+        y = ref[0].float()[use] / ref[2][use][:, None]
+        ctrl = (x - y).abs().max().item()
+        if ctrl <= tol or torch.allclose(x, y, atol=tol, rtol=tol):
+            fail(f"expert d {RG_D} {dtype}: the dropped-keys control passes "
+                 f"the check (max_abs_err {ctrl})")
+        del ref, sh, o, l, x, y
+        kern = lambda: mea.mita_expert_attention(*args)  # noqa: E731
+        pl = lambda: mea.expert_attention_plain(*args)  # noqa: E731
+        ms, pms = cuda_ms(kern, iters=20), cuda_ms(pl, iters=3)
+        rec = kernel_record(kern, iters=20)
+        if rec["cuda_kernels"] != ["expert_attn_kernel"]:
+            fail(f"expert d {RG_D} {dtype}: traced {rec['cuda_kernels']}")
+        bms, by = bound_ms(*expert_bound(args, dtype), dtype)
+        res[dtype] = dict(max_abs_err=max(errs), ms=ms, plain_ms=pms,
+                          bound_ms=bms, bound_by=by, tol=tol,
+                          control_max_abs_err=ctrl, path=mea.CUDA_CORES,
+                          shape=f"lead [1, {RG_HKV}, {RG_G}], d {RG_D}, "
+                                f"N {FWD_N}, m {FWD_M}", **rec)
+        print(f"mita_expert_attention d {RG_D} {dtype} (lead [1, 1, 16], "
+              f"N {FWD_N}): max_abs_err {max(errs):.3e} (tol {tol}), kernel "
+              f"{ms:.4f} ms, plain {pms:.4f} ms, bound {bms:.5f} ms ({by}); "
+              f"{record_text(rec)}; shuffled rows bit for bit; control "
+              f"(keys 64..127 of expert 1 dropped) {ctrl:.3e} fails the "
+              f"check, as it must")
+        del args, got
+        torch.cuda.empty_cache()
+    return res
 
 
 def phase_fullseq_kernels():
@@ -1958,6 +2065,514 @@ def phase_fullseq_production(card: str):
     return launches, tps
 
 
+# ------------------------------- phase 3 / 4 (recurrent, per-job) --------
+
+REC_PARITY_LAYERS = {"mamba2-370m": 8, "recurrentgemma-9b": 6}
+REC_CHUNK = 128
+
+
+def _near_tie_check(tokens, ref, gaps, what):
+    """Hold ``tokens`` [B, n] to ``ref`` [B, n]: a divergence is accepted
+    only where the reference's two best logits lie within PARITY_GAP
+    (``gaps`` [n, B]).  Returns (near-tie divergences, {row: message} of
+    the divergences that are not near-ties); every divergence is
+    printed."""
+    div, bad = 0, {}
+    for row in range(ref.shape[0]):
+        diff = np.nonzero(np.asarray(tokens[row]) != ref[row])[0]
+        if diff.size == 0:
+            continue
+        i = int(diff[0])
+        gap = float(gaps[i, row])
+        print(f"parity ({what}): request {row} diverges at token {i}, "
+              f"reference top-two gap {gap:.3e}")
+        if gap >= PARITY_GAP:
+            bad[row] = (f"{what}: request {row} diverges at token {i} where "
+                        f"the reference's top-two gap {gap} >= {PARITY_GAP}")
+        else:
+            div += 1
+    return div, bad
+
+
+def phase_recurrent_parity():
+    """float32 (TF32 off), full width, depth cut (mamba2-370m 8 of 48
+    layers, recurrentgemma-9b 2 of 13 super-blocks): 4 requests, prompt
+    256 + 32, through the monolithic, the batched-chunked (128) and the
+    per-job-chunked (128) engine, each request's greedy tokens held to the
+    backend's `static_reference` (a time-major loop of the decode step)
+    except at near-ties; a preemption round trip token-exact; spec_k = 3
+    in the self mode equal to spec_k = 0 at temperatures 0 and 0.8."""
+    import dataclasses
+    from repro_torch.configs.registry import arch_params, get_arch
+    from repro_torch.data import DataConfig, synthetic_batch
+    from repro_torch.serve import (EngineConfig, Request, ServingEngine,
+                                   backends)
+    n, gen, n_req = 256, 32, 4
+    pages = -(-(n + gen) // W)
+    for arch_id, layers in REC_PARITY_LAYERS.items():
+        arch = get_arch(arch_id)
+        arch = dataclasses.replace(arch, model=dataclasses.replace(
+            arch.model, compute_dtype=torch.float32, n_layers=layers))
+        cfg = arch.model
+        params = arch_params(arch, torch.Generator(device="cuda")
+                             .manual_seed(0), "cuda")
+        prompts = synthetic_batch(DataConfig(
+            vocab=cfg.vocab, seq_len=n, global_batch=n_req), 0)["tokens"]
+
+        def engine(**kw):
+            ecfg = EngineConfig(**{**dict(n_slots=n_req, pages_per_slot=pages,
+                                          n_pages=2 * n_req * pages), **kw})
+            return ServingEngine(params, cfg, ecfg, backend=backends.for_arch(
+                arch, params, ecfg, device="cuda"))
+
+        def run(eng, temperature=0.0):
+            done = eng.run([Request(rid=i, prompt=prompts[i],
+                                    max_new_tokens=gen,
+                                    temperature=temperature)
+                            for i in range(n_req)])
+            torch.cuda.synchronize()
+            if [f.reason for f in done] != ["complete"] * n_req:
+                fail(f"{arch_id}: reasons {[f.reason for f in done]}")
+            return [f.tokens for f in done]
+
+        t0 = time.perf_counter()
+        ref, gaps = engine().backend.static_reference(prompts, gen,
+                                                      record_gaps=True)
+        t_ref = time.perf_counter() - t0
+        for what, kw in (("monolithic", {}),
+                         ("chunked 128", dict(prefill_chunk=REC_CHUNK)),
+                         ("per-job 128", dict(prefill_chunk=REC_CHUNK,
+                                              prefill_mode="per-job"))):
+            t0 = time.perf_counter()
+            eng = engine(**kw)
+            toks = run(eng)
+            div, bad = _near_tie_check(toks, ref, gaps, f"{arch_id} {what}")
+            if bad:
+                fail("; ".join(bad.values()))
+            st = eng.stats()
+            print(f"recurrent parity ({arch_id}, float32, {layers} layers, "
+                  f"{what}): {n_req} requests x {gen} tokens in "
+                  f"{time.perf_counter() - t0:.2f} s, {div} near-tie "
+                  f"divergences, tokens otherwise equal to static_reference "
+                  f"({t_ref:.2f} s); chunks {st['chunks']} in "
+                  f"{st['prefill_dispatches']} dispatches")
+
+        # preemption: the victim evicted mid-decode by two high-priority
+        # arrivals and rebuilt by chunk prefill over prompt + emitted tokens
+        kw = dict(n_slots=2, n_pages=pages + 2, prefill_chunk=REC_CHUNK)
+        want = engine(**kw).run([Request(rid=0, prompt=prompts[0],
+                                         max_new_tokens=gen)])[0].tokens
+        eng = engine(**kw)
+        eng.submit(Request(rid=0, prompt=prompts[0], max_new_tokens=gen))
+        for _ in range(6):
+            eng.step()
+        for i in (1, 2):
+            eng.submit(Request(rid=i, prompt=prompts[i][:REC_CHUNK],
+                               max_new_tokens=gen, priority=5))
+        while eng.step():
+            pass
+        got = next(f for f in eng.finished if f.rid == 0)
+        if got.preemptions < 1:
+            fail(f"{arch_id} preemption run: no preemption happened")
+        if not np.array_equal(got.tokens, want):
+            fail(f"{arch_id} preemption run: the victim's tokens differ "
+                 "from its unpreempted run")
+        print(f"recurrent preemption run ({arch_id}, float32): preemptions "
+              f"{eng.stats()['preemptions']}, the victim's {gen} tokens "
+              f"equal its unpreempted run")
+
+        # speculation: self-drafting through the decode step
+        for temp in (0.0, 0.8):
+            base = run(engine(prefill_chunk=REC_CHUNK,
+                              sample_device="fused"), temp)
+            eng = engine(prefill_chunk=REC_CHUNK, sample_device="fused",
+                         spec_k=3, spec_mode="self")
+            spec = run(eng, temp)
+            st = eng.stats()
+            if any(not np.array_equal(a, b) for a, b in zip(base, spec)):
+                fail(f"{arch_id} spec_k=3 (self) at T {temp} differs from "
+                     "spec_k=0")
+            if st["spec_drafted"] <= 0 \
+                    or st["spec_accepted"] != st["spec_drafted"]:
+                fail(f"{arch_id} self drafts: {st}")
+            print(f"recurrent spec ({arch_id}, float32, T {temp}): spec_k=3 "
+                  f"self streams equal spec_k=0; drafted "
+                  f"{st['spec_drafted']} accepted {st['spec_accepted']}")
+        del params, eng
+        torch.cuda.empty_cache()
+
+
+def _prefill_top_k_near_tie(params, cfg, prompt, mode, pages):
+    """Where ``mode``'s chunked prefill of ``prompt`` (per-job:
+    `lm_prefill_chunk`; batched: `lm_prefill_chunks`, the chunk kernel;
+    chunks of 256 on an identity page table) first takes other landmark
+    top-K picks than `lm_prefill`'s decode cache.  Every layer before that
+    one must agree (landmark queries and values within PREFILL_LOGIT_TOL);
+    every differing pick of it must be a near-tie: the two candidates'
+    scores (float64, from `lm_prefill`'s keys and landmark query) apart
+    by no more than float32 rounding can make of them (`pick_gaps`' bound)
+    plus what the two sides' own key and query differences make of them.
+    After that layer the two computations legitimately part.  Returns
+    (layer, differing picks, largest gap over its bound), or None where
+    no pick differs; fails otherwise."""
+    from repro_torch.models import transformer as tfm
+    n = len(prompt)
+    m = n // W
+    i32 = dict(dtype=torch.int32, device="cuda")
+    with torch.inference_mode():
+        toks = torch.as_tensor(prompt, **i32)
+        _, ref = tfm.lm_prefill(params, toks[None], cfg, pages * W)
+        st = tfm.init_paged_states(cfg, 1, pages, pages, device="cuda")
+        pt = torch.arange(pages, **i32)
+        for t0 in range(0, n, 256):
+            nv = min(256, n - t0)
+            chunk = torch.zeros(256, **i32)
+            chunk[:nv] = toks[t0:t0 + nv]
+            if mode == "per-job":
+                tfm.lm_prefill_chunk(params, st, chunk, 0, pt, t0, nv, n,
+                                     cfg)
+            else:
+                one = (lambda x: torch.tensor([x], **i32))  # noqa: E731
+                tfm.lm_prefill_chunks(params, st, chunk[None],
+                                      torch.ones(1, dtype=torch.bool,
+                                                 device="cuda"),
+                                      pt[None], one(0), one(t0), one(nv),
+                                      one(n), cfg)
+    for layer in range(cfg.n_layers):
+        a = ref.expert_idx[layer, 0, :, :m].long()
+        b = st.expert_idx[layer, 0, :, :m].long()
+        q_a = ref.lm_q[layer, 0, :, :m].double()
+        q_b = st.lm_q[layer, 0, :, :m].double()
+        diff = (a != b).nonzero()
+        if diff.shape[0] == 0:
+            for name, x, y in (("lm_q", q_a, q_b),
+                               ("lm_v", ref.lm_v[layer, 0, :, :m],
+                                st.lm_v[layer, 0, :, :m])):
+                err = (x.double() - y.double()).abs().max().item()
+                if err > PREFILL_LOGIT_TOL:
+                    fail(f"{mode} prefill layer {layer}: {name} differs from "
+                         f"lm_prefill's by {err} with equal top-K picks")
+            continue
+        h, i, r = diff.T
+        k_ref = ref.k_cache[layer, 0].double()               # [Hkv, C, d]
+        ka, kb = k_ref[h, a[h, i, r]], k_ref[h, b[h, i, r]]
+        dka = (st.k_pool[layer][a[h, i, r], h].double() - ka).abs()
+        dkb = (st.k_pool[layer][b[h, i, r], h].double() - kb).abs()
+        q, dq = q_a[h, i], (q_b[h, i] - q_a[h, i]).abs()
+        d = q.shape[-1]
+        gap = ((ka - kb) * q).sum(-1).abs() / d ** 0.5
+        mag = torch.maximum((ka * q).abs().sum(-1), (kb * q).abs().sum(-1))
+        bound = (2 * (d + 1) * 2.0 ** -24 * mag
+                 + ((dka + dkb) * q.abs()).sum(-1)
+                 + ((ka.abs() + kb.abs()) * dq).sum(-1)) / d ** 0.5
+        worst = (gap / bound).max().item()
+        if worst > 1.0:
+            fail(f"{mode} prefill layer {layer}: {diff.shape[0]} top-K picks "
+                 f"differ from lm_prefill's, the widest score gap "
+                 f"{gap.max().item():.3e} is {worst:.2f}x its rounding bound")
+        return layer, diff.shape[0], worst
+    return None
+
+
+def phase_per_job_parity():
+    """float32, qwen3-0.6b at PARITY_LAYERS layers, full width: the
+    per-job chunked engine (chunk 256: `mita_chunk_prefill`, plain
+    PyTorch as the reference's op is plain XLA) and the batched one
+    against `static_generate` and against each other.  The first token's
+    logits (the prefill's output) of each request must lie within
+    PREFILL_LOGIT_TOL of `lm_prefill`'s, unless the prefill's landmark
+    top-K takes a near-tie the other way (`_prefill_top_k_near_tie`); a
+    token divergence is accepted at a token near-tie (PARITY_GAP) or in a
+    request whose prefill took such a top-K near-tie, and nowhere else.
+    Decode launches counted, chunk-kernel launches 0 in per-job mode."""
+    import dataclasses
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.data import DataConfig, synthetic_batch
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import static_generate
+    from repro_torch.models import transformer as tfm
+    from repro_torch.serve import EngineConfig, Request, ServingEngine
+
+    cfg = dataclasses.replace(get_arch("qwen3-0.6b").model,
+                              compute_dtype=torch.float32,
+                              n_layers=PARITY_LAYERS)
+    batch, n, gen, n_req = 4, 512, 64, 4
+    params = tfm.lm_init(torch.Generator(device="cuda").manual_seed(0), cfg,
+                         "cuda")
+    prompts = list(synthetic_batch(DataConfig(
+        vocab=cfg.vocab, seq_len=n, global_batch=n_req), 3)["tokens"])
+    pages = -(-(n + gen) // W)
+    out, first = {}, {}
+    for mode in ("batched", "per-job"):
+        eng = ServingEngine(params, cfg, EngineConfig(
+            n_slots=batch, pages_per_slot=pages, n_pages=2 * batch * pages,
+            prefill_chunk=256, prefill_mode=mode), device="cuda")
+        sample = eng._sample
+        first[mode] = {}
+
+        def keep_first(logits, req, index, sample=sample, mode=mode):
+            if index == 0:
+                first[mode][req.rid] = torch.as_tensor(logits).float()
+            return sample(logits, req, index)
+
+        eng._sample = keep_first
+        ops.reset_launch_counts()
+        done = eng.run([Request(rid=i, prompt=p, max_new_tokens=gen)
+                        for i, p in enumerate(prompts)])
+        torch.cuda.synchronize()
+        launches = ops.launch_counts()
+        out[mode] = np.stack([f.tokens for f in done])
+        st = eng.stats()
+        print(f"{mode} serve (float32, {cfg.n_layers} layers): chunks "
+              f"{st['chunks']} in {st['prefill_dispatches']} dispatches, "
+              f"launches {launches}")
+    if launches["mita_chunk_prefill_fused"] != 0 \
+            or launches["mita_paged_attention"] <= 0:
+        fail(f"per-job serve launches {launches}")
+    scfg = eng.backend.cfg
+    with torch.inference_mode():
+        toks = torch.as_tensor(np.stack(prompts), device="cuda")
+        ref, tm = static_generate(params, scfg, toks, gen,
+                                  capacity=pages * W, record_gaps=True)
+        pre, _ = tfm.lm_prefill(params, toks, scfg, pages * W)
+        pre = pre.float().cpu()
+    near_tie = {}
+    for mode in first:
+        for i in range(n_req):
+            err = (first[mode][i] - pre[i]).abs().max().item()
+            if err <= PREFILL_LOGIT_TOL:
+                continue
+            res = _prefill_top_k_near_tie(params, scfg, prompts[i], mode,
+                                          pages)
+            if res is None:
+                fail(f"{mode} request {i}: first-token logits differ from "
+                     f"lm_prefill's by {err} with every top-K pick equal")
+            near_tie[mode, i] = res
+            print(f"{mode} request {i}: first-token logits {err:.3e} from "
+                  f"lm_prefill's: the prefill's landmark top-K first parts "
+                  f"at layer {res[0]} on {res[1]} picks, each a near-tie "
+                  f"(widest gap {res[2]:.3f} of its float32 rounding bound)")
+    errs = {mode: max(((first[mode][i] - pre[i]).abs().max().item()
+                       for i in range(n_req) if (mode, i) not in near_tie),
+                      default=0.0) for mode in first}
+    print(f"first-token logits vs lm_prefill (float32, requests without a "
+          f"top-K near-tie): {errs} (tol {PREFILL_LOGIT_TOL})")
+    div, bad = {}, []
+    for what, a, b in (("batched vs static_generate", "batched", None),
+                       ("per-job vs static_generate", "per-job", None),
+                       ("per-job vs batched", "per-job", "batched")):
+        div[what], rows = _near_tie_check(
+            out[a], ref if b is None else out[b], tm["top2_gap"], what)
+        for row, msg in rows.items():
+            if (a, row) in near_tie or (b, row) in near_tie:
+                div[what] += 1
+            else:
+                bad.append(msg)
+    print(f"per-job parity (float32, qwen3-0.6b, {cfg.n_layers} layers, "
+          f"prompt {n} + {gen}): divergences at near-ties (token or "
+          f"top-K) {div}; top-K near-ties {near_tie}")
+    if bad:
+        fail("; ".join(bad))
+    del params, eng
+    torch.cuda.empty_cache()
+
+
+def _hybrid_cfg(dtype, n_layers=None, **attn):
+    import dataclasses
+    from repro_torch.configs.registry import get_arch
+    arch = get_arch("recurrentgemma-9b")
+    cfg = dataclasses.replace(arch.model, compute_dtype=dtype,
+                              n_layers=n_layers or arch.model.n_layers)
+    cfg = dataclasses.replace(cfg, attn=dataclasses.replace(cfg.attn,
+                                                            **attn))
+    return dataclasses.replace(arch, model=cfg)
+
+
+def phase_hybrid_forward_parity():
+    """float32, recurrentgemma-9b at full width, 2 super-blocks, N = 4096:
+    every attention layer's routed branch on one routing, the expert
+    kernel (d = 256) against the span path over all m experts, within
+    LAYER_TOL; `rg_forward` with impl="pallas" and "sorted" (span = m):
+    finite logits and rg_loss within LOSS_TOL; expert launches = attention
+    layers x forwards."""
+    import dataclasses
+    from repro_torch.configs.registry import arch_params
+    from repro_torch.core import mita as mref
+    from repro_torch.core import mita_sparse as msp
+    from repro_torch.data import DataConfig, synthetic_batch
+    from repro_torch.kernels import ops
+    from repro_torch.models import modules as nn
+    from repro_torch.models import rglru as rg
+    from repro_torch.models import transformer as tfm
+
+    arch_p = _hybrid_cfg(torch.float32, 6, impl="pallas")
+    arch_s = _hybrid_cfg(torch.float32, 6, impl="sorted",
+                         expert_span=FWD_M)
+    cfg = arch_s.model
+    params = arch_params(arch_s, torch.Generator(device="cuda")
+                         .manual_seed(0), "cuda")
+    batch = synthetic_batch(DataConfig(vocab=cfg.vocab, seq_len=FWD_N,
+                                       global_batch=1), 0)
+    toks = torch.as_tensor(batch["tokens"], device="cuda")
+    n_super = rg.n_super(cfg)
+    with torch.inference_mode():
+        x = nn.embed(params["emb"], toks, cfg)
+        pos = torch.arange(FWD_N, device="cuda")
+        mcfg = cfg.attn.mita_cfg(FWD_N)
+        layer_err = 0.0
+        for i in range(n_super):
+            sp = tfm.layer_params(params["supers"], i)
+            x = rg.rglru_block_apply(sp["rec1"], x, cfg)
+            x = rg._ffn1(sp, x, cfg)
+            x = rg.rglru_block_apply(sp["rec2"], x, cfg)
+            lp = sp["attn_blk"]
+            q, k, v = nn._qkv(lp["attn"], nn.rms_norm(x, lp["ln1"]), cfg,
+                              pos)
+            q_lm = mref.extract_landmarks(q.mean(dim=2, keepdim=True), mcfg)
+            s_kv = mref.landmark_scores(k, q_lm, mcfg)
+            r = mref.routing_logits(q, q_lm, mcfg)
+            k_e, v_e, valid = mref.gather_topk(k, v, s_kv, mcfg)
+            p_k, p_s = (msp._routed_sorted(q, k_e, v_e, valid, r, mcfg,
+                                           cfg.attn.block_q, span)
+                        for span in (0, FWD_M))
+            act = p_s.l > 0
+            if not torch.equal(act, p_k.l > 0):
+                fail(f"hybrid layer {i}: routed branch active rows differ")
+            for name, a, b in (
+                    ("o / l", p_k.o / p_k.l.clamp(min=1e-30)[..., None],
+                     p_s.o / p_s.l.clamp(min=1e-30)[..., None]),
+                    ("m", p_k.m, p_s.m)):
+                a, b = a[act], b[act]
+                err = (a - b).abs().max().item()
+                layer_err = max(layer_err, err)
+                if not torch.allclose(a, b, atol=LAYER_TOL, rtol=LAYER_TOL):
+                    fail(f"hybrid attention layer {i}: routed {name}, expert "
+                         f"kernel vs span path, max_abs_err {err}")
+            x = tfm.block_apply(lp, x, cfg, pos)
+        del x, q, k, v, k_e, v_e, p_k, p_s
+        ops.reset_launch_counts()
+        logits, _ = rg.rg_forward(params, toks, arch_p.model)
+        forwards = 1
+        if logits.shape != (1, FWD_N, cfg.vocab) \
+                or not torch.isfinite(logits).all():
+            fail(f"hybrid pallas logits malformed {tuple(logits.shape)}")
+        del logits
+        loss = {"pallas": rg.rg_loss(params, batch, arch_p.model).item()}
+        forwards += 1
+        launches = ops.launch_counts()
+        loss["sorted"] = rg.rg_loss(params, batch, cfg).item()
+    if launches["mita_expert_attention"] != n_super * forwards:
+        fail(f"hybrid expert launches {launches['mita_expert_attention']} "
+             f"!= {n_super} attention layers x {forwards} forwards")
+    if abs(loss["pallas"] - loss["sorted"]) > LOSS_TOL \
+            or not np.isfinite(loss["pallas"]):
+        fail(f"hybrid rg_loss {loss}")
+    print(f"hybrid forward (float32, recurrentgemma-9b, {n_super} "
+          f"super-blocks, d {RG_D}, N {FWD_N}): per-layer routed partials, "
+          f"expert kernel vs span {FWD_M}: max_abs_err {layer_err:.3e} (tol "
+          f"{LAYER_TOL}); rg_loss pallas {loss['pallas']:.7f} sorted "
+          f"{loss['sorted']:.7f} (tol {LOSS_TOL}); expert launches "
+          f"{launches['mita_expert_attention']} = {n_super} x {forwards}")
+    del params
+    torch.cuda.empty_cache()
+    return layer_err
+
+
+REC_SERVE = ["--engine", "continuous", "--batch", "4", "--prompt-len", "256",
+             "--gen", "64", "--requests", "8", "--device", "cuda",
+             "--prefill-chunk", str(REC_CHUNK)]
+
+
+def phase_recurrent_production(card: str):
+    """bf16 serves through `repro_torch.launch.serve.main`: mamba2-370m and
+    recurrentgemma-9b at full width and depth, 8 requests, prompt 256 + 64,
+    4 slots, chunked 128; tok/s, TTFT, peak memory; the launch counters
+    set to 0 just before each and read just after (the recurrent serving
+    path reaches no Pallas kernel in the reference, so none here).  Then
+    the hybrid's bf16 full-sequence forward at N = 4096 with
+    impl="pallas": expert launches = 13 attention layers x forwards."""
+    from repro_torch.configs.registry import arch_params
+    from repro_torch.data import DataConfig, synthetic_batch
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import main as serve_main
+    from repro_torch.models import rglru as rg
+    res = {}
+    for arch_id in ("mamba2-370m", "recurrentgemma-9b"):
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        summary = serve_main(["--arch", arch_id, *REC_SERVE])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = ops.launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        if summary["finished"] != 8 or set(summary["reasons"]) != \
+                {"complete"}:
+            fail(f"{arch_id} serve finished {summary['reasons']}")
+        for rid, tk in summary["tokens"].items():
+            if len(tk) != 64 or tk.min() < 0:
+                fail(f"{arch_id} serve request {rid} tokens malformed")
+        res[arch_id] = dict(tok_s=summary["tok_s"],
+                            ttft_p50_ms=summary["ttft_p50_s"] * 1e3,
+                            ttft_p99_ms=summary["ttft_p99_s"] * 1e3,
+                            steps=summary["steps"],
+                            prefill_dispatches=summary["stats"][
+                                "prefill_dispatches"],
+                            max_memory_allocated_gib=peak / 2**30,
+                            launches=launches)
+        print(f"{arch_id} bf16 serve ({card}): {summary['tok_s']:.1f} tok/s, "
+              f"TTFT p50 {summary['ttft_p50_s'] * 1e3:.1f} ms p99 "
+              f"{summary['ttft_p99_s'] * 1e3:.1f} ms, {summary['steps']} "
+              f"steps, {summary['stats']['prefill_dispatches']} prefill "
+              f"dispatches, max_memory_allocated {peak / 2**30:.2f} GiB, "
+              f"{wall:.1f} s with set-up; launches {launches}")
+    arch = _hybrid_cfg(torch.bfloat16, impl="pallas")
+    params = arch_params(arch, torch.Generator(device="cuda").manual_seed(0),
+                         "cuda")
+    toks = torch.as_tensor(synthetic_batch(DataConfig(
+        vocab=arch.model.vocab, seq_len=FWD_N, global_batch=1), 0)["tokens"],
+        device="cuda")
+    n_super = rg.n_super(arch.model)
+    ops.reset_launch_counts()
+    times = []
+    with torch.inference_mode():
+        for i in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, _ = rg.rg_forward(params, toks, arch.model)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            if not torch.isfinite(logits).all():
+                fail("bf16 rg_forward: non-finite logits")
+            del logits
+    launches = ops.launch_counts()
+    if launches["mita_expert_attention"] != n_super * 3:
+        fail(f"bf16 hybrid forward: expert launches "
+             f"{launches['mita_expert_attention']} != {n_super} x 3")
+    res["hybrid_forward"] = dict(
+        tok_s=FWD_N / (sum(times[1:]) / 2), seconds=times,
+        launches=launches)
+    print(f"recurrentgemma-9b bf16 rg_forward ({card}), impl=pallas, B = 1, "
+          f"N = {FWD_N}, {n_super} super-blocks: "
+          f"{res['hybrid_forward']['tok_s']:.1f} tok/s (mean of the 2 "
+          f"after a warm-up; seconds {times}); expert launches "
+          f"{launches['mita_expert_attention']} = {n_super} x 3")
+    del params
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_per_job_production(card: str):
+    """The bf16 qwen3-0.6b serve in per-job chunked mode (chunk 256),
+    decode launches = 28 x steps, finalize > 0, chunk kernel 0."""
+    summary, launches = production_serve(
+        card, ["--prefill-chunk", "256", "--prefill-mode", "per-job"],
+        "production per-job")
+    if launches["mita_chunk_prefill_fused"] != 0:
+        fail(f"the per-job serve launched the chunk kernel: {launches}")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda is not available; nothing to check",
@@ -1983,15 +2598,23 @@ def main() -> int:
     kern = timed("kernels", phase_kernels)
     kern["chunk"] = timed("chunk_kernel", phase_chunk_kernel)
     kern.update(timed("fullseq_kernels", phase_fullseq_kernels))
+    wide = timed("expert_d256", phase_expert_wide)
     sampler = timed("sampler", phase_sampler)
     timed("parity", phase_parity)
     timed("fullseq_parity", phase_fullseq_parity)
     timed("spec_parity", phase_spec_parity)
+    timed("recurrent_parity", phase_recurrent_parity)
+    timed("per_job_parity", phase_per_job_parity)
+    hybrid_layer_err = timed("hybrid_forward_parity",
+                             phase_hybrid_forward_parity)
     chunked_launches = timed("production", phase_production, card)
     fs_launches, _ = timed("fullseq_production", phase_fullseq_production,
                            card)
     spec_summary, launches, spec_tps = timed(
         "spec_production", phase_spec_production, card)
+    per_job_launches = timed("per_job_production", phase_per_job_production,
+                             card)
+    rec = timed("recurrent_production", phase_recurrent_production, card)
     launches = dict(launches)
     launches["mita_expert_attention"] = fs_launches["mita_expert_attention"]
     launches["flash_attention"] = fs_launches["flash_attention"]
@@ -2047,6 +2670,17 @@ def main() -> int:
         if key in ("chunk", "expert"):
             for k in ("path", "control_max_abs_err"):
                 row[k], row["f32"][k] = r[k], r32[k]
+        if key in ("attn", "fin"):
+            row["launches_per_job_serve"] = per_job_launches[name]
+        if key == "expert":
+            # recurrentgemma-9b's head dim: the wide CUDA-core instance
+            keep = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                    "tol", "control_max_abs_err", "path", "shape") + traced
+            row["d256"] = {k: wide[bf][k] for k in keep}
+            row["d256"]["f32"] = {k: wide[torch.float32][k] for k in keep}
+            row["d256"]["launches_hybrid_forward_bf16"] = rec[
+                "hybrid_forward"]["launches"][name]
+            row["d256"]["hybrid_layer_max_abs_err_f32"] = hybrid_layer_err
         if key == "flash":
             row["shape"] = f"[1, 16, {FWD_N}, {D}] causal"
             row["full"] = r["full"]
@@ -2062,7 +2696,8 @@ def main() -> int:
                                 "gumbel_err_bf16")}, "spec_serve": {
         "tok_s_spec_k3": spec_tps[3], "tok_s_spec_k0": spec_tps[0],
         **{k: st[k] for k in ("spec_drafted", "spec_accepted",
-                              "spec_rollbacks")}}}))
+                              "spec_rollbacks")}},
+        "recurrent_serves": rec}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,9 +1,10 @@
 """Architecture registry (port of ``repro.configs.registry``).
 
-Only the configurations this slice serves are ported; each lives in its
-own module (``repro_torch.configs.<id>``, dashes -> underscores) exporting
-``ARCH``.  ``smoke_variant`` is the reduced same-family config the CPU
-tests use.
+Only the configurations the port serves are ported (qwen3-0.6b, dense;
+mamba2-370m, ssm; recurrentgemma-9b, hybrid); each lives in its own module
+(``repro_torch.configs.<id>``, dashes -> underscores) exporting ``ARCH``.
+`arch_params` builds any of them, ``smoke_variant`` is the reduced
+same-family config the CPU tests use.
 """
 
 from __future__ import annotations
@@ -19,7 +20,7 @@ from repro_torch.models.modules import ModelConfig
 @dataclasses.dataclass(frozen=True)
 class ArchConfig:
     arch_id: str
-    family: str                     # dense (the only family served here)
+    family: str                     # dense | ssm | hybrid
     model: ModelConfig
     notes: str = ""
 
@@ -35,6 +36,22 @@ def get_arch(arch_id: str, *, smoke: bool = False) -> ArchConfig:
     return smoke_variant(arch) if smoke else arch
 
 
+def arch_params(arch: ArchConfig, gen: torch.Generator, device="cuda"):
+    """Random parameters of ``arch``, drawn from ``gen``: the one place a
+    family resolves to its init function."""
+    if arch.family == "dense":
+        from repro_torch.models import transformer as tfm
+        return tfm.lm_init(gen, arch.model, device)
+    if arch.family == "ssm":
+        from repro_torch.models.mamba2 import mamba_init
+        return mamba_init(gen, arch.model, device)
+    if arch.family == "hybrid":
+        from repro_torch.models.rglru import rg_init
+        return rg_init(gen, arch.model, device)
+    raise ValueError(f"family {arch.family!r} has no ported parameter "
+                     "constructor (ROADMAP A.12)")
+
+
 def production_dtypes(cfg: ModelConfig) -> ModelConfig:
     return dataclasses.replace(cfg, param_dtype=torch.float32,
                                compute_dtype=torch.bfloat16)
@@ -45,7 +62,7 @@ def smoke_variant(arch: ArchConfig) -> ArchConfig:
     m = arch.model
     sm = dataclasses.replace(
         m,
-        n_layers=min(m.n_layers, 2),
+        n_layers=min(m.n_layers, 6 if arch.family == "hybrid" else 2),
         d_model=128,
         n_heads=4,
         n_kv=max(1, min(m.n_kv, 2 if m.n_kv < m.n_heads else 4)),

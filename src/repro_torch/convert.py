@@ -4,7 +4,10 @@ The input is what ``jax.device_get`` returns: nested dicts / NamedTuples
 of numpy arrays.  This module imports numpy and torch only.  Layouts and
 dtypes are kept leaf for leaf (stacked layer axis 0, [S, Hkv, G, d],
 pools [R + 1, Hkv, d]); bfloat16 arrays (``ml_dtypes``) are reinterpreted
-bit for bit.
+bit for bit.  Parameter trees of every ported family (the LM's
+``blocks``, mamba2's ``blocks``, the hybrid's stacked ``supers``) go
+through `params_from_jax`; the recurrent families' slot states through
+`mamba_state_from_jax` and `rg_state_from_jax`.
 """
 
 from __future__ import annotations
@@ -14,7 +17,10 @@ from typing import Any
 import numpy as np
 import torch
 
-from repro_torch.core.mita_decode import MiTADecodeState, PagedMiTAState
+from repro_torch.core.mita_decode import (FullDecodeState, MiTADecodeState,
+                                         PagedMiTAState)
+from repro_torch.models.mamba2 import MambaState
+from repro_torch.models.rglru import RGLRUState, RGSuperState
 
 
 def array_to_torch(a, device="cpu") -> torch.Tensor:
@@ -53,6 +59,25 @@ def paged_state_from_jax(st, device="cpu") -> PagedMiTAState:
 def decode_state_from_jax(st, device="cpu") -> MiTADecodeState:
     """A (possibly layer-stacked) JAX ``MiTADecodeState``."""
     return _state(MiTADecodeState, st, device)
+
+
+def full_state_from_jax(st, device="cpu") -> FullDecodeState:
+    return _state(FullDecodeState, st, device)
+
+
+def mamba_state_from_jax(st, device="cpu") -> MambaState:
+    """A (layer-stacked) JAX ``MambaState``."""
+    return _state(MambaState, st, device)
+
+
+def rg_state_from_jax(st, device="cpu") -> RGSuperState:
+    """A (super-block-stacked) JAX ``RGSuperState``: two RG-LRU states and
+    the attention layer's MiTA or full-attention cache (slot form)."""
+    attn = (MiTADecodeState if hasattr(st.attn, "lm_q")
+            else FullDecodeState)
+    return RGSuperState(rec1=_state(RGLRUState, st.rec1, device),
+                        rec2=_state(RGLRUState, st.rec2, device),
+                        attn=_state(attn, st.attn, device))
 
 
 def to_numpy(tree: Any) -> Any:

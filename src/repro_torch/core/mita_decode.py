@@ -7,11 +7,18 @@ completed window is finalised into a landmark query, a landmark value and
 a top-k expert row set.  Each token then attends the shared landmarks, its
 top-s routed experts and its own window.
 
-Two cache forms, as in the reference:
+Cache forms, as in the reference:
   * `MiTADecodeState` — one monolithic cache per request batch (the static
-    path, `launch.serve.static_generate`, and the engine's oracle);
+    path, `launch.serve.static_generate`, and the engine's oracle); its
+    slot form (leaves [S, 1, ...], a ``t`` per slot) is the hybrid
+    model's per-slot attention cache, advanced by `mita_decode_step_slots`
+    (the reference vmaps the B = 1 step over slots);
+  * `FullDecodeState` — the full-attention baseline's cache, with its slot
+    form (`full_decode_step_slots`);
   * `PagedMiTAState` — one pool per layer shared by all request slots,
-    addressed through per-slot page tables (the serving engine).
+    addressed through per-slot page tables (the serving engine), prefilled
+    a chunk of one slot at a time (`mita_chunk_prefill`, per-job mode) or
+    a chunk of every prefilling slot at once (`mita_batched_chunk_prefill`).
 
 Where the reference returns new arrays (with donation), these functions
 update the state tensors IN PLACE and return the state (with ``t``
@@ -113,6 +120,159 @@ def mita_prefill_state(q, k, v, cfg: DecodeConfig,
     return st._replace(t=torch.tensor(n, dtype=torch.int32, device=q.device))
 
 
+# ------------------------------------------------- full-attention baseline --
+
+class FullDecodeState(NamedTuple):
+    """Decode cache of the full-attention baseline: k_cache, v_cache
+    [B, Hkv, C, d]; t [] int32 (the slot form: leaves [S, 1, ...], t [S])."""
+
+    k_cache: torch.Tensor
+    v_cache: torch.Tensor
+    t: torch.Tensor
+
+
+def init_full_state(batch, n_kv, head_dim, capacity, dtype=torch.bfloat16,
+                    device=None) -> FullDecodeState:
+    def z():
+        return torch.zeros((batch, n_kv, capacity, head_dim), dtype=dtype,
+                           device=device)
+
+    return FullDecodeState(k_cache=z(), v_cache=z(),
+                           t=torch.zeros((), dtype=torch.int32,
+                                         device=device))
+
+
+def full_prefill_state(k, v, capacity: int) -> FullDecodeState:
+    """k, v: [B, Hkv, 1, N, d]."""
+    b, hkv, _, n, d = k.shape
+    st = init_full_state(b, hkv, d, capacity, dtype=k.dtype,
+                         device=k.device)
+    st.k_cache[:, :, :n] = k[:, :, 0]
+    st.v_cache[:, :, :n] = v[:, :, 0]
+    return st._replace(t=torch.tensor(n, dtype=torch.int32, device=k.device))
+
+
+def full_decode_step(state: FullDecodeState, q, k_new, v_new):
+    """O(t) per token, the quadratic baseline MiTA replaces.  q:
+    [B, Hkv, G, d]; k_new, v_new: [B, Hkv, d].  Returns (out, state with
+    t + 1); the caches update in place.  Past the capacity the write lands
+    on the last row, as the reference's clamped update does."""
+    d = q.shape[-1]
+    cap = state.k_cache.shape[-2]
+    t = int(state.t)
+    state.k_cache[:, :, min(t, cap - 1)] = k_new.to(state.k_cache.dtype)
+    state.v_cache[:, :, min(t, cap - 1)] = v_new.to(state.v_cache.dtype)
+    logits = torch.einsum("bhgd,bhnd->bhgn", q, state.k_cache) / math.sqrt(d)
+    mask = torch.arange(cap, device=q.device)[None, None, None, :] <= t
+    out = combine([partial_from_scores(logits, state.v_cache, mask=mask)])
+    return out, state._replace(t=state.t + 1)
+
+
+# -------------------------------------------------------------- slot forms --
+#
+# The hybrid model's attention layers keep one B == 1 monolithic cache per
+# request slot, each at its own position: leaves [S, 1, Hkv, ...] and ``t``
+# [S].  The reference vmaps the B == 1 step over the slot axis and masks
+# the new state with `core.slotted.where_slots`; here one batched step
+# writes in place, and ``commit`` [S] bool names the slots whose state it
+# may change (the others stay bit-identical, as the masked vmap leaves
+# them).  The outputs of slots outside ``commit`` are computed but mean
+# nothing.  Every slot gets the bits of the B == 1 call on its own cache
+# (`tests/test_torch_recurrent.py`).
+
+
+def _slot_append(cache: torch.Tensor, t: torch.Tensor, new: torch.Tensor,
+                 commit: torch.Tensor) -> None:
+    """cache [S, Hkv, C, d]: row ``t[s]`` of slot s becomes new[s] where
+    ``commit[s]``; other slots keep their row (a write of the same bits).
+    Past the capacity the write lands on the last row (the reference's
+    clamped update)."""
+    ar = torch.arange(cache.shape[0], device=cache.device)
+    tw = t.long().clamp(max=cache.shape[-2] - 1)
+    old = cache[ar, :, tw]
+    cache[ar, :, tw] = torch.where(commit[:, None, None],
+                                   new.to(cache.dtype), old)
+
+
+def full_decode_step_slots(state: FullDecodeState, q, k_new, v_new,
+                           commit=None):
+    """`full_decode_step` for every slot at its own ``t``.  state leaves
+    [S, 1, ...], t [S]; q [S, Hkv, G, d]; k_new, v_new [S, Hkv, d];
+    commit [S] bool (None: every slot).  Returns (out [S, Hkv, G, d],
+    state); in place."""
+    s_n, _, _, d = q.shape
+    kc, vc = state.k_cache[:, 0], state.v_cache[:, 0]
+    cap = kc.shape[-2]
+    if commit is None:
+        commit = torch.ones(s_n, dtype=torch.bool, device=q.device)
+    t = state.t
+    _slot_append(kc, t, k_new, commit)
+    _slot_append(vc, t, v_new, commit)
+    logits = torch.einsum("bhgd,bhnd->bhgn", q, kc) / math.sqrt(d)
+    mask = torch.arange(cap, device=q.device)[None, None, None, :] \
+        <= t.long()[:, None, None, None]
+    out = combine([partial_from_scores(logits, vc, mask=mask)])
+    state.t.copy_(torch.where(commit, t + 1, t))
+    return out, state
+
+
+def mita_decode_step_slots(state: MiTADecodeState, q, k_new, v_new,
+                           cfg: DecodeConfig, commit=None,
+                           due_hint: bool | None = None):
+    """`mita_decode_step` for every slot at its own position.
+
+    state: a slot-form `MiTADecodeState` (leaves [S, 1, Hkv, ...], t [S]);
+    q [S, Hkv, G, d]; k_new, v_new [S, Hkv, d]; commit [S] bool (None:
+    every slot).  Appends go by scatter at each slot's ``t``; the inline
+    finalize runs under the per-slot mask ``commit & ((t + 1) % w == 0)``
+    (every slot's finalize computed, committed where due, as the vmapped
+    ``lax.cond`` of the reference).  ``due_hint`` False, from a caller
+    that knows the positions on the host, skips the finalize when no slot
+    closes a window.  Returns (out [S, Hkv, G, d], state); in place."""
+    s_n, d = q.shape[0], q.shape[-1]
+    w = cfg.window
+    kc, vc = state.k_cache[:, 0], state.v_cache[:, 0]
+    lm_q, lm_v = state.lm_q[:, 0], state.lm_v[:, 0]
+    e_idx_c, e_val_c = state.expert_idx[:, 0], state.expert_valid[:, 0]
+    qs = state.q_sum[:, 0]
+    cap = kc.shape[-2]
+    m_max = lm_q.shape[-2]
+    dev = q.device
+    if commit is None:
+        commit = torch.ones(s_n, dtype=torch.bool, device=dev)
+    t = state.t.long()
+
+    _slot_append(kc, t, k_new, commit)
+    _slot_append(vc, t, v_new, commit)
+    qs.copy_(torch.where(commit[:, None, None],
+                         qs + q.mean(dim=2).float(), qs))
+    t_new = t + 1
+    if not cfg.external_finalize and due_hint is not False:
+        due = commit & (t_new % w == 0)
+        i = (t_new // w - 1).clamp(0, m_max - 1)
+        q_lm = (qs / w).to(kc.dtype)                        # [S, Hkv, d]
+        scores = torch.einsum("bhnd,bhd->bhn", kc, q_lm) / math.sqrt(d)
+        visible = torch.arange(cap, device=dev)[None, None, :] \
+            < t_new[:, None, None]
+        scores = torch.where(visible, scores.float(), NEG_INF)
+        top_vals, top_idx = mref.topk_first(scores, cfg.k)
+        p = torch.softmax(scores, dim=-1)
+        v_new_lm = torch.einsum("bhn,bhnd->bhd", p.to(vc.dtype), vc)
+        sel = (due[:, None] & (torch.arange(m_max, device=dev)[None, :]
+                               == i[:, None]))[:, None, :, None]
+        lm_q.copy_(torch.where(sel, q_lm[:, :, None, :], lm_q))
+        lm_v.copy_(torch.where(sel, v_new_lm.to(lm_v.dtype)[:, :, None, :],
+                               lm_v))
+        e_idx_c.copy_(torch.where(sel, top_idx.to(torch.int32)[:, :, None],
+                                  e_idx_c))
+        e_val_c.copy_(torch.where(sel, (top_vals > NEG_INF / 2)[:, :, None],
+                                  e_val_c))
+        qs.copy_(torch.where(due[:, None, None], 0.0, qs))
+    out = _attend(q, kc, vc, lm_q, lm_v, e_idx_c, e_val_c, t, cfg)
+    state.t.copy_(torch.where(commit, t_new, t).to(state.t.dtype))
+    return out, state
+
+
 def mita_finalize_if_due(state: MiTADecodeState,
                          cfg: DecodeConfig) -> MiTADecodeState:
     """External-finalize step: no-op off a window boundary."""
@@ -143,12 +303,64 @@ def _finalize_window(state: MiTADecodeState, cfg: DecodeConfig,
     state.q_sum.zero_()
 
 
+def _attend(q, kc, vc, lm_q, lm_v, expert_idx, expert_valid, t,
+            cfg: DecodeConfig):
+    """The three branches of a decode step over B monolithic caches, after
+    the append (and the inline finalize): the first ``m_cnt`` landmarks
+    (shared), the top-s routed experts' rows, and each query's own window
+    [(t//w)*w, t].  q [B, Hkv, G, d]; kc, vc [B, Hkv, C, d]; t [B] the
+    position of each row's new token.  Returns [B, Hkv, G, d]."""
+    b, hkv, g, d = q.shape
+    w = cfg.window
+    cap, m_max = kc.shape[-2], lm_q.shape[-2]
+    dev = q.device
+    t = t.long()
+    t_new = t + 1
+    m_cnt = t // w if cfg.external_finalize else t_new // w
+    lm_mask = torch.arange(m_max, device=dev)[None, None, None, :] \
+        < m_cnt[:, None, None, None]
+
+    r = torch.einsum("bhgd,bhmd->bhgm", q, lm_q) / math.sqrt(d)
+    r = torch.where(lm_mask, r.float(), NEG_INF)
+    parts: list[Partial] = [partial_from_scores(r, lm_v)]
+
+    s_ = min(cfg.s, m_max)
+    top_r, e_sel = mref.topk_first(r, s_)                # [B, Hkv, G, s]
+    e_ok = top_r > NEG_INF / 2
+    flat_e = e_sel.reshape(b, hkv, g * s_)
+    sel = flat_e[..., None].expand(flat_e.shape + (cfg.k,))
+    rows = torch.gather(expert_idx, 2, sel).long()
+    rows_valid = torch.gather(expert_valid, 2, sel)
+    rows = rows.reshape(b, hkv, g * s_ * cfg.k)
+    idx = rows[..., None].expand(rows.shape + (d,))
+    k_sel = torch.gather(kc, 2, idx).reshape(b, hkv, g, s_ * cfg.k, d)
+    v_sel = torch.gather(vc, 2, idx).reshape(b, hkv, g, s_ * cfg.k, d)
+    logits = torch.einsum("bhgd,bhgkd->bhgk", q, k_sel) / math.sqrt(d)
+    mask = (rows_valid.reshape(b, hkv, g, s_, cfg.k)
+            & e_ok[..., None]).reshape(b, hkv, g, s_ * cfg.k)
+    parts.append(partial_from_logits(logits, v_sel, mask=mask))
+
+    # local: the query's own window; rows past the capacity (a slot whose
+    # step is not committed) read the last row, and their output is unused
+    start = (t // w) * w
+    loc = (start[:, None] + torch.arange(w, device=dev)[None, :]) \
+        .clamp(max=cap - 1)                              # [B, w]
+    lidx = loc[:, None, :, None].expand(b, hkv, w, d)
+    k_loc = torch.gather(kc, 2, lidx)
+    v_loc = torch.gather(vc, 2, lidx)
+    loc_logits = torch.einsum("bhgd,bhwd->bhgw", q, k_loc) / math.sqrt(d)
+    loc_mask = (torch.arange(w, device=dev)[None, :] + start[:, None]) \
+        < t_new[:, None]
+    parts.append(partial_from_scores(loc_logits, v_loc,
+                                     mask=loc_mask[:, None, None, :]))
+    return combine(parts)
+
+
 def mita_decode_step(state: MiTADecodeState, q, k_new, v_new,
                      cfg: DecodeConfig):
     """One decode step.  q: [B, Hkv, G, d]; k_new, v_new: [B, Hkv, d].
     Returns (out [B, Hkv, G, d], state with t + 1); caches in place."""
-    b, hkv, g, d = q.shape
-    m_max = state.lm_q.shape[-2]
+    b = q.shape[0]
     w = cfg.window
     t = int(state.t)
 
@@ -158,41 +370,10 @@ def mita_decode_step(state: MiTADecodeState, q, k_new, v_new,
     t_new = t + 1
     if not cfg.external_finalize and t_new % w == 0:
         _finalize_window(state, cfg, t_new)
-    m_cnt = t // w if cfg.external_finalize else t_new // w
-    lm_mask = torch.arange(m_max, device=q.device)[None, None, None, :] \
-        < m_cnt
-
-    r = torch.einsum("bhgd,bhmd->bhgm", q, state.lm_q) / math.sqrt(d)
-    r = torch.where(lm_mask, r.float(), NEG_INF)
-    parts: list[Partial] = [partial_from_scores(r, state.lm_v)]
-
-    s_ = min(cfg.s, m_max)
-    top_r, e_idx = mref.topk_first(r, s_)                # [B, Hkv, G, s]
-    e_ok = top_r > NEG_INF / 2
-    flat_e = e_idx.reshape(b, hkv, g * s_)
-    sel = flat_e[..., None].expand(flat_e.shape + (cfg.k,))
-    rows = torch.gather(state.expert_idx, 2, sel).long()
-    rows_valid = torch.gather(state.expert_valid, 2, sel)
-    rows = rows.reshape(b, hkv, g * s_ * cfg.k)
-    idx = rows[..., None].expand(rows.shape + (d,))
-    k_sel = torch.gather(state.k_cache, 2, idx).reshape(b, hkv, g,
-                                                        s_ * cfg.k, d)
-    v_sel = torch.gather(state.v_cache, 2, idx).reshape(b, hkv, g,
-                                                        s_ * cfg.k, d)
-    logits = torch.einsum("bhgd,bhgkd->bhgk", q, k_sel) / math.sqrt(d)
-    mask = (rows_valid.reshape(b, hkv, g, s_, cfg.k)
-            & e_ok[..., None]).reshape(b, hkv, g, s_ * cfg.k)
-    parts.append(partial_from_logits(logits, v_sel, mask=mask))
-
-    # local: the query's own window [(t//w)*w, t]
-    start = (t // w) * w
-    k_loc = state.k_cache[:, :, start:start + w]
-    v_loc = state.v_cache[:, :, start:start + w]
-    loc_logits = torch.einsum("bhgd,bhwd->bhgw", q, k_loc) / math.sqrt(d)
-    loc_mask = (torch.arange(w, device=q.device)[None, None, None, :]
-                + start) < t_new
-    parts.append(partial_from_scores(loc_logits, v_loc, mask=loc_mask))
-    return combine(parts), state._replace(t=state.t + 1)
+    out = _attend(q, state.k_cache, state.v_cache, state.lm_q, state.lm_v,
+                  state.expert_idx, state.expert_valid,
+                  torch.full((b,), t, device=q.device), cfg)
+    return out, state._replace(t=state.t + 1)
 
 
 # ----------------------------------------------------------- paged decode --
@@ -414,4 +595,137 @@ def mita_batched_chunk_prefill(state: PagedMiTAState, q, k, v, page_table,
                      (state.q_sum, qs), (state.pre_lm_q, plm),
                      (state.pre_q_sum, pqs)):
         dst[idx] = src.to(dst.dtype)
+    return out, state
+
+
+# ------------------------------------------------- per-job chunked prefill --
+#
+# `mita_chunk_prefill` is the per-job form: one chunk of ONE slot's
+# window-aligned prompt (or recompute stream).  The reference computes it in
+# plain XLA (it reaches no Pallas kernel: it takes only the page gathers of
+# `kernels.ops`), so plain PyTorch on the card is its faithful port, not a
+# fallback.  Positions >= n_train replicate the decode step's landmark
+# availability (external finalize: the last token of a window routes one
+# expert stale), positions < n_train the training forward's.
+
+
+def mita_chunk_prefill(state: PagedMiTAState, q, k, v, page_table, slot: int,
+                       t0: int, n_valid: int, n_train: int,
+                       cfg: DecodeConfig):
+    """Prefill one chunk of one slot into the paged pool.
+
+    q: [Hkv, G, nc, d] chunk queries (RoPE'd at ``t0 + arange(nc)``); k, v:
+    [Hkv, nc, d]; page_table: [M] int32, the slot's row (pages covering
+    positions < t0 + n_valid allocated); slot, t0 (tokens already packed;
+    need not be window-aligned: the open window resumes from ``q_sum``),
+    n_valid (valid tokens; padding rows go to the scratch row, their
+    outputs mean nothing) and n_train (the original prompt length) are
+    host integers.  Returns (out [Hkv, G, nc, d], state): the pools get
+    the chunk's rows and the slot's landmark, expert and ``q_sum`` rows
+    are updated, in place."""
+    w = cfg.window
+    hkv, g, nc, d = q.shape
+    dev = q.device
+    m_slot = page_table.shape[0]
+    ctx = m_slot * w
+    scratch = state.k_pool.shape[0] - 1
+    pt = page_table.long()
+
+    pos = t0 + torch.arange(nc, device=dev)              # [nc]
+    valid_tok = torch.arange(nc, device=dev) < n_valid
+
+    # 1. append the chunk's rows (padding -> the scratch row)
+    page_idx = (pos // w).clamp(0, m_slot - 1)
+    dst = torch.where(valid_tok, pt[page_idx] * w + pos % w, scratch)
+    state.k_pool[dst] = k.transpose(0, 1).to(state.k_pool.dtype)
+    state.v_pool[dst] = v.transpose(0, 1).to(state.v_pool.dtype)
+    owned = torch.tensor([(t0 + n_valid + w - 1) // w], device=dev)
+    k_ctx = ops.gather_pages(state.k_pool, pt[None], w, owned=owned)[0]
+    v_ctx = ops.gather_pages(state.v_pool, pt[None], w, owned=owned)[0]
+
+    # 2. finalise every window the chunk completes ([m0, m_new)), resuming
+    # the open window's query sum from the previous chunk
+    m0 = t0 // w
+    m_new = (t0 + n_valid) // w
+    li = torch.arange(m_slot, device=dev)
+    ql = q.mean(dim=1)                                   # [Hkv, nc, d]
+    win_of = pos // w
+    tok_in_win = valid_tok[None, :] & (win_of[None, :] == li[:, None])
+    sums = torch.einsum("mn,hnd->hmd", tok_in_win.float(), ql.float())
+    qs_slot = state.q_sum[slot]
+    if t0 % w:
+        resume = (li == m0)[None, :, None]
+        sums = sums + torch.where(resume, qs_slot[:, None, :], 0.0)
+
+    q_lm_new = (sums / w).to(state.k_pool.dtype)         # [Hkv, M, d]
+    ends = (li + 1) * w
+    s_lm = torch.einsum("chd,hmd->hmc", k_ctx, q_lm_new) / math.sqrt(d)
+    vis = torch.arange(ctx, device=dev)[None, None, :] < ends[None, :, None]
+    s_lm = torch.where(vis, s_lm.float(), NEG_INF)
+    top_vals, top_loc = mref.topk_first(s_lm, cfg.k)     # ctx positions
+    new_valid = top_vals > NEG_INF / 2
+    ctx_rows = (pt[:, None] * w
+                + torch.arange(w, device=dev)[None, :]).reshape(ctx)
+    new_rows = ctx_rows[top_loc].to(torch.int32)
+    p_lm = torch.softmax(s_lm, dim=-1)
+    v_lm_new = torch.einsum("hmc,chd->hmd", p_lm.to(state.v_pool.dtype),
+                            v_ctx)
+
+    commit = ((li >= m0) & (li < m_new))[None, :, None]
+    lm_q_s = torch.where(commit, q_lm_new, state.lm_q[slot])
+    lm_v_s = torch.where(commit, v_lm_new.to(state.lm_v.dtype),
+                         state.lm_v[slot])
+    ei_s = torch.where(commit, new_rows, state.expert_idx[slot])
+    ev_s = torch.where(commit, new_valid, state.expert_valid[slot])
+    # the open window after the chunk: its tail in this chunk, plus the
+    # resumed sum if the chunk closed no window at all
+    tail = torch.einsum("n,hnd->hd",
+                        (valid_tok & (win_of == m_new)).float(), ql.float())
+    q_sum_s = tail + qs_slot if (m_new == m0 and t0 % w) else tail + 0.0
+
+    # 3. the chunk's attention: shared + routed + local, per-position
+    # landmark availability (training rule below n_train, decode rule past)
+    is_train = (pos < n_train)[:, None]
+    avail_train = ends[None, :] <= pos[:, None] + 1
+    avail_dec = ends[None, :] <= pos[:, None] if cfg.external_finalize \
+        else avail_train
+    avail = torch.where(is_train, avail_train, avail_dec)       # [nc, M]
+
+    r = torch.einsum("hgnd,hmd->hgnm", q, lm_q_s) / math.sqrt(d)
+    r = torch.where(avail[None, None], r.float(), NEG_INF)
+    parts: list[Partial] = [partial_from_scores(r, lm_v_s[:, None])]
+
+    s_ = min(cfg.s, m_slot)
+    top_r, e_idx = mref.topk_first(r, s_)               # [Hkv, G, nc, s]
+    e_ok = top_r > NEG_INF / 2
+    flat_e = e_idx.reshape(hkv, g * nc * s_)
+    sel = flat_e[..., None].expand(flat_e.shape + (cfg.k,))
+    rows = torch.gather(ei_s, 1, sel)
+    rows_valid = torch.gather(ev_s, 1, sel)
+    rows = rows.reshape(hkv, g * nc * s_ * cfg.k)
+    k_sel = ops.gather_pool_rows(state.k_pool, rows[None])[0].reshape(
+        hkv, g, nc, s_ * cfg.k, d)
+    v_sel = ops.gather_pool_rows(state.v_pool, rows[None])[0].reshape(
+        hkv, g, nc, s_ * cfg.k, d)
+    logits = torch.einsum("hgnd,hgnkd->hgnk", q, k_sel) / math.sqrt(d)
+    mask = (rows_valid.reshape(hkv, g, nc, s_, cfg.k)
+            & e_ok[..., None]).reshape(hkv, g, nc, s_ * cfg.k)
+    parts.append(partial_from_logits(logits, v_sel, mask=mask))
+
+    # local: each position attends its own window, which may start in an
+    # earlier chunk (resume); the gathered context covers both
+    loc_idx = ((pos // w).clamp(0, m_slot - 1) * w)[:, None] \
+        + torch.arange(w, device=dev)[None, :]           # [nc, w]
+    k_loc = torch.movedim(k_ctx[loc_idx], 2, 0)          # [Hkv, nc, w, d]
+    v_loc = torch.movedim(v_ctx[loc_idx], 2, 0)
+    loc_logits = torch.einsum("hgnd,hnwd->hgnw", q, k_loc) / math.sqrt(d)
+    loc_mask = (loc_idx <= pos[:, None])[None, None]
+    parts.append(partial_from_logits(loc_logits, v_loc[:, None],
+                                     mask=loc_mask))
+
+    out = combine(parts)
+    for dst_t, src in ((state.lm_q, lm_q_s), (state.lm_v, lm_v_s),
+                       (state.expert_idx, ei_s),
+                       (state.expert_valid, ev_s), (state.q_sum, q_sum_s)):
+        dst_t[slot] = src.to(dst_t.dtype)
     return out, state

@@ -40,6 +40,11 @@ constexpr int TK = 64;               // keys per tile (two per lane)
 constexpr int kThreads = 256;
 constexpr int kMaxD = 128;
 constexpr int kCols = kMaxD / 16;    // accumulator columns per thread
+// The wide instance (head dims up to 256, recurrentgemma-9b's): twice the
+// accumulator columns per thread; the tiles keep 64 rows, and at d = 256
+// the block takes 149.5 KB of shared memory (one block per SM).
+constexpr int kMaxDWide = 256;
+constexpr int kColsWide = kMaxDWide / 16;
 static_assert(TQ == TK, "load_tile serves both tiles");
 
 __device__ __forceinline__ float ld(const float* p) { return *p; }
@@ -176,16 +181,18 @@ __device__ __forceinline__ void softmax_tile(const Smem& S) {
   }
 }
 
-// acc = acc * alpha + p . v for this thread's rows and columns.
+// acc = acc * alpha + p . v for this thread's rows and columns (NC
+// accumulator columns: kCols, or kColsWide for head dims above 128).
+template <int NC>
 __device__ __forceinline__ void pv_tile(const Smem& S, int d,
-                                        float (&acc)[4][kCols]) {
+                                        float (&acc)[4][NC]) {
   const int tq = threadIdx.x >> 4, tc = threadIdx.x & 15;
   const int nc = d / 16;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const float a = S.alpha[tq * 4 + i];
 #pragma unroll
-    for (int j = 0; j < kCols; ++j)
+    for (int j = 0; j < NC; ++j)
       if (j < nc) acc[i][j] *= a;
   }
   const float* pp = S.s + (tq * 4) * (TK + 1);
@@ -195,7 +202,7 @@ __device__ __forceinline__ void pv_tile(const Smem& S, int d,
     for (int i = 0; i < 4; ++i) p[i] = pp[i * (TK + 1) + k];
     const float* vp = S.kv + k * (d + 1) + tc;
 #pragma unroll
-    for (int j = 0; j < kCols; ++j)
+    for (int j = 0; j < NC; ++j)
       if (j < nc) {
         const float v = vp[16 * j];
 #pragma unroll
@@ -209,11 +216,11 @@ __device__ __forceinline__ void pv_tile(const Smem& S, int d,
 // k_rows / v_rows (row stride d).  Starts with a barrier, so per-key data
 // that ok() reads may be written just before the call; ends with the value
 // tile in use.
-template <typename T, typename OkFn>
+template <typename T, typename OkFn, int NC>
 __device__ __forceinline__ void attend_tile(const Smem& S, const T* k_rows,
                                             const T* v_rows, int n_keys,
                                             int d, OkFn ok,
-                                            float (&acc)[4][kCols]) {
+                                            float (&acc)[4][NC]) {
   __syncthreads();  // the previous tile's value product is done
   load_tile(S.kv, k_rows, n_keys, d, 1.f);
   __syncthreads();

@@ -60,6 +60,11 @@
 //    CUDA-core tile of attn_tile.cuh in full float32, so float32 agrees
 //    with its plain version to 1e-5 (0.3982 ms against 0.5622 / 0.5540
 //    in that call, from the block order and the warp-wide expert search).
+//    Head dims above 128 (recurrentgemma-9b's 256: lead [1, 1, 16], one
+//    KV head, m = 32 at N = 4096) take its wide instance in both dtypes:
+//    16 accumulator columns a thread and 149.5 KB of shared memory, one
+//    block per SM.  Tensor cores at d = 256 (a 256-wide value product
+//    split over two warpgroups) are later work.
 //
 // No atomics.  The entry point returns cudaGetLastError().
 
@@ -117,8 +122,10 @@ __device__ __forceinline__ int next_expert(const int* qi, int n, int e_prev,
 
 // ------------------------------------------------------------ float32 --
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads, 2)
+// NC accumulator columns a thread: kCols up to d = 128 (two blocks per
+// SM), kColsWide up to d = 256 (one block: 149.5 KB of shared memory).
+template <typename T, int NC>
+__global__ void __launch_bounds__(kThreads, NC == kCols ? 2 : 1)
     expert_attn_kernel(const T* __restrict__ q,
                        const void* __restrict__ assign, int assign_i64,
                        const T* __restrict__ k_e, const T* __restrict__ v_e,
@@ -140,11 +147,11 @@ __global__ void __launch_bounds__(kThreads, 2)
   init_stats(S);
   const int64_t kv_row0 = kv_lead_row(lead, lm) * n_exp * kw;
 
-  float acc[4][kCols];
+  float acc[4][NC];
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
-    for (int j = 0; j < kCols; ++j) acc[i][j] = 0.f;
+    for (int j = 0; j < NC; ++j) acc[i][j] = 0.f;
 
   int e_prev = -1;
   for (;;) {
@@ -175,7 +182,7 @@ __global__ void __launch_bounds__(kThreads, 2)
     const int r = tq * 4 + i;
     if (r >= rows) continue;
 #pragma unroll
-    for (int j = 0; j < kCols; ++j)
+    for (int j = 0; j < NC; ++j)
       if (j < nc) st(o + (row0 + r) * d + tc + 16 * j, acc[i][j]);
   }
   for (int r = threadIdx.x; r < rows; r += kThreads) {
@@ -191,7 +198,8 @@ cudaError_t launch(const void* q, const void* assign, int assign_i64,
                    int n_lead, int ns, int d, int n_exp, int kw, float scale,
                    cudaStream_t stream) {
   const long long smem = smem_bytes(d);
-  auto kern = expert_attn_kernel<T>;
+  auto kern = d <= kMaxD ? expert_attn_kernel<T, kCols>
+                         : expert_attn_kernel<T, kColsWide>;
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return e;
@@ -418,14 +426,15 @@ extern "C" {
 // when assign_i64, else int32.  lead_dims / kv_strides: the query lead as
 // 4 dims (leading ones 1) and the KV lead row's stride over each (0 where
 // the KV lead broadcasts).  bf16 at d = 64 or 128 runs on the tensor cores
-// (`expert_mma_kernel`), everything else on the CUDA cores.
+// (`expert_mma_kernel`), everything else (d a multiple of 16, at most 256)
+// on the CUDA cores.
 int mita_expert_attention(int dtype, void* q, void* assign, int assign_i64,
                           void* k_e, void* v_e, void* valid,
                           const int* lead_dims, const int* kv_strides,
                           void* o, void* m_out, void* l_out, int n_lead,
                           int ns, int d, int n_exp, int kw, float scale,
                           void* stream) {
-  if (d % 16 != 0 || d < 16 || d > attn_tile::kMaxD)
+  if (d % 16 != 0 || d < 16 || d > attn_tile::kMaxDWide)
     return (int)cudaErrorInvalidValue;
   LeadMap lm;
   for (int i = 0; i < 4; ++i) {

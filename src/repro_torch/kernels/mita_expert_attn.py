@@ -12,8 +12,8 @@ partial ``(o, m, l)``; an inactive row (``assign >= M``) gives exactly
   tensors (one CUDA launch a call) and adds one to ``LAUNCHES``.
   `expert_path` names the kernel a call takes: bf16 at head dim 64 or 128
   runs on the tensor cores (wgmma; the softmax weights are rounded to bf16
-  before the value product), float32 and the other head dims on the CUDA
-  cores in float32.
+  before the value product), float32 and the other head dims (up to 256)
+  on the CUDA cores in float32.
 * `expert_attention_plain` is the same function in plain PyTorch with the
   CUDA-core kernel's rounding: q is scaled in float32 before the product,
   every product and statistic is float32, and o is rounded to q's dtype
@@ -47,6 +47,7 @@ from repro_torch.kernels import _build
 
 LAUNCHES = 0            # kernel launches since the last reset
 SMEM_LIMIT = 227 * 1024
+MAX_D = 256             # the CUDA-core kernel's widest head dim
 
 
 def _shapes(q_sorted, assign, k_e, v_e, valid):
@@ -167,7 +168,8 @@ def mita_expert_attention(q_sorted, assign, k_e, v_e, valid,
                           block_q: int = 128):
     """Launch the CUDA kernel.  Shapes as `expert_attention_plain`; q,
     k_e and v_e float32 or bfloat16 (one dtype), head dim a multiple of 16
-    up to 128; assign int32 or int64 and valid bool are read as they are.
+    up to 256 (recurrentgemma-9b's is 256); assign int32 or int64 and
+    valid bool are read as they are.
     Returns (o, m, l) as the plain version does."""
     global LAUNCHES
     check_forward_only(q_sorted, k_e, v_e)
@@ -180,8 +182,8 @@ def mita_expert_attention(q_sorted, assign, k_e, v_e, valid,
     for x in (assign, k_e, v_e, valid):
         _check(x.device == dev, "all tensors must be on one device")
     lead, kv_lead, ns, d, m, kw = _shapes(q_sorted, assign, k_e, v_e, valid)
-    _check(d % 16 == 0 and 16 <= d <= 128,
-           f"head dim {d} (a multiple of 16, at most 128)")
+    _check(d % 16 == 0 and 16 <= d <= MAX_D,
+           f"head dim {d} (a multiple of 16, at most {MAX_D})")
     n_lead = math.prod(lead)
     o = torch.empty(lead + (ns, d), dtype=dt, device=dev)
     m_out = torch.empty(lead + (ns,), dtype=torch.float32, device=dev)

@@ -2,10 +2,12 @@
 forward of the port spends its time.
 
     PYTHONPATH=src python -m repro_torch.launch.profile_decode \\
+        [--arch qwen3-0.6b|mamba2-370m|recurrentgemma-9b]
         [--compute-dtype bfloat16|float32] [--steps 20] [--window-close]
         [--prefill-chunk 256] [--forward 4096 [--attn-impl ...]]
 
-Fills the engine's slots with one admission group (qwen3-0.6b, random
+Fills the engine's slots with one admission group (``--arch``, default
+qwen3-0.6b, served by its backend: `serve.backends.for_arch`; random
 weights from seed 0), warms up, then records ``--steps`` decode steps
 under ``torch.profiler`` (CPU + CUDA).  With ``--window-close`` the
 recorded steps are instead the ``--steps`` decode steps around the first
@@ -16,8 +18,9 @@ and the finalize kernels' share of it beside the other steps' mean.
 With ``--prefill-chunk N`` it
 records instead the chunked-prefill dispatches that admit one group of
 ``--batch`` prompts (after a warm-up group), and reports per dispatch.
-With ``--forward N`` it records one ``lm_forward`` of a batch of one
-sequence of N tokens after a warm-up forward, with the routed branch of
+With ``--forward N`` it records one full-sequence forward (``lm_forward``,
+``mamba_forward`` or ``rg_forward``) of a batch of one sequence of N
+tokens after a warm-up forward, with the routed branch of
 ``--attn-impl`` (pallas: the expert kernel).
 Prints the wall time per step, the share of that time the card was busy
 (sum of kernel times / wall time), and the operators with the largest
@@ -37,12 +40,12 @@ import time
 
 import torch
 
-from repro_torch.configs.registry import get_arch
+from repro_torch.configs.registry import arch_params, get_arch
 from repro_torch.core import mita_decode as mdec
 from repro_torch.data import DataConfig, synthetic_batch
 from repro_torch.device import resolve_device
 from repro_torch.models import transformer as tfm
-from repro_torch.serve import EngineConfig, Request, ServingEngine
+from repro_torch.serve import EngineConfig, Request, ServingEngine, backends
 
 
 TOP = 25      # operators listed per table
@@ -114,7 +117,9 @@ def main(argv=None) -> dict:
     if args.forward:
         cfg = dataclasses.replace(cfg, attn=dataclasses.replace(
             cfg.attn, impl=args.attn_impl))
-        return _profile(args, device, _forward_runner(args, cfg, device),
+    arch = dataclasses.replace(arch, model=cfg)
+    if args.forward:
+        return _profile(args, device, _forward_runner(args, arch, device),
                         f"forward of {args.forward} tokens",
                         {"forward": args.forward,
                          "attn_impl": args.attn_impl})
@@ -124,17 +129,18 @@ def main(argv=None) -> dict:
     close = (args.prompt_len // w + 1) * w if args.window_close else 0
     first = close - args.steps // 2         # first recorded step's position
     gen = args.steps + 8 + max(first - args.prompt_len, 0)
-    params = tfm.lm_init(torch.Generator(device=device).manual_seed(0),
-                         cfg, device)
+    params = arch_params(arch, torch.Generator(device=device).manual_seed(0),
+                         device)
     prompts = synthetic_batch(DataConfig(vocab=cfg.vocab,
                                          seq_len=args.prompt_len,
                                          global_batch=args.batch), 0)["tokens"]
     pages = mdec.window_aligned(args.prompt_len + gen, w) // w
-    eng = ServingEngine(params, cfg,
-                        EngineConfig(n_slots=args.batch, pages_per_slot=pages,
-                                     n_pages=2 * args.batch * pages,
-                                     prefill_chunk=args.prefill_chunk),
-                        device=device)
+    ecfg = EngineConfig(n_slots=args.batch, pages_per_slot=pages,
+                        n_pages=2 * args.batch * pages,
+                        prefill_chunk=args.prefill_chunk)
+    eng = ServingEngine(params, cfg, ecfg,
+                        backend=backends.for_arch(arch, params, ecfg,
+                                                  device=device))
     chunked = args.prefill_chunk > 0
     if chunked:                        # a warm-up group, then a fresh one
         eng.run([Request(rid=100 + i, prompt=prompts[i], max_new_tokens=1)
@@ -164,23 +170,29 @@ def main(argv=None) -> dict:
 
     what = "prefill dispatch" if chunked else "decode step"
     return _profile(args, device, run, what,
-                    {"batch": args.batch,
+                    {"arch": arch.arch_id, "batch": args.batch,
                      "prefill_chunk": args.prefill_chunk},
                     close_step=f"decode_step_t{close}" if close else None)
 
 
-def _forward_runner(args, cfg, device):
-    """A warm-up `lm_forward` now; returns the function that runs the
-    profiled one (returning its count, 1)."""
-    params = tfm.lm_init(torch.Generator(device=device).manual_seed(0),
-                         cfg, device)
+def _forward_runner(args, arch, device):
+    """A warm-up full-sequence forward of the architecture's family now;
+    returns the function that runs the profiled one (returning its count,
+    1)."""
+    from repro_torch.models.mamba2 import mamba_forward
+    from repro_torch.models.rglru import rg_forward
+    cfg = arch.model
+    params = arch_params(arch, torch.Generator(device=device).manual_seed(0),
+                         device)
     toks = torch.as_tensor(synthetic_batch(DataConfig(
         vocab=cfg.vocab, seq_len=args.forward, global_batch=1), 0)["tokens"],
         device=device)
+    fwd = {"dense": tfm.lm_forward, "ssm": mamba_forward,
+           "hybrid": rg_forward}[arch.family]
 
     def run():
         with torch.inference_mode():
-            tfm.lm_forward(params, toks, cfg)
+            fwd(params, toks, cfg)
         return 1
 
     run()

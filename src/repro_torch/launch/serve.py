@@ -5,25 +5,32 @@
     and decode it for ``--gen`` steps (`static_generate`, also the oracle
     the engine's greedy tokens are held to);
   * ``--engine continuous`` — `repro_torch.serve.ServingEngine` over the
-    paged MiTA backend, whose decode step runs the paged-decode and
+    architecture's backend (`serve.backends.for_arch`): the paged MiTA
+    backend for qwen3-0.6b, whose decode step runs the paged-decode and
     paged-finalize CUDA kernels on the card; with ``--prefill-chunk N``
-    prompts are admitted by batched chunked prefill (the chunk-prefill
-    CUDA kernel), with priority preemption and optionally the prefix
-    cache.
+    prompts are admitted by chunked prefill (batched: the chunk-prefill
+    CUDA kernel; ``--prefill-mode per-job``: one job's chunk a step), with
+    priority preemption and optionally the prefix cache.  mamba2-370m and
+    recurrentgemma-9b serve through the recurrent backends on the same
+    engine (``--engine static`` then runs the backend's reference).
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-0.6b \\
       --batch 4 --prompt-len 512 --gen 160 --engine continuous \\
-      [--prefill-chunk 256 [--prefix-cache]] [--attn-impl pallas] \\
-      [--temperature 0.8] [--sample-device fused [--spec-k 3]]
-  (add ``--smoke --device cpu`` for the reduced config on the CPU)
+      [--prefill-chunk 256 [--prefill-mode per-job] [--prefix-cache]] \\
+      [--attn-impl pallas] [--temperature 0.8] \\
+      [--sample-device fused [--spec-k 3]]
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-370m \\
+      --engine continuous --prefill-chunk 128 [--prefill-mode per-job]
+  (``--arch recurrentgemma-9b`` likewise; add ``--smoke --device cpu``
+  for the reduced config on the CPU)
 
 ``--temperature T`` samples with the port's threefry (`repro_torch.prng`);
 ``--spec-k K --sample-device fused`` turns on lossless speculative decoding
 (landmark-branch drafts, verified by the exact decode step).
 
-Weights are random, drawn from seed 0.  Supervision (``Supervisor``) and
-the per-job prefill mode come in later slices.
+Weights are random, drawn from seed 0.  Supervision (``Supervisor``) is
+not ported.
 """
 
 from __future__ import annotations
@@ -37,7 +44,7 @@ import numpy as np
 import torch
 
 from repro_torch import prng
-from repro_torch.configs.registry import get_arch
+from repro_torch.configs.registry import arch_params, get_arch
 from repro_torch.core import mita_decode as mdec
 from repro_torch.data import DataConfig, synthetic_batch
 from repro_torch.device import resolve_device
@@ -151,10 +158,18 @@ def main(argv=None) -> dict:
                          "draft up to K tokens per slot per round and "
                          "verify them with the exact decode step "
                          "(requires --sample-device fused; 0 = off)")
+    ap.add_argument("--prefill-mode", choices=("batched", "per-job"),
+                    default="batched",
+                    help="continuous+chunked: one dispatch advances every "
+                         "prefilling job (batched) or the best-keyed job "
+                         "only (per-job, the reference's legacy baseline)")
     ap.add_argument("--spec-mode", default="auto",
-                    choices=("auto", "landmark"),
+                    choices=("auto", "landmark", "self", "stress"),
                     help="drafting strategy: the MiTA backend drafts "
-                         "against the compressed landmark branch")
+                         "against the compressed landmark branch "
+                         "(landmark), the recurrent ones through their "
+                         "decode step (self) or with synthetic drafts "
+                         "(stress)")
     ap.add_argument("--attn-impl", choices=("sorted", "capacity", "pallas"),
                     default=None,
                     help="routed branch of the monolithic prefill "
@@ -171,6 +186,9 @@ def main(argv=None) -> dict:
 
     device = resolve_device(args.device)
     arch = get_arch(args.arch, smoke=args.smoke)
+    if arch.family not in ("dense", "ssm", "hybrid"):
+        raise SystemExit(f"serve drives decoder LMs (dense, ssm, hybrid); "
+                         f"{arch.arch_id} is {arch.family}")
     if args.attn_impl:
         arch = dataclasses.replace(arch, model=dataclasses.replace(
             arch.model, attn=dataclasses.replace(arch.model.attn,
@@ -181,7 +199,7 @@ def main(argv=None) -> dict:
                                    backends)
 
     gen = torch.Generator(device=device).manual_seed(0)
-    params = tfm.lm_init(gen, cfg, device)
+    params = arch_params(arch, gen, device)
     dcfg = DataConfig(vocab=cfg.vocab, seq_len=args.prompt_len,
                       global_batch=max(args.batch, args.requests or 1))
     prompts = synthetic_batch(dcfg, 0)["tokens"]
@@ -191,12 +209,25 @@ def main(argv=None) -> dict:
                         prefill_chunk=args.prefill_chunk,
                         reserve_pages=args.reserve_pages,
                         sample_device=args.sample_device,
+                        prefill_mode=args.prefill_mode,
                         prefix_cache=args.prefix_cache,
                         spec_k=args.spec_k, spec_mode=args.spec_mode)
     summary = {"engine": args.engine, "arch": arch.arch_id,
                "device": str(device)}
 
-    if args.engine == "static":
+    if args.engine == "static" and arch.family != "dense":
+        backend = backends.for_arch(arch, params, ecfg, device=device)
+        _sync(device)
+        t0 = time.perf_counter()
+        toks = backend.static_reference(prompts[: args.batch], args.gen,
+                                        temperature=args.temperature)
+        _sync(device)
+        dt = time.perf_counter() - t0
+        print(f"static ({backend.name}): {args.batch}x{args.prompt_len}"
+              f"+{args.gen} in {dt:.3f}s "
+              f"({args.batch * args.gen / dt:.1f} tok/s)")
+        summary.update(tok_s=args.batch * args.gen / dt, tokens=toks)
+    elif args.engine == "static":
         toks, tm = static_generate(
             params, cfg, torch.as_tensor(prompts[: args.batch],
                                          device=device), args.gen,

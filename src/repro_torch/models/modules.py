@@ -19,6 +19,8 @@ from typing import Any, Optional
 
 import torch
 
+from repro_torch.core.baselines import (full_attention, linear_attention,
+                                        local_attention, moba_attention)
 from repro_torch.core.mita import MiTAConfig, mita_attention
 from repro_torch.core.mita_sparse import mita_attention_sparse
 from repro_torch.kernels.ops import default_block_q
@@ -30,7 +32,8 @@ Params = dict[str, Any]
 class AttnConfig:
     """Attention backend selection + MiTA hyper-parameters (the TPU dispatch
     switches have no counterpart here: the tensors' device decides)."""
-    backend: str = "mita"     # mita | mita_ref | agent | mita_route
+    backend: str = "mita"     # mita | mita_ref | agent | mita_route |
+    #                           full | local | moba | linear (baselines)
     window: int = 128         # landmark window w  (m = N // w)
     k: int = 128              # expert width
     s: int = 1                # routed experts per query
@@ -45,6 +48,7 @@ class AttnConfig:
     # "grouped": [B, Hkv, G, N, dh] (KV broadcast, group landmarks);
     # "repeat":  [B, H, N, dh] with K/V repeated per query head.
     gqa_layout: str = "grouped"
+    local_window: int = 2048  # for backend == "local" (recurrentgemma)
     external_finalize: bool = False
 
     def mita_cfg(self, n: int, bidir: bool = False) -> MiTAConfig:
@@ -157,35 +161,47 @@ def _qkv(params: Params, x: torch.Tensor, cfg: ModelConfig,
 
 def attention_apply(params: Params, x: torch.Tensor, cfg: ModelConfig,
                     positions: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Full-sequence MiTA attention (training forward / prefill).  x:
-    [B, N, D].  ``impl="pallas"`` runs the routed branch on the expert
-    kernel (forward only)."""
+    """Full-sequence attention (training forward / prefill).  x:
+    [B, N, D].  MiTA backends, or one of the paper's baselines (full,
+    local, moba, linear: `core.baselines`).  ``impl="pallas"`` runs MiTA's
+    routed branch on the expert kernel (forward only)."""
     b, n, _ = x.shape
     a = cfg.attn
     if positions is None:
         positions = torch.arange(n, device=x.device)
     q, k, v = _qkv(params, x, cfg, positions)
-    if a.backend not in ("mita", "mita_ref", "agent", "mita_route"):
-        raise NotImplementedError(
-            f"attention backend {a.backend!r} is not ported (ROADMAP A.9)")
     repeat = a.gqa_layout == "repeat"
     if repeat:
         h, full = cfg.n_heads, (b, cfg.n_kv, cfg.group, n, cfg.dh)
         q = q.reshape(b, h, n, cfg.dh)
         k = k.expand(full).reshape(b, h, n, cfg.dh)
         v = v.expand(full).reshape(b, h, n, cfg.dh)
-    mcfg = a.mita_cfg(n)
-    q_lm = q.mean(dim=2, keepdim=True) if (
-        a.landmark_per_group and cfg.group > 1 and not repeat) else None
-    if a.backend == "mita_ref" or mcfg.compress_only:
-        o = mita_attention(q, k, v, mcfg, q_landmarks=q_lm)
+    if a.backend in ("mita", "mita_ref", "agent", "mita_route"):
+        mcfg = a.mita_cfg(n)
+        q_lm = q.mean(dim=2, keepdim=True) if (
+            a.landmark_per_group and cfg.group > 1 and not repeat) else None
+        if a.backend == "mita_ref" or mcfg.compress_only:
+            o = mita_attention(q, k, v, mcfg, q_landmarks=q_lm)
+        else:
+            bq = min(a.block_q or default_block_q(), a.window * mcfg.s,
+                     n * mcfg.s)
+            o = mita_attention_sparse(
+                q, k, v, mcfg, impl=a.impl, block_q=bq,
+                expert_span=min(a.expert_span, mcfg.m),
+                capacity_factor=a.capacity_factor, q_landmarks=q_lm)
+    elif a.backend == "full":
+        o = full_attention(q, k, v, causal=a.causal)
+    elif a.backend == "local":
+        o = local_attention(q, k, v, window=min(a.local_window, n),
+                            causal=a.causal)
+    elif a.backend == "moba":
+        o = moba_attention(q, k, v, block_size=a.window,
+                           top_blocks=max(1, a.k // a.window),
+                           causal=a.causal)
+    elif a.backend == "linear":
+        o = linear_attention(q, k, v, causal=a.causal)
     else:
-        bq = min(a.block_q or default_block_q(), a.window * mcfg.s,
-                 n * mcfg.s)
-        o = mita_attention_sparse(
-            q, k, v, mcfg, impl=a.impl, block_q=bq,
-            expert_span=min(a.expert_span, mcfg.m),
-            capacity_factor=a.capacity_factor, q_landmarks=q_lm)
+        raise ValueError(f"unknown attention backend {a.backend!r}")
     o = torch.movedim(o, 2 if repeat else 3, 1)
     return o.reshape(b, n, cfg.n_heads * cfg.dh) \
         @ params["wo"].to(cfg.compute_dtype)
@@ -229,6 +245,17 @@ def unembed(params: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     if cfg.tie_embeddings:
         return x @ params["tok"].to(ct).T
     return x @ params["head"].to(ct)
+
+
+def last_logits(params: Params, x: torch.Tensor, n_valid: torch.Tensor,
+                cfg: ModelConfig) -> torch.Tensor:
+    """Logits [P, V] at each row's last valid position of a chunk's hidden
+    states x [P, nc, D] (``n_valid`` [P]; a row with none reads position
+    0), after the final norm."""
+    x = rms_norm(x, params["ln_f"])
+    last = torch.clamp(n_valid.long() - 1, min=0)
+    return unembed(params["emb"], x[torch.arange(x.shape[0], device=x.device),
+                                    last], cfg)
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,

@@ -10,9 +10,11 @@ Entry points: ``lm_forward``, ``lm_loss`` and ``lm_prefill`` (full
 sequence; ``AttnConfig.impl`` picks the routed branch: "sorted",
 "capacity", or "pallas" for the expert kernel),
 ``lm_decode_step`` + ``lm_finalize_states`` (the static path's monolithic
-caches), ``lm_paged_decode_step``, ``lm_prefill_chunks`` and
-``lm_landmark_draft`` (the serving engine's paged pools; `sample_tokens`
-samples on the device).
+caches), ``lm_paged_decode_step``, ``lm_prefill_chunks`` (batched),
+``lm_prefill_chunk`` (per-job) and ``lm_landmark_draft`` (the serving
+engine's paged pools; `sample_tokens` samples on the device), and
+``init_slot_attn_state`` / ``block_decode_slots`` (the hybrid model's
+per-slot attention caches).
 """
 
 from __future__ import annotations
@@ -47,6 +49,16 @@ def layer_state(states, i: int):
     return type(states)(*(x[i] for x in states))
 
 
+def stack_layers(trees: list) -> Params:
+    """Per-layer parameter trees -> one tree of leaves stacked on axis 0.
+    Each leaf leaves its per-layer tree as it is stacked, so at most one
+    leaf's layers exist twice at a time (not the whole model)."""
+    if isinstance(trees[0], dict):
+        return {k: stack_layers([t.pop(k) for t in trees])
+                for k in list(trees[0])}
+    return torch.stack(trees)
+
+
 def _stack_states(per_layer: list):
     return type(per_layer[0])(*(torch.stack(xs) for xs in zip(*per_layer)))
 
@@ -77,13 +89,7 @@ def lm_init(gen: torch.Generator, cfg: nn.ModelConfig,
     _no_moe(cfg)
     emb = nn.embedding_init(gen, cfg, device)
     blocks = [block_init(gen, cfg, device) for _ in range(cfg.n_layers)]
-
-    def stack(trees):
-        if isinstance(trees[0], dict):
-            return {k: stack([t[k] for t in trees]) for k in trees[0]}
-        return torch.stack(trees)
-
-    return {"emb": emb, "blocks": stack(blocks),
+    return {"emb": emb, "blocks": stack_layers(blocks),
             "ln_f": torch.zeros((cfg.d_model,), dtype=cfg.param_dtype,
                                 device=device)}
 
@@ -206,6 +212,57 @@ def block_decode(params: Params, x, state, cfg: nn.ModelConfig, pos):
     h, state = attention_decode(params["attn"],
                                 nn.rms_norm(x, params["ln1"]), state, cfg,
                                 pos)
+    return _ffn_residual(params, x + h, cfg), state
+
+
+def init_slot_attn_state(cfg: nn.ModelConfig, n_slots: int, capacity: int,
+                         device="cuda"):
+    """ONE layer's per-slot monolithic attention decode state: leaves
+    [S, 1, ...] and a per-slot ``t`` [S], each slot a B == 1 cache, so
+    slots advance at independent positions (`attention_decode_slots`).
+    The non-MiTA backends keep the full-attention cache, at most
+    ``attn.local_window`` rows."""
+    dt = cfg.compute_dtype
+    if cfg.attn.backend in ("mita", "mita_ref"):
+        one = mdec.init_decode_state(n_slots, cfg.n_kv, cfg.dh, capacity,
+                                     _decode_cfg(cfg), dtype=dt,
+                                     device=device)
+    else:
+        one = mdec.init_full_state(n_slots, cfg.n_kv, cfg.dh,
+                                   min(capacity, cfg.attn.local_window),
+                                   dtype=dt, device=device)
+    return type(one)(*(x[:, None] for x in one[:-1]),
+                     torch.zeros(n_slots, dtype=torch.int32, device=device))
+
+
+def attention_decode_slots(params: Params, x, state, cfg: nn.ModelConfig,
+                           pos, commit=None, due_hint: Optional[bool] = None):
+    """One-token attention at PER-SLOT positions over per-slot monolithic
+    caches.  x: [S, D]; pos: [S]; state: a slot-form layer state (leaves
+    [S, 1, ...], per-slot ``t``); commit: [S] bool, the slots whose state
+    may change (None: all).  The reference vmaps the B == 1
+    `mita_decode_step` / `full_decode_step` over slots; here one batched
+    step does it in place (`core.mita_decode.mita_decode_step_slots`).
+    ``due_hint`` False skips the inline finalize when the caller knows
+    that no slot closes a window."""
+    s = x.shape[0]
+    q, k, v = _project(params, x, cfg, pos)
+    if cfg.attn.backend in ("mita", "mita_ref"):
+        o, state = mdec.mita_decode_step_slots(state, q, k, v,
+                                               _decode_cfg(cfg), commit,
+                                               due_hint)
+    else:
+        o, state = mdec.full_decode_step_slots(state, q, k, v, commit)
+    o = o.reshape(s, cfg.n_heads * cfg.dh)
+    return o @ params["wo"].to(cfg.compute_dtype), state
+
+
+def block_decode_slots(params: Params, x, state, cfg: nn.ModelConfig, pos,
+                       commit=None, due_hint: Optional[bool] = None):
+    """`block_decode` at per-slot positions (`attention_decode_slots`)."""
+    h, state = attention_decode_slots(
+        params["attn"], nn.rms_norm(x, params["ln1"]), state, cfg, pos,
+        commit, due_hint)
     return _ffn_residual(params, x + h, cfg), state
 
 
@@ -382,18 +439,47 @@ def lm_landmark_draft(params: Params, states, tokens, t, active, m_cnt,
 
 
 def _chunk_block_body(lp: Params, h, st, cfg: nn.ModelConfig, positions,
-                      rows: tuple):
-    """Per-layer body of the chunk-prefill forward: norm -> qkv -> batched
-    paged chunk attention over ``rows`` = (page_table, slots, t0, n_valid,
-    n_train, job_active) -> output projection -> FFN residual.  The
-    layer's state ``st`` is updated in place."""
+                      attn):
+    """Per-layer body of the chunk-prefill forwards: norm -> qkv -> paged
+    chunk attention (``attn(st, q, k, v)`` returns o [B, Hkv, G, nc, d])
+    -> output projection -> FFN residual.  The layer's state ``st`` is
+    updated in place."""
     b, nc, _ = h.shape
     q, k, v = nn._qkv(lp["attn"], nn.rms_norm(h, lp["ln1"]), cfg, positions)
-    o, _ = mdec.mita_batched_chunk_prefill(st, q, k[:, :, 0], v[:, :, 0],
-                                           *rows, _decode_cfg(cfg))
+    o = attn(st, q, k[:, :, 0], v[:, :, 0])
     o = torch.movedim(o, 3, 1).reshape(b, nc, cfg.n_heads * cfg.dh)
     h = h + o @ lp["attn"]["wo"].to(cfg.compute_dtype)
     return _ffn_residual(lp, h, cfg)
+
+
+def lm_prefill_chunk(params: Params, states, tokens, slot: int,
+                     page_table_row, t0: int, n_valid: int, n_train: int,
+                     cfg: nn.ModelConfig):
+    """Prefill one chunk of ONE slot's prompt into the paged pools (the
+    per-job mode; `core.mita_decode.mita_chunk_prefill` per layer).
+
+    tokens: [nc] int32, zero-padded past ``n_valid``; page_table_row: [M]
+    int32 (pages covering positions < t0 + n_valid allocated); slot, t0,
+    n_valid and n_train (the original prompt length: recomputed generated
+    positions replicate decode-time landmark availability) are host
+    integers.  Returns (logits [V] at position ``t0 + n_valid - 1``,
+    states); the pools and the slot's rows update in place."""
+    _no_moe(cfg)
+    nc = tokens.shape[0]
+    pos = t0 + torch.arange(nc, device=tokens.device)
+    x = nn.embed(params["emb"], tokens[None], cfg)
+    dcfg = _decode_cfg(cfg)
+
+    def attn(st, q, k, v):
+        o, _ = mdec.mita_chunk_prefill(st, q[0], k[0], v[0], page_table_row,
+                                       slot, t0, n_valid, n_train, dcfg)
+        return o[None]
+
+    for i in range(cfg.n_layers):
+        x = _chunk_block_body(layer_params(params["blocks"], i), x,
+                              layer_state(states, i), cfg, pos, attn)
+    x = nn.rms_norm(x, params["ln_f"])
+    return nn.unembed(params["emb"], x[0, n_valid - 1], cfg), states
 
 
 def lm_prefill_chunks(params: Params, states, tokens, job_active,
@@ -412,15 +498,18 @@ def lm_prefill_chunks(params: Params, states, tokens, job_active,
     nc = tokens.shape[1]
     pos = t0.long()[:, None] + torch.arange(nc, device=tokens.device)
     x = nn.embed(params["emb"], tokens, cfg)
-    rows = (page_table, slots, t0, n_valid, n_train, job_active)
+    dcfg = _decode_cfg(cfg)
+
+    def attn(st, q, k, v):
+        return mdec.mita_batched_chunk_prefill(
+            st, q, k, v, page_table, slots, t0, n_valid, n_train,
+            job_active, dcfg)[0]
+
     for i in range(cfg.n_layers):
         x = _chunk_block_body(layer_params(params["blocks"], i), x,
                               layer_state(states, i), cfg,
-                              pos[:, None, None, :], rows)
-    x = nn.rms_norm(x, params["ln_f"])
-    last = torch.clamp(n_valid.long() - 1, min=0)
-    x = x[torch.arange(x.shape[0], device=x.device), last]
-    return nn.unembed(params["emb"], x, cfg), states
+                              pos[:, None, None, :], attn)
+    return nn.last_logits(params, x, n_valid, cfg), states
 
 
 def pack_prefill_into_states(states, prefill_states, slot: int, pages,

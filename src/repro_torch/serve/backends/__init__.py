@@ -8,8 +8,9 @@ chunked modes:
 
   * ``pages_needed(n)``, ``chunkable(n, batched)``,
     ``validate_prompt(n, path)``;
-  * ``prefill_group(...)`` (monolithic) and ``prefill_chunks(...)``
-    (batched chunked prefill), ``decode_step(...)``;
+  * ``prefill_group(...)`` (monolithic), ``prefill_chunks(...)``
+    (batched chunked prefill) and ``prefill_chunk(...)`` (per-job chunked
+    prefill), ``decode_step(...)``;
   * the slot lifecycle: ``alloc_slot``, ``slot_filled(slot, n,
     snapshot=None)``, ``retire``, ``preempt_snapshot``, ``invalidate``;
   * the prefix cache: ``supports_prefix_cache``, ``prefix_snapshot``,
@@ -22,8 +23,10 @@ chunked modes:
     [input, drafts...], tokens [k + 1, S]) and ``rollback(commits,
     active)`` (state back to ``commits`` tokens past the round's start).
 
-Per-job chunk prefill raises ``NotImplementedError``: it is not ported yet
-(ROADMAP).
+`for_arch` serves the dense family (`backends.mita.MiTABackend`, paged
+MiTA pools) and the recurrent ones (`backends.recurrent`: ``ssm`` on
+`Mamba2Backend`, ``hybrid`` on `RGLRUBackend`); `resolve` gives a bare
+`ModelConfig` the MiTA backend and refuses the rest, as the reference.
 """
 
 from __future__ import annotations
@@ -50,9 +53,6 @@ BACKEND_STAT_KEYS = frozenset({
     "paged_kernel_fallbacks", "finalize_kernel_fallbacks",
 })
 STATS_SCHEMA = ENGINE_STAT_KEYS | BACKEND_STAT_KEYS
-
-NOT_PORTED = "not ported yet (ROADMAP, next slice)"
-
 
 def sample_host(logits, rid: int, index: int, temperature: float,
                 key) -> int:
@@ -85,6 +85,7 @@ class BackendBase:
 
     def __init__(self, params: Any, cfg: Any, ecfg: Any):
         self.params = params
+        self.model_cfg = cfg
         self.ecfg = ecfg
         self.decode_dispatches = 0
         self._dirty = True
@@ -110,13 +111,6 @@ class BackendBase:
 
     def preempt_snapshot(self, slot: int) -> Any:
         return None
-
-    def prefill_chunk(self, *args, **kwargs):
-        raise NotImplementedError(
-            f"{self.name} per-job prefill_chunk: {NOT_PORTED}")
-
-    def prefill_chunks(self, *args, **kwargs):
-        raise NotImplementedError(f"{self.name} prefill_chunks: {NOT_PORTED}")
 
     def prefix_snapshot(self, slot: int, n_windows: int) -> list:
         raise NotImplementedError(
@@ -163,22 +157,34 @@ class BackendBase:
 
 
 def resolve(params: Any, cfg: Any, ecfg: Any, device=None) -> BackendBase:
-    """Default backend for a bare `ModelConfig`: the paged MiTA backend."""
+    """Default backend for a bare `ModelConfig`: the paged MiTA backend.
+    Recurrent architectures carry no marker on `ModelConfig` alone: they
+    are built by `for_arch` (the registry's family decides)."""
     attn = getattr(getattr(cfg, "attn", None), "backend", None)
     if attn in ("mita", "mita_ref"):
         from repro_torch.serve.backends.mita import MiTABackend
         return MiTABackend(params, cfg, ecfg, device=device)
-    raise ValueError(f"no serving backend for attention backend {attn!r}")
+    raise ValueError(
+        f"no default serving backend for attention backend {attn!r}: "
+        "ServingEngine drives MiTA paged decode caches unless a backend is "
+        "passed; ssm/hybrid architectures serve through "
+        "serve.backends.for_arch (constant-size recurrent slot states)")
 
 
 def for_arch(arch: Any, params: Any, ecfg: Any, device=None) -> BackendBase:
-    """Backend for a registry `ArchConfig` (dense family only so far)."""
+    """Backend for a registry `ArchConfig`: any ported architecture with a
+    decode state serves through the same scheduler."""
     if arch.family == "dense":
         from repro_torch.serve.backends.mita import MiTABackend
         return MiTABackend(params, arch.model, ecfg, device=device)
-    raise NotImplementedError(
-        f"family {arch.family!r} has no ported serving backend "
-        "(ROADMAP A.10 / A.12)")
+    if arch.family == "ssm":
+        from repro_torch.serve.backends.recurrent import Mamba2Backend
+        return Mamba2Backend(params, arch.model, ecfg, device=device)
+    if arch.family == "hybrid":
+        from repro_torch.serve.backends.recurrent import RGLRUBackend
+        return RGLRUBackend(params, arch.model, ecfg, device=device)
+    raise ValueError(f"family {arch.family!r} has no serving backend "
+                     "(ROADMAP A.12)")
 
 
 __all__ = ["BackendBase", "resolve", "for_arch", "sample_host",

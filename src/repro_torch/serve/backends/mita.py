@@ -7,7 +7,9 @@ the scheduler tensors.  Per engine step it runs at most:
   * `prefill_group`  — monolithic prefill of an admission group, packed
     into the group's slots and pages (``prefill_chunk`` = 0);
   * `prefill_chunks` — one chunk for every prefilling slot in one call
-    (batched chunked prefill: the chunk-prefill CUDA kernel on the card);
+    (batched chunked prefill: the chunk-prefill CUDA kernel on the card),
+    or `prefill_chunk` — one chunk of one slot (the per-job mode, plain
+    PyTorch as the reference's per-job op is plain XLA);
   * `decode_step`    — one fused step for the whole slot batch; in external
     finalize mode the window-boundary finalize runs inside it for the
     slots that are due, decided on the host (``due`` is known there) so
@@ -84,8 +86,8 @@ class MiTABackend(BackendBase):
 
     def chunkable(self, n_train: int, batched: bool) -> bool:
         """The batched chunk program serves any prompt (the n//m landmark
-        quirk is per-slot data); the per-job program (not ported) would
-        need window-aligned prompts."""
+        quirk is per-slot data); the per-job program needs window-aligned
+        prompts (the engine routes the rest through `prefill_group`)."""
         return batched or n_train % self.window == 0
 
     def validate_prompt(self, n: int, path: str) -> None:
@@ -136,6 +138,22 @@ class MiTABackend(BackendBase):
                                         device=self.device)
                 tfm.pack_prefill_into_states(self.states, pre_i, slots[i],
                                              pages, self.cfg)
+            return logits.cpu()
+
+    def prefill_chunk(self, slot: int, pt_row: np.ndarray, toks: np.ndarray,
+                      t0: int, n_valid: int, n_train: int) -> np.ndarray:
+        """Per-job mode: one chunk of one slot (`models.transformer.
+        lm_prefill_chunk`).  Returns its logits [V] at the last valid
+        position."""
+        dev = self.device
+        with torch.inference_mode():
+            logits, self.states = tfm.lm_prefill_chunk(
+                self.params, self.states,
+                torch.as_tensor(np.asarray(toks), dtype=torch.int32,
+                                device=dev), int(slot),
+                torch.as_tensor(np.asarray(pt_row), dtype=torch.int32,
+                                device=dev), int(t0), int(n_valid),
+                int(n_train), self.cfg)
             return logits.cpu()
 
     def prefill_chunks(self, slot_ids: list[int], toks: np.ndarray,

@@ -11,7 +11,10 @@ the backend is asked for at most two dispatches:
     (``prefill_chunk`` = 0);
   * ``prefill_chunks`` — ONE call advancing every prefilling slot by one
     chunk (``prefill_chunk`` > 0, batched mode): long prompts admit
-    incrementally, interleaved with the decode batch;
+    incrementally, interleaved with the decode batch; in per-job mode
+    (the reference's legacy baseline) ``prefill_chunk`` advances only the
+    best-keyed job, and a prompt the backend's chunk program cannot start
+    goes through ``prefill_group`` instead;
   * ``decode_step``    — ONE fused step for the whole slot batch regardless
     of per-request progress (positions, page tables and activity are data).
 
@@ -31,8 +34,7 @@ Greedy tokens are exact w.r.t. the backend's static reference: a request
 decoded here emits the tokens it would emit in a fixed batch, preempted or
 not.  Tempered tokens are keyed by (request id, token index), so they do
 not depend on batching either; speculative streams are bit-identical to
-``spec_k = 0`` at any temperature.  The per-job prefill mode is not ported
-yet; `EngineConfig` rejects it.
+``spec_k = 0`` at any temperature.
 """
 
 from __future__ import annotations
@@ -92,14 +94,15 @@ class EngineConfig:
 
     ``prefill_chunk`` = 0 keeps monolithic prefill (full page budget up
     front, no preemption); > 0 (a multiple of the backend's window)
-    enables batched chunked prefill AND priority preemption.
+    enables chunked prefill AND priority preemption, one dispatch a step:
+    ``prefill_mode="batched"`` advances every prefilling slot in it,
+    ``"per-job"`` only the best-keyed job.
     ``reserve_pages`` may only be claimed by decode appends.
     ``prefix_cache`` (chunked mode only) keeps a radix cache of committed
     window-aligned prompt prefixes.  ``spec_k`` > 0 turns on lossless
     speculative decoding (requires ``sample_device="fused"`` and a backend
     with ``supports_speculation``); ``spec_mode`` picks the backend's
-    drafting strategy ("auto": its native one).
-    ``prefill_mode="per-job"`` is not ported yet."""
+    drafting strategy ("auto": its native one)."""
     n_slots: int = 8
     n_pages: int = 64
     pages_per_slot: int = 8
@@ -107,17 +110,10 @@ class EngineConfig:
     prefill_chunk: int = 0
     reserve_pages: int = 0
     sample_device: str = "host"     # host | fused
-    prefill_mode: str = "batched"   # batched (per-job is not ported)
+    prefill_mode: str = "batched"   # batched | per-job (chunk dispatch)
     prefix_cache: bool = False
     spec_k: int = 0                 # speculative tokens per round (0 = off)
     spec_mode: str = "auto"         # backend drafting strategy
-
-    def __post_init__(self):
-        if self.prefill_mode == "per-job":
-            raise NotImplementedError(
-                "EngineConfig prefill_mode='per-job' is not ported yet: the "
-                "per-job chunk prefill comes in a later slice of the port "
-                "(ROADMAP)")
 
 
 class _PageAllocator:
@@ -236,7 +232,7 @@ class ServingEngine:
             raise ValueError("reserve_pages must be >= 0")
         if ecfg.sample_device not in ("host", "fused"):
             raise ValueError(f"unknown sample_device {ecfg.sample_device!r}")
-        if ecfg.prefill_mode != "batched":
+        if ecfg.prefill_mode not in ("batched", "per-job"):
             raise ValueError(f"unknown prefill_mode {ecfg.prefill_mode!r}")
         if ecfg.prefix_cache and not ecfg.prefill_chunk:
             raise ValueError("prefix_cache requires chunked prefill "
@@ -352,6 +348,37 @@ class ServingEngine:
         s.update(self.backend.stats())
         return s
 
+    def warmup(self, prompt_lens: list[int]) -> None:
+        """Run every path the serving loop can take for the given prompt
+        lengths once on a scratch engine (this engine's pool and scheduler
+        state are untouched): the decode step, the chunk program (per-job
+        mode: one job at a time; batched mode: one row width per power of
+        two, submitted together so that they prefill concurrently) and
+        each monolithic prefill group size.  On the card this builds the
+        kernels and warms the libraries before the first request."""
+        scratch = ServingEngine(self.params, self.cfg, self.ecfg,
+                                backend=self.backend.fresh())
+        k_max = 1 if (self.ecfg.prefill_chunk
+                      and self.ecfg.prefill_mode == "per-job") \
+            else self.ecfg.n_slots
+        if self.ecfg.prefill_chunk and self.ecfg.prefill_mode == "batched":
+            # no path depends on the prompt length in batched chunked mode
+            prompt_lens = [max(prompt_lens)] if prompt_lens else []
+        for n in sorted(set(prompt_lens)):
+            # probes claim the minimal page budget a real request of this
+            # length would, so warmup never rejects a servable length
+            gen = 2 if self.backend.pages_needed(n + 2) \
+                <= self.ecfg.pages_per_slot else 1
+            sizes, k = [], 1
+            while k <= k_max:
+                sizes.append(k)
+                k *= 2
+            if sizes[-1] != k_max:
+                sizes.append(k_max)
+            for k in sizes:
+                scratch.run([Request(rid=-1 - i, prompt=np.zeros(n, np.int32),
+                                     max_new_tokens=gen) for i in range(k)])
+
     # ----------------------------------------------------------- scheduler --
 
     def submit(self, req: Request) -> bool:
@@ -382,15 +409,20 @@ class ServingEngine:
                 f"slot owns {self.ecfg.pages_per_slot} "
                 f"(max context {self.ecfg.pages_per_slot * self.w})")
         n = len(req.prompt)
+        batched = self.ecfg.prefill_mode == "batched"
         if not self.ecfg.prefill_chunk:
             self.backend.validate_prompt(n, "monolithic")
-        elif self.backend.chunkable(n, True):
+        elif self.backend.chunkable(n, batched):
             self.backend.validate_prompt(n, "chunked")
-        else:
+        elif batched:
+            # batched chunked mode has no monolithic route: shed now
             raise ValueError(
                 f"prompt length {n} is not servable: the "
                 f"{self.backend.name} backend cannot start it through the "
-                "batched chunk program")
+                "batched chunk program (use prefill_mode='per-job' or "
+                "monolithic prefill)")
+        else:
+            self.backend.validate_prompt(n, "monolithic")
 
     def _reject(self, req: Request, why: str) -> None:
         self.n_rejected += 1
@@ -583,6 +615,9 @@ class ServingEngine:
         n_train = len(entry.req.prompt)
         if n_train % self.w:
             return []
+        if self.ecfg.prefill_mode == "per-job" \
+                and not self.backend.chunkable(n_train, batched=False):
+            return []               # the monolithic route packs from zero
         limit = min(n_train, self._entry_total(entry) - 1) // self.w
         if limit <= 0:
             return []
@@ -593,7 +628,13 @@ class ServingEngine:
     def _first_chunk_pages(self, entry: _WaitEntry,
                            shared_pages: int = 0) -> int:
         """NEW pages the first prefill dispatch of this entry needs beyond
-        ``shared_pages`` attached from the prefix cache."""
+        ``shared_pages`` attached from the prefix cache: one chunk's worth,
+        or the whole prompt when, in per-job mode, the backend's chunk
+        program cannot start it and it goes through the monolithic path."""
+        n_train = len(entry.req.prompt)
+        if self.ecfg.prefill_mode == "per-job" \
+                and not self.backend.chunkable(n_train, batched=False):
+            return self.backend.pages_needed(n_train)
         t0 = shared_pages * self.w
         first = min(self.ecfg.prefill_chunk, self._entry_total(entry) - t0)
         return self.backend.pages_needed(t0 + first) - shared_pages
@@ -753,11 +794,54 @@ class ServingEngine:
         return True
 
     def _advance_prefill(self, now: float) -> None:
+        """ONE prefill dispatch per engine step: batched mode advances
+        every prefilling job one chunk, per-job mode the best-keyed job."""
+        if not self.prefilling:
+            return
+        if self.ecfg.prefill_mode == "batched":
+            self._advance_prefill_batched()
+        else:
+            self._advance_prefill_per_job()
+
+    def _advance_prefill_per_job(self) -> None:
+        """Advance the best-keyed prefilling job by one dispatch: a chunk,
+        or the monolithic path for a prompt the chunk program cannot start
+        (a prompt that is not window-aligned)."""
+        slot, job = min(self.prefilling.items(),
+                        key=lambda kv: kv[1].entry.key)
+        n_total = len(job.toks)
+        if job.done == 0 and not self.backend.chunkable(job.n_train,
+                                                        batched=False):
+            n = job.n_train
+            if not self._grow_pages(slot, self.backend.pages_needed(n)):
+                return
+            logits = self.backend.prefill_group(
+                job.toks[None, :n].astype(np.int32), [slot],
+                [self.slot_pages[slot]])
+            job.done = n
+            self.prefill_dispatches += 1
+            if job.done == n_total:
+                self._finish_prefill(slot, job, logits[0])
+            return
+        chunk = self.ecfg.prefill_chunk
+        t0 = job.done
+        nv = min(chunk, n_total - t0)
+        if not self._grow_pages(slot, self.backend.pages_needed(t0 + nv)):
+            return
+        toks = np.zeros(chunk, np.int32)
+        toks[:nv] = job.toks[t0:t0 + nv]
+        logits = self.backend.prefill_chunk(
+            slot, self.page_table[slot], toks, t0, nv, job.n_train)
+        self.n_chunks += 1
+        self.prefill_dispatches += 1
+        job.done = t0 + nv
+        if job.done == n_total:
+            self._finish_prefill(slot, job, logits)
+
+    def _advance_prefill_batched(self) -> None:
         """ONE dispatch advances every prefilling job one chunk.  Jobs that
         cannot claim their next pages sit this step out (and may have
         yielded in `_grow_pages`); growth runs best-key first."""
-        if not self.prefilling:
-            return
         chunk = self.ecfg.prefill_chunk
         advancing: list[tuple[int, _PrefillJob, int]] = []
         for slot, job in sorted(self.prefilling.items(),

@@ -482,3 +482,134 @@ def test_chunk_dispatch_routes_by_device():
     with pytest.raises(ValueError, match="CUDA"):
         mcp.mita_chunk_prefill_fused(q, kv, kv, *rows, st.k_pool, st.v_pool,
                                      *sched, **kw)
+
+
+# ------------------------------------------------------------- per-job mode --
+
+@pytest.mark.parametrize("chunk,external", [(16, True), (12, True),
+                                            (16, False)],
+                         ids=["aligned", "resume", "inline"])
+def test_mita_chunk_prefill_per_job_vs_jax(chunk, external):
+    """The per-job op (`mita_chunk_prefill`, plain PyTorch: the reference's
+    op is plain XLA) beside the JAX op: slot 1 of 3 over a shuffled pool,
+    a prompt of 3 windows (n_train 24) then 10 generated positions (the
+    recompute shape); chunks of 12 resume an open window from ``q_sum``.
+    Outputs at valid positions and every state field after each chunk."""
+    cfg_j = jdec.DecodeConfig(window=W, k=K, external_finalize=external)
+    cfg_t = tdec.DecodeConfig(window=W, k=K, external_finalize=external)
+    hkv, g, d, m_slot, n_pages, slot = 2, 2, 16, 5, 16, 1
+    n_train, n_total = 24, 34
+    rng = np.random.default_rng(9)
+    table = rng.permutation(n_pages)[:m_slot].astype(np.int32)
+    q = rng.standard_normal((hkv, g, n_total, d)).astype(np.float32)
+    k = rng.standard_normal((hkv, n_total, d)).astype(np.float32)
+    v = rng.standard_normal((hkv, n_total, d)).astype(np.float32)
+    st_j = jdec.init_paged_state(hkv, d, n_pages, 3, m_slot, cfg_j,
+                                 jnp.float32)
+    st_t = paged_state_from_jax(jax.device_get(st_j))
+    step = jax.jit(jdec.mita_chunk_prefill, static_argnames="cfg")
+    done = 0
+    while done < n_total:
+        nv = min(chunk, n_total - done)
+        qc = np.zeros((hkv, g, chunk, d), np.float32)
+        kc = np.zeros((hkv, chunk, d), np.float32)
+        vc = np.zeros((hkv, chunk, d), np.float32)
+        qc[:, :, :nv] = q[:, :, done:done + nv]
+        kc[:, :nv] = k[:, done:done + nv]
+        vc[:, :nv] = v[:, done:done + nv]
+        o_j, st_j = step(st_j, jnp.asarray(qc), jnp.asarray(kc),
+                         jnp.asarray(vc), jnp.asarray(table), np.int32(slot),
+                         np.int32(done), np.int32(nv), np.int32(n_train),
+                         cfg=cfg_j)
+        o_t, st_t = tdec.mita_chunk_prefill(
+            st_t, _t(qc), _t(kc), _t(vc), _t(table), slot, done, nv,
+            n_train, cfg_t)
+        np.testing.assert_allclose(o_t.numpy()[:, :, :nv],
+                                   np.asarray(o_j)[:, :, :nv],
+                                   err_msg=f"out t0 {done}", **TOL)
+        _assert_state(st_t, st_j, f"t0 {done}")
+        done += nv
+
+
+def test_lm_prefill_chunk_per_job_vs_jax(smoke):
+    """`lm_prefill_chunk` (one slot, one chunk a call) beside the JAX
+    function: a 48-token prompt in chunks of 32 into slot 2 of 3; logits
+    and every layer's state after each chunk."""
+    jc, tc, jp, tp = smoke
+    m_slot, n_pages, nc, slot = 4, 10, 32, 2
+    jst = jtfm.init_paged_states(jc, 3, n_pages, m_slot)
+    tst = paged_state_from_jax(jax.device_get(jst))
+    rng = np.random.default_rng(12)
+    prompt = rng.integers(0, jc.vocab, 48).astype(np.int32)
+    table = rng.permutation(n_pages)[:m_slot].astype(np.int32)
+    fn = jax.jit(lambda p, s, *a: jtfm.lm_prefill_chunk(p, s, *a, jc))
+    done = 0
+    while done < 48:
+        nv = min(nc, 48 - done)
+        toks = np.zeros(nc, np.int32)
+        toks[:nv] = prompt[done:done + nv]
+        lj, jst = fn(jp, jst, jnp.asarray(toks), np.int32(slot),
+                     jnp.asarray(table), np.int32(done), np.int32(nv),
+                     np.int32(48))
+        lt, tst = ttfm.lm_prefill_chunk(tp, tst, _t(toks), slot, _t(table),
+                                        done, nv, 48, tc)
+        np.testing.assert_allclose(lt.numpy(), np.asarray(lj), atol=1e-4,
+                                   rtol=1e-4)
+        _assert_state(tst, jst, f"t0 {done}")
+        done += nv
+
+
+@pytest.mark.parametrize("n", [48, 12], ids=["aligned", "nonaligned"])
+def test_per_job_engine_matches_jax_engine_and_static(smoke, n):
+    """``prefill_mode="per-job"``: one job's chunk per dispatch, a
+    non-aligned prompt (12: not window-aligned) through the monolithic
+    route; greedy tokens equal the JAX per-job engine's and the port's
+    `static_generate`."""
+    jc, tc, jp, tp = smoke
+    gen = 20
+    prompts = np.random.default_rng(n + 1).integers(0, jc.vocab, (3, n)) \
+        .astype(np.int32)
+    pages = -(-(n + gen) // SW)
+    kw = dict(n_slots=2, pages_per_slot=pages, n_pages=3 * pages + 2,
+              prefill_chunk=SW, prefill_mode="per-job")
+    jdone = JServingEngine(jp, jc, JEngineConfig(**kw)).run(
+        [JRequest(rid=i, prompt=p, max_new_tokens=gen)
+         for i, p in enumerate(prompts)])
+    eng = _engine(tp, tc, **kw)
+    done = eng.run([Request(rid=i, prompt=p, max_new_tokens=gen)
+                    for i, p in enumerate(prompts)])
+    ref = eng.backend.static_reference(prompts, gen)
+    st = eng.stats()
+    if n % SW == 0:
+        assert st["chunks"] == st["prefill_dispatches"] == 3 * (n // SW)
+    else:
+        assert st["chunks"] == 0 and st["prefill_dispatches"] == 3
+    for i, (f, jf) in enumerate(zip(done, jdone)):
+        np.testing.assert_array_equal(f.tokens, np.asarray(jf.tokens),
+                                      err_msg=f"req {i} vs JAX engine")
+        np.testing.assert_array_equal(f.tokens, ref[i],
+                                      err_msg=f"req {i} vs static")
+
+
+def test_per_job_preemption_round_trip(smoke):
+    """Per-job mode: a victim evicted mid-decode and rebuilt chunk by chunk
+    from prompt + emitted tokens re-emits its unpreempted stream."""
+    _, tc, _, tp = smoke
+    rng = np.random.default_rng(31)
+    victim = rng.integers(0, tc.vocab, 16).astype(np.int32)
+    kw = dict(n_slots=2, pages_per_slot=6, n_pages=8, prefill_chunk=2 * SW,
+              prefill_mode="per-job")
+    ref = _engine(tp, tc, **kw).run(
+        [Request(rid=0, prompt=victim, max_new_tokens=24)])[0].tokens
+    eng = _engine(tp, tc, **kw)
+    eng.submit(Request(rid=0, prompt=victim, max_new_tokens=24))
+    for _ in range(6):
+        eng.step()
+    for i in (1, 2):
+        eng.submit(Request(rid=i, prompt=rng.integers(0, tc.vocab, 16).astype(
+            np.int32), max_new_tokens=24, priority=5))
+    while eng.step():
+        pass
+    done = sorted(eng.finished, key=lambda f: f.rid)
+    assert len(done) == 3 and eng.n_preemptions >= 1
+    np.testing.assert_array_equal(done[0].tokens, ref)

@@ -19,6 +19,12 @@ The battery (port backend, CPU, float32, the reference's MiTA cell:
     engine consistent: draining it releases everything and every stream
     still equals the static reference.
 
+The same battery runs on the reference's two recurrent cells (``mamba2``:
+2 layers, d_model 32, one SSD head; ``rglru``: one super-block, d_model 64,
+4 heads / 2 KV heads, ``mita_ref`` attention, window 8) through the port's
+`Mamba2Backend` and `RGLRUBackend`, speculation in both recurrent modes
+(``self`` never rejects, ``stress`` always rolls back).
+
 Chaos under a supervisor and the schedule fuzzer wait for the supervision
 slice.
 
@@ -41,6 +47,8 @@ import torch
 from benchmarks.common import tiny_lm_cfg
 from benchmarks.serve_bench import _interference_trace, _trace
 from repro.core.mita_decode import window_aligned
+from repro.models import mamba2 as jm2
+from repro.models import rglru as jrg
 from repro.models import transformer as jtfm
 from repro.models.modules import AttnConfig as JAttnConfig
 from repro.models.modules import ModelConfig as JModelConfig
@@ -52,6 +60,7 @@ from repro_torch.serve import EngineConfig, Request, ServingEngine
 from repro_torch.serve.backends import (BACKEND_STAT_KEYS, ENGINE_STAT_KEYS,
                                         STATS_SCHEMA, BackendBase)
 from repro_torch.serve.backends.mita import MiTABackend
+from repro_torch.serve.backends.recurrent import Mamba2Backend, RGLRUBackend
 
 W = 8
 
@@ -277,6 +286,174 @@ def test_midstep_exception_leaks_no_pages(cell, chunk, op):
         np.testing.assert_array_equal(
             f.tokens, ref.static_reference(r.prompt[None],
                                            r.max_new_tokens)[0])
+
+
+# ------------------------------------------------------ the recurrent cells
+
+@pytest.fixture(scope="module", params=("mamba2", "rglru"))
+def rcell(request):
+    """``(name, cfg, params, engine factory, backend class)`` of the
+    reference's recurrent cells, on the port."""
+    key = jax.random.PRNGKey(0)
+    if request.param == "mamba2":
+        jc = JModelConfig(n_layers=2, d_model=32, n_heads=1, n_kv=1, d_ff=0,
+                          vocab=97, attn=JAttnConfig(window=W,
+                                                     backend="full"))
+        jp, mk = jm2.mamba_init(key, jc), Mamba2Backend
+    else:
+        jc = JModelConfig(n_layers=3, d_model=64, n_heads=4, n_kv=2,
+                          d_ff=128, vocab=97,
+                          attn=JAttnConfig(window=W, k=W,
+                                           backend="mita_ref"))
+        jp, mk = jrg.rg_init(key, jc), RGLRUBackend
+    cfg = _port_cfg(jc)
+    params = params_from_jax(jax.device_get(jp))
+
+    def engine(ecfg, backend=None):
+        backend = backend or mk(params, cfg, ecfg, device="cpu")
+        return ServingEngine(params, cfg, ecfg, backend=backend)
+
+    return request.param, cfg, params, engine, mk
+
+
+def test_recurrent_cell_reference_parity(rcell):
+    """Chunked admission with slot reuse: every greedy stream equals the
+    backend's static reference."""
+    name, cfg, params, engine, _ = rcell
+    reqs = _requests(cfg.vocab, [(W, 4), (2 * W, 7), (3 * W, 3), (W, 6)])
+    eng = engine(EngineConfig(n_slots=2, pages_per_slot=5, n_pages=12,
+                              prefill_chunk=W))
+    done = eng.run(reqs)
+    assert len(done) == len(reqs)
+    ref = eng.backend.fresh()
+    for f, r in zip(done, reqs):
+        np.testing.assert_array_equal(
+            f.tokens, ref.static_reference(r.prompt[None],
+                                           r.max_new_tokens)[0],
+            err_msg=f"{name} req {f.rid}")
+
+
+def test_recurrent_cell_preempt_recompute_parity(rcell):
+    name, cfg, params, engine, _ = rcell
+    rng = np.random.default_rng(3)
+    victim = rng.integers(0, cfg.vocab, 2 * W).astype(np.int32)
+    ecfg = EngineConfig(n_slots=2, pages_per_slot=6, n_pages=8,
+                        prefill_chunk=2 * W)
+    ref = engine(ecfg).run(
+        [Request(rid=0, prompt=victim, max_new_tokens=16)])[0].tokens
+    eng = engine(ecfg)
+    eng.submit(Request(rid=0, prompt=victim, max_new_tokens=16, priority=0))
+    for _ in range(6):
+        eng.step()
+    hp = rng.integers(0, cfg.vocab, (2, 2 * W)).astype(np.int32)
+    for i in (1, 2):
+        eng.submit(Request(rid=i, prompt=hp[i - 1], max_new_tokens=16,
+                           priority=5))
+    while eng.step():
+        pass
+    done = sorted(eng.finished, key=lambda f: f.rid)
+    assert len(done) == 3
+    assert eng.n_preemptions >= 1, "scenario no longer triggers preemption"
+    np.testing.assert_array_equal(done[0].tokens, ref,
+                                  err_msg=f"{name} victim diverged")
+
+
+def test_recurrent_cell_retire_releases_everything(rcell):
+    name, cfg, params, engine, _ = rcell
+    ecfg = EngineConfig(n_slots=3, pages_per_slot=5, n_pages=15,
+                        prefill_chunk=W)
+    eng = engine(ecfg)
+    eng.run(_requests(cfg.vocab, [(W, 3), (2 * W, 5), (W, 2), (2 * W, 4)]))
+    assert eng.alloc.in_use == 0 and eng.alloc.refs == {}, name
+    assert sorted(eng.alloc.free) == list(range(ecfg.n_pages))
+    assert not eng.active.any() and not eng.slot_pages
+    assert sorted(eng.free_slots) == list(range(ecfg.n_slots))
+
+
+def test_recurrent_cell_stats_schema_is_exact(rcell):
+    name, cfg, params, engine, _ = rcell
+    eng = engine(EngineConfig(n_slots=2, pages_per_slot=4, n_pages=8,
+                              prefill_chunk=W))
+    eng.run(_requests(cfg.vocab, [(W, 2)]))
+    st = eng.stats()
+    assert set(st) == STATS_SCHEMA, (set(st) ^ STATS_SCHEMA)
+    assert set(eng.backend.stats()) == BACKEND_STAT_KEYS
+    assert st["backend"] == name
+    assert st["prefill_kernel_fallbacks"] == 0
+
+
+@pytest.mark.parametrize("temperature", [0.0, 0.8])
+def test_recurrent_cell_speculative_parity_all_modes(rcell, temperature):
+    """spec_k = 3 in the self and stress modes: streams equal the port's
+    spec_k = 0 run; self drafts all verify, stress drafts roll back."""
+    name, cfg, params, engine, _ = rcell
+    specs = [(W, 5), (2 * W - 3, 9), (2 * W, 4), (5, 11)]
+    base_ecfg = EngineConfig(n_slots=3, pages_per_slot=4, n_pages=24,
+                             prefill_chunk=W, sample_device="fused")
+    base = _tokens(engine(base_ecfg).run(
+        _requests(cfg.vocab, specs, temperature=temperature)))
+    for mode in ("self", "stress"):
+        eng = engine(dataclasses.replace(base_ecfg, spec_k=3,
+                                         spec_mode=mode))
+        got = _tokens(eng.run(_requests(cfg.vocab, specs,
+                                        temperature=temperature)))
+        assert got == base, f"{name} spec_mode={mode}"
+        st = eng.stats()
+        assert st["spec_accepted"] <= st["spec_drafted"]
+        assert st["spec_rollbacks"] \
+            <= st["spec_drafted"] - st["spec_accepted"]
+        if mode == "self":
+            assert st["spec_rollbacks"] == 0
+            assert st["spec_accepted"] == st["spec_drafted"] > 0
+        else:
+            assert st["spec_rollbacks"] > 0
+
+
+def test_recurrent_cell_speculation_contract_surface(rcell):
+    name, cfg, params, engine, mk = rcell
+    eng = engine(EngineConfig(n_slots=2, pages_per_slot=4, n_pages=8))
+    assert eng.backend.supports_speculation
+    h = eng.backend.draft_horizon(np.array([0, 5, W - 1, W, 3 * W + 2]))
+    assert h.shape == (5,) and np.issubdtype(h.dtype, np.integer)
+    assert (h >= 0).all()
+    with pytest.raises(ValueError, match="fused"):
+        engine(EngineConfig(n_slots=2, pages_per_slot=4, n_pages=8,
+                            spec_k=2))
+    with pytest.raises(ValueError, match="self"):
+        mk(params, cfg, EngineConfig(spec_k=2, spec_mode="landmark",
+                                     sample_device="fused"), device="cpu")
+
+
+@pytest.mark.parametrize("chunk,op", [(0, "prefill_group"),
+                                      (W, "prefill_chunks"),
+                                      (W, "decode_step")])
+def test_recurrent_cell_midstep_exception_leaks_no_pages(rcell, chunk, op):
+    name, cfg, params, engine, mk = rcell
+    specs = [(W, 3), (2 * W, 4)]
+    ecfg = EngineConfig(n_slots=2, pages_per_slot=4, n_pages=10,
+                        prefill_chunk=chunk)
+    inner = mk(params, cfg, ecfg, device="cpu")
+    fb = _FaultOnce(inner, op)
+    eng = engine(ecfg, backend=fb)
+    for r in _requests(cfg.vocab, specs):
+        eng.submit(r)
+    if op == "decode_step":
+        while not eng.active.any():
+            eng.step()
+    fb.armed = True
+    with pytest.raises(_Fault):
+        while eng.step():
+            pass
+    while eng.step():
+        pass
+    assert eng.alloc.in_use == 0 and eng.alloc.refs == {}, f"{name}/{op}"
+    ref = inner.fresh()
+    for f, r in zip(sorted(eng.finished, key=lambda f: f.rid),
+                    _requests(cfg.vocab, specs)):
+        np.testing.assert_array_equal(
+            f.tokens, ref.static_reference(r.prompt[None],
+                                           r.max_new_tokens)[0],
+            err_msg=f"{name}/{op}: stream diverged after fault")
 
 
 # ------------------------------------------------------------ main-path gate

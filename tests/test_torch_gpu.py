@@ -744,6 +744,140 @@ def test_expert_kernel_is_forward_only(cuda_device):
         mea.mita_expert_attention(q.requires_grad_(), a, ke, ve, valid)
 
 
+def _hybrid_expert_inputs(dtype, dev, ns=1024, seed=11):
+    """recurrentgemma-9b's routed branch: lead [1, 1, 16] over one KV head
+    (a broadcast KV lead [1, 1, 1]), head dim 256, K = 128, m = ns // 128
+    experts; causal routing (the first window's rows inactive), sorted."""
+    rng = np.random.default_rng(seed)
+    m = ns // 128
+    vis = (np.arange(ns) + 1) // 128
+    draw = rng.random((1, 1, 16, ns))
+    a = np.where(vis > 0, (draw * vis).astype(np.int64), m)
+    a = np.sort(a, -1).astype(np.int32)
+
+    def rnd(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32)).to(dev, dtype)
+
+    valid = rng.random((1, 1, 1, m, 128)) > 0.05
+    return (rnd(1, 1, 16, ns, 256), torch.from_numpy(a).to(dev),
+            rnd(1, 1, 1, m, 128, 256), rnd(1, 1, 1, m, 128, 256),
+            torch.from_numpy(valid).to(dev))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_expert_kernel_head_dim_256(cuda_device, dtype):
+    """Head dim 256 (recurrentgemma-9b), on the CUDA cores in both dtypes:
+    within 1e-5 (float32) and 2e-2 (bf16, against the plain version with
+    P rounded to bf16) of the plain version; one launch; inactive rows
+    exactly empty."""
+    args = _hybrid_expert_inputs(dtype, cuda_device)
+    assert mea.expert_path(dtype, 256) == mea.CUDA_CORES
+    ref = mea.expert_attention_plain(*args,
+                                     round_p=dtype == torch.bfloat16)
+    ops.reset_launch_counts()
+    got = ops.routed_expert_partial(*args)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["mita_expert_attention"] == 1
+    tol = TOL[dtype]
+    for x, y in zip(_normalised(*got), _normalised(*ref)):
+        torch.testing.assert_close(x.float(), y.float(), atol=tol, rtol=tol)
+    inactive = args[1] >= 8
+    assert torch.all(got[0][inactive] == 0)
+    assert torch.all(got[2][inactive] == 0)
+    assert torch.all(got[1][inactive] == torch.finfo(torch.float32).min)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_expert_kernel_head_dim_256_control_and_bit_invariance(cuda_device,
+                                                               dtype):
+    """At head dim 256: keys 64..127 of expert 1 dropped put the rows that
+    use it outside the tolerance; shuffled rows give the sorted run's
+    (o, m, l) bits after un-permuting."""
+    q, a, ke, ve, valid = _hybrid_expert_inputs(dtype, cuda_device, seed=12)
+    tol = TOL[dtype]
+    ro, _, rl = mea.expert_attention_plain(q, a, ke, ve, valid,
+                                           round_p=dtype == torch.bfloat16)
+    dropped = valid.clone()
+    dropped[..., 1, 64:128] = False
+    o, _, l = mea.mita_expert_attention(q, a, ke, ve, dropped)
+    use = a == 1
+    x = o.float()[use] / l[use][:, None]
+    y = ro.float()[use] / rl[use][:, None]
+    assert (x - y).abs().max().item() > tol
+    assert not torch.allclose(x, y, atol=tol, rtol=tol)
+    base = mea.mita_expert_attention(q, a, ke, ve, valid)
+    perm = torch.from_numpy(np.random.default_rng(0).permutation(
+        q.shape[-2])).to(cuda_device)
+    inv = torch.argsort(perm)
+    got = mea.mita_expert_attention(q[..., perm, :], a[..., perm], ke, ve,
+                                    valid)
+    assert torch.equal(got[0][..., inv, :], base[0])
+    assert torch.equal(got[1][..., inv], base[1])
+    assert torch.equal(got[2][..., inv], base[2])
+
+
+# ------------------------------------------------- recurrent models on card --
+
+def _to(tree, dev):
+    from repro_torch.core import slotted
+    return slotted.tree_map(lambda a: a.to(dev, copy=True), tree)
+
+
+def _assert_near(a, b, tol=1e-4):
+    from repro_torch.core import slotted
+    for x, y in zip(slotted.tree_leaves(a), slotted.tree_leaves(b)):
+        x = x.cpu()
+        if x.dtype in (torch.bool, torch.int32, torch.int64):
+            assert torch.equal(x, y)
+        else:
+            torch.testing.assert_close(x.float(), y.float(), atol=tol,
+                                       rtol=tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["mamba2-370m", "recurrentgemma-9b"])
+def test_recurrent_step_and_chunk_on_the_card_vs_cpu(cuda_device, arch):
+    """One chunk prefill (rows of 32, 20 and 0 valid tokens; the hybrid's
+    attention caches close two windows) and one decode step of the smoke
+    config, float32, on the card against the same functions on CPU
+    copies, within 1e-4 (matrix products reduce in another order)."""
+    from repro_torch.configs.registry import arch_params, get_arch
+    from repro_torch.models import mamba2 as m2
+    from repro_torch.models import rglru as rg
+    cfg = get_arch(arch, smoke=True).model
+    params = arch_params(get_arch(arch, smoke=True),
+                         torch.Generator().manual_seed(0), device="cpu")
+    if arch == "mamba2-370m":
+        states = m2.mamba_slot_states(cfg, 3, device="cpu")
+        chunk, step = m2.mamba_prefill_chunk, m2.mamba_decode_step
+    else:
+        states = rg.rg_slot_states(cfg, 3, 64, device="cpu")
+        chunk, step = rg.rg_prefill_chunk, rg.rg_slot_decode_step
+    rng = np.random.default_rng(1)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (3, 32)).astype(
+        np.int32))
+    t0 = torch.zeros(3, dtype=torch.int32)
+    nv = torch.tensor([32, 20, 0], dtype=torch.int32)
+    tok = torch.from_numpy(rng.integers(0, cfg.vocab, 3).astype(np.int32))
+    out = {}
+    for dev in ("cpu", cuda_device):
+        p, st = _map_params(params, dev), _to(states, dev)
+        lg, st = chunk(p, st, toks.to(dev), t0.to(dev), nv.to(dev), cfg)
+        lg2, st = step(p, st, tok.to(dev), nv.to(dev), cfg)
+        out[dev] = (lg, lg2, st)
+    for a, b in zip(out[cuda_device], out["cpu"]):
+        _assert_near(a, b)
+
+
+def _map_params(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _map_params(v, dev) for k, v in tree.items()}
+    return tree.to(dev)
+
+
 # ---------------------------------------------------------- flash attention --
 
 @pytest.mark.gpu

@@ -69,3 +69,20 @@ def test_entry_points_default_to_cuda():
             device.resolve_device()
         with pytest.raises(RuntimeError, match="cuda"):
             serve.main(["--smoke"])
+
+
+def test_recurrent_entry_points_default_to_cuda():
+    """The recurrent families' constructors and the serving CLI for them
+    run on the card unless asked for the CPU."""
+    from repro_torch.configs import registry
+    from repro_torch.launch import serve
+    from repro_torch.models import mamba2, rglru
+    from repro_torch.models import transformer as tfm
+    for fn in (registry.arch_params, mamba2.mamba_init,
+               mamba2.mamba_slot_states, rglru.rg_init, rglru.rg_slot_states,
+               tfm.init_slot_attn_state):
+        assert inspect.signature(fn).parameters["device"].default == "cuda"
+    if not torch.cuda.is_available():
+        for arch in ("mamba2-370m", "recurrentgemma-9b"):
+            with pytest.raises(RuntimeError, match="cuda"):
+                serve.main(["--arch", arch, "--smoke"])

@@ -133,15 +133,18 @@ def test_cancel_and_deadline(setup):
 @pytest.mark.parametrize("field", ["spec_k", "prefill_mode",
                                    "prefill_chunk", "prefix_cache"])
 def test_engine_config_rejects_next_slice_features(setup, field):
-    """The per-job prefill mode is not ported yet (NotImplementedError).
-    Speculation is, and is refused as in the reference without fused
-    sampling or with a negative ``spec_k``; so are a chunk that is not a
-    multiple of the window and a prefix cache without chunked prefill
-    (ValueError)."""
+    """The engine refuses, as the reference does (ValueError): an unknown
+    prefill mode (both "batched" and "per-job" are ported), speculation
+    without fused sampling or with a negative ``spec_k``, a chunk that is
+    not a multiple of the window and a prefix cache without chunked
+    prefill."""
     _, tc, _, tp, _ = setup
     if field == "prefill_mode":
-        with pytest.raises(NotImplementedError, match="not ported"):
-            EngineConfig(prefill_mode="per-job")
+        ServingEngine(tp, tc, EngineConfig(prefill_mode="per-job",
+                                           prefill_chunk=W), device="cpu")
+        with pytest.raises(ValueError, match="unknown prefill_mode"):
+            ServingEngine(tp, tc, EngineConfig(prefill_mode="legacy"),
+                          device="cpu")
         return
     if field == "spec_k":
         with pytest.raises(ValueError, match="fused"):
