@@ -42,6 +42,11 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
        4096; the CUDA-core wide instance in both dtypes): within 1e-5 /
        2e-2 of its plain version, shuffled rows bit for bit, a control
        with keys 64..127 of an expert dropped that must fail, timed;
+     * B.1-B.3 at the head-dim-64 decode shapes of tinyllama-1.1b (S 4,
+       Hkv 4, G 8) and stablelm-1.6b (Hkv 32, G 1), w = K = 128, M = 6,
+       both dtypes: the serving cases above against the plain versions
+       (expert rows and validity at 0 mismatches), timed with launches
+       and bound (PR 21);
      * the sampler (`repro_torch.prng`, `models.transformer.
        sample_tokens`) at [S, 151936] against the same calls on the CPU:
        threefry words and per-slot keys exact, gumbel within 4 float32 /
@@ -77,8 +82,21 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      pick); the hybrid's full-sequence forward (2
      super-blocks, N = 4096), impl="pallas" against "sorted" at span = m
      layer by layer within 1e-5, expert launches = attention layers x
-     forwards;
-  4. production serves: the same trace at the production dtypes (bf16
+     forwards; supervision (PR 21, float32): `benchmarks/chaos_bench.py`'s
+     four phases on qwen3-0.6b (8 layers), mamba2-370m (8 layers) and
+     recurrentgemma-9b (2 super-blocks) at full width -- a fault-free
+     oracle, seed 11 chaos under the `Supervisor` (faults on >= 20% of
+     step attempts, streams equal, zero leaks, B.1-B.3 launched), a
+     persistent fault that walks the ladder to level 3, a kill after 6
+     steps with a journal restore -- plus MiTA spec_k 3 with faults at
+     verify_step and mamba2 self drafts with faults at draft_steps (equal
+     to spec_k 0), and a torn MiTA decode dispatch (quarantined, never
+     retried, streams equal); tinyllama-1.1b and stablelm-1.6b at 4
+     layers, 4 requests of 544 + 112 tokens chunked (256) through the
+     supervised engine, held to `static_generate` except at near-ties
+     (decode = layers x steps, finalize > 0, chunk = layers x dispatches);
+  4. production serves (every continuous serve of the CLI runs under the
+     `Supervisor`): the same trace at the production dtypes (bf16
      compute) through ``repro_torch.launch.serve.main``, monolithic and
      then chunked (``--prefill-chunk 256``, the slice's main path), the
      kernel launch counters set to 0 just before each and read just after
@@ -96,12 +114,21 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      ``launch.serve.main`` at full width and depth (8 requests, prompt
      256 + 64, 4 slots, chunk 128: tok/s, TTFT, peak memory, launches),
      and the hybrid's bf16 ``rg_forward`` with impl="pallas" at N = 4096
-     (expert launches = 13 x forwards);
+     (expert launches = 13 x forwards); the chunked qwen3-0.6b serve
+     again with ``--chaos-seed 0`` (requests never recomputed equal to
+     the plain supervised serve, the recomputed ones' first parting token
+     recorded: ROADMAP C.13; retries, quarantines, stragglers, tok/s and
+     TTFT of both),
+     and bf16 chunked serves of tinyllama-1.1b and stablelm-1.6b at full
+     width and depth (8 requests, 512 + 64, 4 slots: tok/s, TTFT, peak
+     memory, the serving kernels' launches);
   5. summary: one JSON line of per-kernel results (launches from each
      kernel's main path: the spec_k = 3 serve for the serving kernels,
      with the plain chunked serve's beside them, the bf16 full-sequence
      path for the expert kernel, 0 for flash attention, which no model
-     path calls; plus the sampler's and the spec serve's numbers), then
+     path calls; B.1-B.3 also carry their launches on the supervised and
+     dense paths and their head-dim-64 rows; plus the sampler's, the spec
+     serve's, the chaos gates' and the new serves' numbers), then
      the final line
      ``{"ok": true, "device": {...}}``.
 
@@ -111,11 +138,13 @@ repository's ``src/`` is missing.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import re
 import subprocess
 import sys
 import time
+import types
 from pathlib import Path
 
 import numpy as np
@@ -901,13 +930,17 @@ def chunk_bound(rows, dtype):
     return nbytes, ops
 
 
-def chunk_vs_plain(mod, dtype, rows, inputs, what, state=None):
+def chunk_vs_plain(mod, dtype, rows, inputs, what, state=None,
+                   near_ties=False):
     """One call of ``mod``'s chunk kernel against this tree's plain version
     on float32 copies (landmark queries rounded as the kernel rounds
     them): outputs within TOL, pools exact, expert rows and validity
     exact, inactive rows untouched.  ``state`` replaces the kernel's state
-    input.  Returns (errors, mismatches per integer field, the kernel's
-    outputs, the plain version's)."""
+    input.  ``near_ties`` (real-valued keys): an expert row may differ
+    where its two picks' scores lie within float32 rounding of each other
+    (`pick_gaps`), and no other; the largest such gap over its bound is
+    returned under ``"gap_over_bound"``.  Returns (errors, mismatches per
+    integer field, the kernel's outputs, the plain version's)."""
     from repro_torch.kernels import mita_chunk_prefill as plain
     q, k, v, st, pools, sched = inputs
     tol = TOL[dtype]
@@ -942,7 +975,20 @@ def chunk_vs_plain(mod, dtype, rows, inputs, what, state=None):
             # exact in both dtypes: the plain version rounds the landmark
             # queries as the kernel does
             mism[f] = int((a.int() != b.int()).sum())
-            if mism[f]:
+            ratio = 0.0
+            if mism[f] and near_ties and f == "expert_idx":
+                gaps, bounds = pick_gaps(
+                    types.SimpleNamespace(expert_idx=a, lm_q=ref[1],
+                                          k_pool=ka),
+                    types.SimpleNamespace(expert_idx=b))
+                ratio = (gaps / bounds).max().item()
+                mism["gap_over_bound"] = max(mism.get("gap_over_bound", 0.0),
+                                             ratio)
+                print(f"chunk kernel {what} {dtype}: {mism[f]} expert rows "
+                      f"differ at score gaps {gaps.tolist()}, at most "
+                      f"{ratio:.4g} x their float32 rounding bound")
+            if mism[f] and not (near_ties and f == "expert_idx"
+                                and ratio <= 1.0):
                 fail(f"chunk kernel {what} {dtype} {f}: {mism[f]} of "
                      f"{a.numel()} differ")
         else:
@@ -956,17 +1002,21 @@ def chunk_vs_plain(mod, dtype, rows, inputs, what, state=None):
     return errs, mism, got, ref
 
 
-def check_chunk(dtype, mod=None):
+def check_chunk(dtype, mod=None, near_ties=False):
     """The chunk-prefill kernel of ``mod`` (default: this tree's) against
     this tree's `chunk_prefill_plain` on both row sets; timed on the
-    "serve" set, its launches and names read from a trace."""
+    "serve" set, its launches and names read from a trace.  ``near_ties``
+    as in `chunk_vs_plain`."""
     from repro_torch.kernels import mita_chunk_prefill as plain
     mod = mod or plain
     errs, mism = [], {"expert_idx": 0, "expert_valid": 0}
+    ratio = 0.0
     for si, (name, rows) in enumerate(CHUNK_SETS.items()):
         inputs = chunk_inputs(dtype, rows, 10 + si)
-        e, m, _, _ = chunk_vs_plain(mod, dtype, rows, inputs, name)
+        e, m, _, _ = chunk_vs_plain(mod, dtype, rows, inputs, name,
+                                    near_ties=near_ties)
         errs += e
+        ratio = max(ratio, m.get("gap_over_bound", 0.0))
         for f in mism:
             mism[f] += m[f]
         if name == "serve":
@@ -988,7 +1038,8 @@ def check_chunk(dtype, mod=None):
           f"{record_text(rec)}")
     return dict(max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=bms,
                 bound_by=by, tol=tol, idx_mismatch=mism["expert_idx"],
-                valid_mismatch=mism["expert_valid"], **rec)
+                valid_mismatch=mism["expert_valid"], gap_over_bound=ratio,
+                **rec)
 
 
 # chunk-size invariance: (tokens, n_train) per row -- prompts of 4 and 3
@@ -1881,18 +1932,23 @@ def production_serve(card: str, extra: list, what: str):
              f"{n_layers} layers x {summary['steps']} steps")
     if launches["mita_paged_finalize_fused"] <= 0:
         fail(f"{what} serve never launched the finalize kernel")
+    st = summary["stats"]
     print(f"{what} serve ({card}): {summary['tok_s']:.1f} tok/s, "
           f"TTFT p50 {summary['ttft_p50_s'] * 1e3:.1f} ms p99 "
           f"{summary['ttft_p99_s'] * 1e3:.1f} ms, {summary['steps']} "
-          f"steps, {summary['stats']['prefill_dispatches']} prefill "
+          f"steps, {st['prefill_dispatches']} prefill "
           f"dispatches, max_memory_allocated {peak / 2**30:.2f} GiB, "
+          f"supervisor retries {st['retries']} quarantined "
+          f"{st['quarantined']} stragglers {st['stragglers']}, "
           f"launches {launches}")
     return summary, launches
 
 
 def phase_production(card: str):
     """Monolithic, then chunked (prefill chunk 256): the chunked serve is
-    the slice's main path, whose launch counts the summary reports."""
+    the slice's main path, whose launch counts the summary reports.
+    Returns them and the chunked serve's summary (both serves run under
+    the supervisor, as every continuous serve of the CLI does)."""
     from repro_torch.configs.registry import get_arch
     n_layers = get_arch("qwen3-0.6b").model.n_layers
     _, mono = production_serve(card, [], "production monolithic")
@@ -1904,7 +1960,7 @@ def phase_production(card: str):
     if not 0 < launches["mita_chunk_prefill_fused"] == n_layers * disp:
         fail(f"chunk launches {launches['mita_chunk_prefill_fused']} != "
              f"{n_layers} layers x {disp} prefill dispatches (> 0)")
-    return launches
+    return launches, summary
 
 
 def phase_spec_production(card: str):
@@ -2274,6 +2330,171 @@ def _prefill_top_k_near_tie(params, cfg, prompt, mode, pages):
     return None
 
 
+class _ChunkRows:
+    """While active, records every batched chunk-prefill call
+    (`core.mita_decode.mita_batched_chunk_prefill`) of a serve as the
+    engine makes it, at its batch shape: the rows' slots and resume
+    points, their queries and attention outputs, and their landmark
+    queries after the call.  A dispatch calls it once per layer, in
+    order."""
+
+    def __init__(self, n_layers: int):
+        self.n_layers, self.calls = n_layers, []
+
+    def __enter__(self):
+        from repro_torch.core import mita_decode as mdec
+        self.mdec, self.fn = mdec, mdec.mita_batched_chunk_prefill
+
+        def record(st, q, k, v, page_table, slots, t0, n_valid, *rest):
+            out, st = self.fn(st, q, k, v, page_table, slots, t0, n_valid,
+                              *rest)
+            ids = slots.long()
+            self.calls.append((ids.tolist(), t0.tolist(), n_valid.tolist(),
+                               q.clone(), out.clone(),
+                               st.pre_lm_q[ids].float()))
+            return out, st
+
+        mdec.mita_batched_chunk_prefill = record
+        return self
+
+    def __exit__(self, *exc):
+        self.mdec.mita_batched_chunk_prefill = self.fn
+
+    def rows(self, slot: int, layer: int):
+        """(q [Hkv, G, n, d], out [Hkv, G, n, d], landmark queries [Hkv,
+        M, d] after the last chunk) of ``slot``'s prefill at ``layer``,
+        its chunks in order."""
+        qs, outs, lm = [], [], None
+        for c, (ids, t0, nv, q, out, lms) in enumerate(self.calls):
+            if c % self.n_layers != layer or slot not in ids:
+                continue
+            r = ids.index(slot)
+            if nv[r] == 0:
+                continue
+            qs.append((t0[r], q[r, :, :, :nv[r]], out[r, :, :, :nv[r]]))
+            lm = lms[r]
+        qs.sort(key=lambda x: x[0])
+        return (torch.cat([x[1] for x in qs], 2),
+                torch.cat([x[2] for x in qs], 2), lm)
+
+
+def _prefill_route_near_tie(ref_layers, rid, chunk_rows, slot):
+    """Where the engine's chunked prefill of request ``rid`` (recorded by
+    `_ChunkRows` at the serve's batch shape) first parts from
+    `lm_prefill`'s (``ref_layers``: per layer the batch's queries, group
+    landmark inputs, attention outputs and MiTA config).  Every layer
+    before must agree row by row within PREFILL_LOGIT_TOL; every parting
+    (head, query, position) row of that layer must be a routing near-tie:
+    its two best landmarks' routing logits (float64, from `lm_prefill`'s
+    query and landmark queries) apart by no more than float32 rounding can
+    make of them (`pick_gaps`' bound) plus what the two sides' own query
+    and landmark-query differences make of them.  Returns (layer, parting
+    rows, widest gap over its bound), or None where no row parts; fails
+    otherwise."""
+    from repro_torch.core import mita as mref
+    for layer, (q, q_lm_in, o, mcfg) in enumerate(ref_layers):
+        q_c, o_c, lm_c = chunk_rows.rows(slot, layer)
+        part = (o_c.float() - o[rid].float()).abs().amax(-1)
+        bad = (part > PREFILL_LOGIT_TOL).nonzero()
+        if bad.shape[0] == 0:
+            continue
+        h, g, n = bad.T
+        lm_r = mref.extract_landmarks(q_lm_in[rid], mcfg)[:, 0].double()
+        r = mref.routing_logits(q[rid], lm_r[:, None].float(), mcfg)
+        top2 = torch.topk(r[h, g, n].double(), 2, dim=-1).indices
+        qr = q[rid][h, g, n].double()                        # [R, d]
+        dq = (q_c[h, g, n].double() - qr).abs()
+        la, lb = (lm_r[h, top2[:, j]] for j in (0, 1))       # [R, d]
+        dla, dlb = ((lm_c[h, top2[:, j]].double() - x).abs()
+                    for j, x in ((0, la), (1, lb)))
+        d = qr.shape[-1]
+        gap = ((la - lb) * qr).sum(-1) / d ** 0.5
+        mag = torch.maximum((la * qr).abs().sum(-1), (lb * qr).abs().sum(-1))
+        bound = (2 * (d + 1) * 2.0 ** -24 * mag
+                 + (dq * (la.abs() + lb.abs())).sum(-1)
+                 + (qr.abs() * (dla + dlb)).sum(-1)) / d ** 0.5
+        worst = (gap.abs() / bound).max().item()
+        if worst > 1.0:
+            fail(f"request {rid}: the chunked prefill parts from "
+                 f"lm_prefill's at layer {layer} on {bad.shape[0]} rows, "
+                 f"the widest routing gap {gap.abs().max().item():.3e} is "
+                 f"{worst:.2f}x its rounding bound")
+        return layer, bad.shape[0], worst
+    return None
+
+
+def _prefill_near_ties(params, scfg, prompts, first, mode, pages,
+                       chunk_rows=None, slots=None):
+    """Hold each request's first-token logits (``first``: {rid: [V]}, the
+    prefill's output) to `lm_prefill`'s within PREFILL_LOGIT_TOL, unless
+    ``mode``'s prefill of that prompt took a landmark top-K near-tie
+    the other way (`_prefill_top_k_near_tie`, which fails where a
+    differing pick is no near-tie) or, given the serve's recorded chunk
+    rows (``chunk_rows``, ``slots``: {rid: slot}), a routing near-tie
+    (`_prefill_route_near_tie`).  Returns ({rid: (layer, picks or rows,
+    widest gap over its bound)} of the near-tie requests, the largest
+    error of the others)."""
+    from repro_torch.models import modules as mods
+    from repro_torch.models import transformer as tfm
+    ref_layers, sparse = [], mods.mita_attention_sparse
+
+    def record(q, k, v, mcfg, **kw):
+        o = sparse(q, k, v, mcfg, **kw)
+        ref_layers.append((q, kw.get("q_landmarks"), o, mcfg))
+        return o
+
+    if chunk_rows is not None:
+        mods.mita_attention_sparse = record
+    try:
+        with torch.inference_mode():
+            toks = torch.as_tensor(np.stack(prompts), device="cuda")
+            pre, _ = tfm.lm_prefill(params, toks, scfg, pages * W)
+            pre = pre.float().cpu()
+    finally:
+        mods.mita_attention_sparse = sparse
+    near_tie, worst = {}, 0.0
+    for i in range(len(prompts)):
+        err = (first[i] - pre[i]).abs().max().item()
+        if err <= PREFILL_LOGIT_TOL:
+            worst = max(worst, err)
+            continue
+        res = _prefill_top_k_near_tie(params, scfg, prompts[i], mode, pages)
+        if res is None and chunk_rows is not None:
+            res = _prefill_route_near_tie(ref_layers, i, chunk_rows,
+                                          slots[i])
+            if res is not None:
+                near_tie[i] = res
+                print(f"{mode} request {i}: first-token logits {err:.3e} "
+                      f"from lm_prefill's: the prefill first parts at layer "
+                      f"{res[0]} on {res[1]} rows, each a routing near-tie "
+                      f"(widest gap {res[2]:.3f} of its float32 rounding "
+                      f"bound)")
+                continue
+        if res is None:
+            fail(f"{mode} request {i}: first-token logits differ from "
+                 f"lm_prefill's by {err} with every top-K pick equal")
+        near_tie[i] = res
+        print(f"{mode} request {i}: first-token logits {err:.3e} from "
+              f"lm_prefill's: the prefill's landmark top-K first parts "
+              f"at layer {res[0]} on {res[1]} picks, each a near-tie "
+              f"(widest gap {res[2]:.3f} of its float32 rounding bound)")
+    return near_tie, worst
+
+
+def _keep_first_logits(eng) -> dict:
+    """Record each request's first-token logits as ``eng`` samples them;
+    returns the {rid: logits} dict it fills."""
+    sample, first = eng._sample, {}
+
+    def keep_first(logits, req, index):
+        if index == 0:
+            first[req.rid] = torch.as_tensor(logits).float()
+        return sample(logits, req, index)
+
+    eng._sample = keep_first
+    return first
+
+
 def phase_per_job_parity():
     """float32, qwen3-0.6b at PARITY_LAYERS layers, full width: the
     per-job chunked engine (chunk 256: `mita_chunk_prefill`, plain
@@ -2307,15 +2528,7 @@ def phase_per_job_parity():
         eng = ServingEngine(params, cfg, EngineConfig(
             n_slots=batch, pages_per_slot=pages, n_pages=2 * batch * pages,
             prefill_chunk=256, prefill_mode=mode), device="cuda")
-        sample = eng._sample
-        first[mode] = {}
-
-        def keep_first(logits, req, index, sample=sample, mode=mode):
-            if index == 0:
-                first[mode][req.rid] = torch.as_tensor(logits).float()
-            return sample(logits, req, index)
-
-        eng._sample = keep_first
+        first[mode] = _keep_first_logits(eng)
         ops.reset_launch_counts()
         done = eng.run([Request(rid=i, prompt=p, max_new_tokens=gen)
                         for i, p in enumerate(prompts)])
@@ -2334,27 +2547,11 @@ def phase_per_job_parity():
         toks = torch.as_tensor(np.stack(prompts), device="cuda")
         ref, tm = static_generate(params, scfg, toks, gen,
                                   capacity=pages * W, record_gaps=True)
-        pre, _ = tfm.lm_prefill(params, toks, scfg, pages * W)
-        pre = pre.float().cpu()
-    near_tie = {}
+    near_tie, errs = {}, {}
     for mode in first:
-        for i in range(n_req):
-            err = (first[mode][i] - pre[i]).abs().max().item()
-            if err <= PREFILL_LOGIT_TOL:
-                continue
-            res = _prefill_top_k_near_tie(params, scfg, prompts[i], mode,
-                                          pages)
-            if res is None:
-                fail(f"{mode} request {i}: first-token logits differ from "
-                     f"lm_prefill's by {err} with every top-K pick equal")
-            near_tie[mode, i] = res
-            print(f"{mode} request {i}: first-token logits {err:.3e} from "
-                  f"lm_prefill's: the prefill's landmark top-K first parts "
-                  f"at layer {res[0]} on {res[1]} picks, each a near-tie "
-                  f"(widest gap {res[2]:.3f} of its float32 rounding bound)")
-    errs = {mode: max(((first[mode][i] - pre[i]).abs().max().item()
-                       for i in range(n_req) if (mode, i) not in near_tie),
-                      default=0.0) for mode in first}
+        ties, errs[mode] = _prefill_near_ties(params, scfg, prompts,
+                                              first[mode], mode, pages)
+        near_tie.update({(mode, i): res for i, res in ties.items()})
     print(f"first-token logits vs lm_prefill (float32, requests without a "
           f"top-K near-tie): {errs} (tol {PREFILL_LOGIT_TOL})")
     div, bad = {}, []
@@ -2573,6 +2770,540 @@ def phase_per_job_production(card: str):
     return launches
 
 
+# ------------------------------------------- phase 2 (dense head dim 64) ---
+
+# (Hkv, G) of the dense configs with head dim 64, at their decode shapes
+D64_SHAPES = {"tinyllama-1.1b": (4, 8), "stablelm-1.6b": (32, 1)}
+
+
+@contextlib.contextmanager
+def head_shape(hkv: int, g: int, d: int):
+    """Run phase 2's helpers at another head shape: they read the module's
+    HKV, G and D when they are called."""
+    global HKV, G, D
+    prev = HKV, G, D
+    HKV, G, D = hkv, g, d
+    try:
+        yield
+    finally:
+        HKV, G, D = prev
+
+
+def phase_kernels_d64():
+    """B.1-B.3 at the decode shapes of tinyllama-1.1b (S 4, Hkv 4, G 8) and
+    stablelm-1.6b (Hkv 32, G 1), head dim 64, w = K = 128, M = 6, float32
+    and bfloat16: each against its plain version on the serving case of
+    `paged_attn_cases` / `finalize_cases` and both `CHUNK_SETS`, timed (ms,
+    card ms, host ms), its launches per call from a trace and its bound as
+    for qwen3-0.6b's shape.  The finalize's expert rows and validity at 0
+    mismatches.  The chunk kernel's validity at 0 mismatches, and its
+    expert rows at 0 on integer inputs (every score exact in any order);
+    on the real-valued inputs a row may differ only where its two picks'
+    scores lie within float32 rounding (`pick_gaps`): stablelm's 32 heads
+    meet such near ties in float32."""
+    from repro_torch.kernels import mita_chunk_prefill as mcp
+    res = {}
+    for arch_id, (hkv, g) in D64_SHAPES.items():
+        res[arch_id] = {}
+        with head_shape(hkv, g, 64):
+            for dtype in (torch.float32, torch.bfloat16):
+                label = f"d64 {arch_id} (Hkv={hkv}, G={g})"
+                print(f"--- {label} {dtype}")
+                _, *case = next(paged_attn_cases(dtype))
+                attn = check_paged_attn(dtype, f"{label} serving", *case)
+                _, *case = next(finalize_cases(dtype))
+                fin = check_finalize(dtype, (f"{label} serving", *case))
+                chunk = check_chunk(dtype, near_ties=True)
+                for si, (name, rows) in enumerate(CHUNK_SETS.items()):
+                    chunk_vs_plain(mcp, dtype, rows, chunk_inputs(
+                        dtype, rows, 20 + si, int_values=True),
+                        f"{label} {name} integer inputs")
+                print(f"mita_chunk_prefill_fused {label} {dtype}: integer "
+                      "inputs, expert rows and validity 0 mismatches")
+                res[arch_id][dtype] = {"attn": attn, "fin": fin,
+                                       "chunk": chunk}
+    return res
+
+
+# --------------------------------------------------- phase 3 (supervision) --
+
+# chaos_bench's cells: full width, depth cut as in the earlier f32 phases
+CHAOS_CELLS = {"qwen3-0.6b": PARITY_LAYERS, "mamba2-370m": 8,
+               "recurrentgemma-9b": 6}
+CHAOS_HI = 13                # new tokens per request: 2 .. 12
+CHAOS = dict(seed=11, p_fault=0.35, transient_len=2, p_slot_fault=0.3,
+             alloc_spike_every=6, alloc_spike_pages=2, alloc_spike_len=3,
+             ops=("decode_step", "prefill_chunks"))
+SERVING_KERNELS = ("mita_paged_attention", "mita_paged_finalize_fused",
+                   "mita_chunk_prefill_fused")
+
+
+def chaos_trace(cfg, n_req: int = 8, seed: int = 3):
+    """`benchmarks/chaos_bench.py`'s trace (prompts of one or two windows,
+    2-12 new tokens), then two requests whose prompts end 4 tokens short
+    of a window (w - 4 and 2w - 4, 12 new tokens): at full width (w =
+    128) the bench's requests close no window while decoding, and these
+    two make the finalize run under chaos."""
+    from repro_torch.serve import Request
+    w = cfg.attn.window
+    rng = np.random.default_rng(seed)
+    reqs = [Request(rid=i, prompt=rng.integers(0, cfg.vocab, size=int(
+        rng.choice([w, 2 * w]))).astype(np.int32),
+        max_new_tokens=int(rng.integers(2, CHAOS_HI)))
+        for i in range(n_req)]
+    return reqs + [Request(rid=n_req + i, prompt=rng.integers(
+        0, cfg.vocab, size=n).astype(np.int32), max_new_tokens=CHAOS_HI - 1)
+        for i, n in enumerate((w - 4, 2 * w - 4))]
+
+
+def _completed(finished) -> dict:
+    return {f.rid: f.tokens for f in finished if f.reason == "complete"}
+
+
+def _same_streams(got: dict, ref: dict) -> bool:
+    return set(got) == set(ref) and all(np.array_equal(got[r], ref[r])
+                                        for r in ref)
+
+
+def _leaks(eng) -> int:
+    return eng.alloc.in_use + len(eng.alloc.refs)
+
+
+class _RaiseOnce:
+    """Stands in for a layer function: once armed, its second call (after
+    the dispatch's first layer ran) raises, then it passes through."""
+
+    def __init__(self, module, name):
+        self.module, self.name = module, name
+        self.armed, self.calls, self.fired = False, 0, 0
+
+    def __enter__(self):
+        self.fn = getattr(self.module, self.name)
+        setattr(self.module, self.name, self)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.fn)
+
+    def __call__(self, *args, **kwargs):
+        if self.armed:
+            self.calls += 1
+            if self.calls == 2:
+                self.armed = False
+                self.fired += 1
+                raise RuntimeError("layer fault mid-dispatch")
+        return self.fn(*args, **kwargs)
+
+
+def phase_chaos_parity():
+    """float32 (TF32 off): `benchmarks/chaos_bench.py`'s four phases on the
+    card, re-implemented here (the bench imports JAX).  Cells: qwen3-0.6b
+    (PARITY_LAYERS layers), mamba2-370m (8 layers), recurrentgemma-9b (2
+    super-blocks), full width; its trace (`chaos_trace`: 8 requests,
+    prompts of w or 2w, 2-12 new tokens, and two that cross a window
+    close while decoding) on 4 slots, prefill chunk w.
+      1. a fault-free engine: the oracle;
+      2. the supervised engine under seed 11 chaos (transient and
+         slot-bound faults on 35% of dispatches, allocator spikes of 2
+         pages every 6 calls held 3): faults on >= 20% of step attempts,
+         every stream equal to the oracle, zero pages and references left;
+         the MiTA cell's B.1-B.3 launches > 0 (counted over this run);
+      3. one persistent decode fault that clears only at level 3: the
+         ladder walks to xla_forced, streams equal;
+      4. a kill after 6 steps, the journal saved and loaded, a restore on
+         a fresh supervised engine (chaos seed 23): streams equal.
+    Then speculation under chaos (MiTA spec_k 3 with faults at
+    verify_step; mamba2 self drafts with faults at draft_steps), equal to
+    spec_k 0, and a torn MiTA decode dispatch (its second layer raises
+    after the first ran its kernels): quarantined, streams equal."""
+    import dataclasses
+    from repro_torch.configs.registry import arch_params, get_arch
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as tfm
+    from repro_torch.serve import (ChaosBackend, ChaosConfig, EngineConfig,
+                                   Request, ServingEngine, Supervisor,
+                                   SupervisorConfig, backends)
+    snap_path = HERE / "build" / "chip_smoke_chaos_journal.json"
+    snap_path.parent.mkdir(exist_ok=True)
+    out = {}
+    for arch_id, layers in CHAOS_CELLS.items():
+        arch = get_arch(arch_id)
+        arch = dataclasses.replace(arch, model=dataclasses.replace(
+            arch.model, compute_dtype=torch.float32, n_layers=layers))
+        cfg = arch.model
+        params = arch_params(arch, torch.Generator(device="cuda")
+                             .manual_seed(0), "cuda")
+        w = cfg.attn.window
+        reqs = chaos_trace(cfg)
+        pages = -(-(2 * w + CHAOS_HI) // w)
+        ecfg = EngineConfig(n_slots=4, pages_per_slot=pages,
+                            n_pages=4 * pages + 4, prefill_chunk=w)
+
+        def engine(chaos=None, e=ecfg):
+            b = backends.for_arch(arch, params, e, device="cuda")
+            return ServingEngine(params, cfg, e, backend=(
+                b if chaos is None else ChaosBackend(b, chaos)))
+
+        def copies():
+            return [Request(rid=r.rid, prompt=r.prompt.copy(),
+                            max_new_tokens=r.max_new_tokens) for r in reqs]
+
+        t0 = time.perf_counter()
+        # 1. the fault-free oracle
+        ref_eng = engine()
+        ref = _completed(ref_eng.run(copies()))
+        if len(ref) != len(reqs) or _leaks(ref_eng):
+            fail(f"{arch_id} chaos oracle: {len(ref)} completed, "
+                 f"{_leaks(ref_eng)} pages or references left")
+
+        # 2. seeded chaos under the supervisor
+        eng = engine(ChaosConfig(**CHAOS))
+        cb = eng.backend
+        sup = Supervisor(eng, SupervisorConfig(max_retries=2))
+        ops.reset_launch_counts()
+        done = sup.run(copies())
+        torch.cuda.synchronize()
+        launches = ops.launch_counts()
+        st = sup.stats()
+        frac = cb.n_injected / max(st["steps"] + cb.n_injected, 1)
+        if frac < 0.2:
+            fail(f"{arch_id} chaos: faults on {frac:.3f} of step attempts "
+                 "(< 0.2)")
+        if not _same_streams(_completed(done), ref):
+            fail(f"{arch_id} chaos: supervised streams differ from the "
+                 "fault-free run")
+        if _leaks(eng):
+            fail(f"{arch_id} chaos: {_leaks(eng)} pages or references left")
+        if arch.family == "dense" and min(
+                launches[k] for k in SERVING_KERNELS) <= 0:
+            fail(f"{arch_id} chaos: a serving kernel never launched "
+                 f"({launches})")
+        sup.close()
+
+        # 3. a persistent fault walks the whole ladder
+        leng = engine(ChaosConfig(seed=0, persistent_clears_at=3))
+        lsup = Supervisor(leng, SupervisorConfig(max_retries=1))
+        leng.backend.inject("decode_step", kind="persistent")
+        ldone = lsup.run(copies())
+        lsup.close()
+        if leng.degradation_level != 3 or lsup.degradations != [
+                "spec_off", "prefix_cache_off", "xla_forced"]:
+            fail(f"{arch_id} ladder: level {leng.degradation_level}, rungs "
+                 f"{lsup.degradations}")
+        if not _same_streams(_completed(ldone), ref) or _leaks(leng):
+            fail(f"{arch_id} ladder: streams differ or pages leak")
+
+        # 4. kill after 6 steps, journal, restore on a fresh engine
+        reng = engine(ChaosConfig(**CHAOS))
+        rsup = Supervisor(reng, SupervisorConfig(max_retries=2))
+        for r in copies():
+            rsup.submit(r)
+        for _ in range(6):
+            if not rsup.step():
+                break
+        rsup.save_snapshot(str(snap_path))
+        rsup.close()
+        snap = Supervisor.load_snapshot(str(snap_path))
+        snap_path.unlink()
+        in_flight = sum(1 for r in snap["requests"] if r["tokens"])
+        reng2 = engine(ChaosConfig(seed=23, p_fault=0.2, transient_len=1,
+                                   ops=("decode_step",)))
+        rsup2 = Supervisor(reng2, SupervisorConfig(max_retries=2))
+        rsup2.restore(snap)
+        while rsup2.step():
+            pass
+        rsup2.close()
+        if not _same_streams(_completed(reng2.finished), ref) \
+                or _leaks(reng2):
+            fail(f"{arch_id} kill/restore: streams differ or pages leak")
+        del reng, reng2, leng
+        row = dict(fault_fraction=frac, injected=cb.n_injected,
+                   faults_started=cb.n_faults_started, spikes=cb.n_spikes,
+                   retries=st["retries"], quarantined=st["quarantined"],
+                   stragglers=st["stragglers"],
+                   preemptions=st["preemptions"],
+                   ladder_rungs=list(lsup.degradations),
+                   restored_mid_decode=in_flight,
+                   launches={k: launches[k] for k in SERVING_KERNELS},
+                   gates=dict(parity=True, zero_leak=True,
+                              fault_fraction=True, ladder_walked=True,
+                              restore_parity=True))
+
+        # speculation under chaos: MiTA faults at verify_step (its drafter
+        # is stateless), recurrent self drafts at draft_steps
+        spec_op = {"dense": "verify_step", "ssm": "draft_steps"}.get(
+            arch.family)
+        if spec_op is not None:
+            fused = dataclasses.replace(ecfg, sample_device="fused",
+                                        n_pages=4 * pages + 8)
+            base = _completed(engine(e=fused).run(copies()))
+            spec = dataclasses.replace(fused, spec_k=3, spec_mode=(
+                "self" if arch.family == "ssm" else "auto"))
+            seng = engine(ChaosConfig(seed=2, p_fault=0.3, transient_len=2,
+                                      ops=(spec_op,)), e=spec)
+            ssup = Supervisor(seng, SupervisorConfig(max_retries=3))
+            sdone = ssup.run(copies())
+            ssup.close()
+            sst = ssup.stats()
+            if not _same_streams(_completed(sdone), base) or _leaks(seng):
+                fail(f"{arch_id} spec_k=3 under chaos at {spec_op}: streams "
+                     "differ from spec_k=0 or pages leak")
+            if seng.backend.n_injected <= 0 or sst["spec_drafted"] <= 0:
+                fail(f"{arch_id} spec chaos: injected "
+                     f"{seng.backend.n_injected}, drafted "
+                     f"{sst['spec_drafted']}")
+            row["spec_chaos"] = dict(op=spec_op,
+                                     injected=seng.backend.n_injected,
+                                     retries=sst["retries"],
+                                     spec_drafted=sst["spec_drafted"],
+                                     spec_accepted=sst["spec_accepted"])
+
+        # a torn decode dispatch: quarantined, never retried
+        if arch.family == "dense":
+            teng = engine()
+            tsup = Supervisor(teng, SupervisorConfig(max_retries=3))
+            with _RaiseOnce(tfm, "block_decode_paged") as fault:
+                for r in copies():
+                    tsup.submit(r)
+                while True:
+                    if not fault.fired and not fault.armed \
+                            and teng.active.sum() >= 2:
+                        fault.armed, fault.calls = True, 0
+                    if not tsup.step():
+                        break
+            tst = tsup.stats()
+            if fault.fired != 1 or tst["quarantined"] <= 0 \
+                    or tst["retries"] != 0 \
+                    or "TornDispatch" not in (tsup.last_fault or ""):
+                fail(f"torn dispatch: fired {fault.fired}, stats "
+                     f"retries {tst['retries']} quarantined "
+                     f"{tst['quarantined']}, last fault {tsup.last_fault}")
+            if not _same_streams(_completed(teng.finished), ref) \
+                    or _leaks(teng):
+                fail("torn dispatch: supervised streams differ from the "
+                     "fault-free run or pages leak")
+            row["torn_dispatch"] = dict(quarantined=tst["quarantined"],
+                                        retries=tst["retries"])
+        row["seconds"] = time.perf_counter() - t0
+        out[arch_id] = row
+        print(f"chaos parity ({arch_id}, float32, {layers} layers): faults "
+              f"on {frac:.3f} of step attempts ({cb.n_injected} injected, "
+              f"{cb.n_faults_started} faults, {cb.n_spikes} spikes), "
+              f"retries {st['retries']} quarantined {st['quarantined']} "
+              f"stragglers {st['stragglers']}, streams equal to the "
+              f"fault-free run; ladder {lsup.degradations} equal; kill "
+              f"after 6 steps ({in_flight} requests mid-decode) and restore "
+              f"equal; zero leaks; {row.get('spec_chaos')}; "
+              f"{row.get('torn_dispatch')}; launches {row['launches']}; "
+              f"{row['seconds']:.1f} s")
+        del params, eng, ref_eng
+        torch.cuda.empty_cache()
+    return out
+
+
+DENSE_CELLS = ("tinyllama-1.1b", "stablelm-1.6b")
+DENSE_LAYERS = 4
+
+
+def phase_dense_parity():
+    """float32 (TF32 off): tinyllama-1.1b and stablelm-1.6b at full width
+    and DENSE_LAYERS layers, 4 requests of 512 + 160 tokens (the window
+    closes at 640 while decoding; the static path's sorted routed branch
+    serves whole 128-row query blocks only, so the prompt is
+    window-aligned), chunked (256) through the supervised engine, held to
+    `static_generate` by PERF.md section 2's rule, as the per-job check:
+    first-token logits within PREFILL_LOGIT_TOL of `lm_prefill`'s unless
+    the prefill took a landmark top-K near-tie (proven pick by pick) or a
+    routing near-tie (proven row by row on the serve's own chunk rows,
+    where the batch shape of its products can flip one),
+    and a token divergence only at a token near-tie (PARITY_GAP) or in a
+    request with such a prefill near-tie; launches counted over the serve:
+    paged decode = layers x steps, finalize > 0, chunk = layers x prefill
+    dispatches."""
+    import dataclasses
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.data import DataConfig, synthetic_batch
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import static_generate
+    from repro_torch.models import transformer as tfm
+    from repro_torch.serve import (EngineConfig, Request, ServingEngine,
+                                   Supervisor)
+    n, gen, batch = 512, 160, 4
+    out = {}
+    for arch_id in DENSE_CELLS:
+        cfg = dataclasses.replace(get_arch(arch_id).model,
+                                  compute_dtype=torch.float32,
+                                  n_layers=DENSE_LAYERS)
+        params = tfm.lm_init(torch.Generator(device="cuda").manual_seed(0),
+                             cfg, "cuda")
+        prompts = list(synthetic_batch(DataConfig(
+            vocab=cfg.vocab, seq_len=n, global_batch=batch), 0)["tokens"])
+        w = cfg.attn.window
+        pages = -(-(n + gen) // w)
+        eng = ServingEngine(params, cfg, EngineConfig(
+            n_slots=batch, pages_per_slot=pages, n_pages=2 * batch * pages,
+            prefill_chunk=256), device="cuda")
+        first = _keep_first_logits(eng)
+        sup = Supervisor(eng)
+        t0 = time.perf_counter()
+        ops.reset_launch_counts()
+        with _ChunkRows(DENSE_LAYERS) as chunk_rows:
+            done = sup.run([Request(rid=i, prompt=p, max_new_tokens=gen)
+                            for i, p in enumerate(prompts)])
+        torch.cuda.synchronize()
+        launches = ops.launch_counts()
+        slots = {int(eng.slot_rid[s]): s for s in range(batch)}
+        dt = time.perf_counter() - t0
+        if [f.reason for f in done] != ["complete"] * batch:
+            fail(f"{arch_id} dense parity reasons {[f.reason for f in done]}")
+        scfg = eng.backend.cfg
+        near_tie, first_err = _prefill_near_ties(
+            params, scfg, prompts, first, "batched", pages, chunk_rows, slots)
+        with torch.inference_mode():
+            ref, tm = static_generate(
+                params, scfg, torch.as_tensor(np.stack(prompts),
+                                              device="cuda"),
+                gen, capacity=pages * w, record_gaps=True)
+        div, bad = _near_tie_check(np.stack([f.tokens for f in done]), ref,
+                                   tm["top2_gap"], f"{arch_id} chunked 256")
+        if set(bad) - set(near_tie):
+            fail("; ".join(m for r, m in bad.items() if r not in near_tie))
+        div += len(bad)
+        st = sup.stats()
+        want = {"mita_paged_attention": DENSE_LAYERS * st["steps"],
+                "mita_chunk_prefill_fused":
+                    DENSE_LAYERS * st["prefill_dispatches"]}
+        for k, v in want.items():
+            if launches[k] != v or v <= 0:
+                fail(f"{arch_id} dense parity: {k} launches {launches[k]} "
+                     f"!= {v} (> 0)")
+        if launches["mita_paged_finalize_fused"] <= 0:
+            fail(f"{arch_id} dense parity never launched the finalize")
+        m = cfg
+        out[arch_id] = dict(near_tie_divergences=div, launches={
+            k: launches[k] for k in SERVING_KERNELS}, steps=st["steps"],
+            prefill_dispatches=st["prefill_dispatches"],
+            first_token_logit_err=first_err,
+            top_k_near_ties={i: list(r) for i, r in near_tie.items()})
+        print(f"dense parity ({arch_id}, float32, {DENSE_LAYERS} layers, "
+              f"d {m.dh}, Hkv {m.n_kv}, G {m.group}, chunked 256, "
+              f"supervised): {batch} requests {n} + {gen} in {dt:.2f} s, "
+              f"{div} divergences at near-ties (token or top-K: "
+              f"{near_tie}), tokens otherwise identical to "
+              f"static_generate; first-token logits of the others within "
+              f"{first_err:.3e} of lm_prefill's; {st['steps']} steps, "
+              f"{st['prefill_dispatches']} prefill dispatches; launches "
+              f"{out[arch_id]['launches']}")
+        del params, eng
+        torch.cuda.empty_cache()
+    return out
+
+
+# ----------------------------------------------- phase 4 (supervised path) --
+
+def phase_supervised_production(card: str, plain: dict):
+    """The bf16 chunked serve of `phase_production` (now supervised:
+    ``plain``) again with ``--chaos-seed 0``: the supervision counters and
+    both runs' tok/s and TTFT.  Every request the chaos run never
+    recomputed (no preemption or quarantine) must equal the plain serve
+    token for token.  A recomputed one is rebuilt by chunk prefill over
+    its prompt and emitted tokens, where the uninterrupted run had decoded
+    them: in bf16 on the card the two paths round differently and a later
+    token may part (ROADMAP C.13; float32 recompute is held to the
+    fault-free stream exactly in `phase_chaos_parity`), so for those the
+    first parting token is recorded."""
+    from repro_torch.configs.registry import get_arch
+    n_layers = get_arch("qwen3-0.6b").model.n_layers
+    summary, launches = production_serve(
+        card, ["--prefill-chunk", "256", "--chaos-seed", "0"],
+        "production chunked --chaos-seed 0")
+    if summary["injected"] <= 0:
+        fail("the --chaos-seed 0 serve injected no fault")
+    disp = summary["stats"]["prefill_dispatches"]
+    if launches["mita_chunk_prefill_fused"] != n_layers * disp:
+        fail(f"chaos serve: chunk launches "
+             f"{launches['mita_chunk_prefill_fused']} != {n_layers} x "
+             f"{disp} dispatches")
+    parted = {}
+    for rid, toks in plain["tokens"].items():
+        diff = np.nonzero(toks != summary["tokens"][rid])[0]
+        recomputed = summary["preemptions"][rid]
+        if diff.size and not recomputed:
+            fail(f"chaos serve request {rid}, never recomputed, differs "
+                 f"from the plain supervised serve at token {diff[0]}")
+        if recomputed:
+            parted[rid] = dict(recomputed=recomputed, first_parting_token=(
+                int(diff[0]) if diff.size else None))
+    keys = ("retries", "quarantined", "stragglers", "degradation_level",
+            "preemptions")
+    runs = {}
+    for what, s in (("plain", plain), ("chaos", summary)):
+        runs[what] = dict(tok_s=s["tok_s"], ttft_p50_ms=s["ttft_p50_s"] * 1e3,
+                          ttft_p99_ms=s["ttft_p99_s"] * 1e3,
+                          injected=s["injected"],
+                          **{k: s["stats"][k] for k in keys})
+        print(f"supervised serve ({card}), bf16, {what}: {runs[what]}")
+    runs["recomputed_requests"] = parted
+    same = len(plain["tokens"]) - len(parted)
+    print(f"supervised serve: the {same} requests never recomputed equal "
+          f"the plain serve's; recomputed (count, first parting token): "
+          f"{parted}")
+    return runs, launches
+
+
+def phase_dense_production(card: str):
+    """bf16 chunked (256) serves of tinyllama-1.1b and stablelm-1.6b at
+    full width and depth through `repro_torch.launch.serve.main`: 8
+    requests, prompt 512 + 64, 4 slots; tok/s, TTFT, peak memory and the
+    serving kernels' launches (decode = layers x steps, chunk = layers x
+    prefill dispatches; no window closes while decoding at 576 tokens, so
+    the finalize's count is printed, not gated)."""
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import main as serve_main
+    res = {}
+    for arch_id in DENSE_CELLS:
+        m = get_arch(arch_id).model
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        summary = serve_main(["--arch", arch_id, "--engine", "continuous",
+                              "--batch", "4", "--prompt-len", "512", "--gen",
+                              "64", "--requests", "8", "--device", "cuda",
+                              "--prefill-chunk", "256"])
+        torch.cuda.synchronize()
+        launches = ops.launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        if summary["finished"] != 8 or set(summary["reasons"]) != \
+                {"complete"}:
+            fail(f"{arch_id} serve finished {summary['reasons']}")
+        for rid, tk in summary["tokens"].items():
+            if len(tk) != 64 or tk.min() < 0 or tk.max() >= m.vocab:
+                fail(f"{arch_id} serve request {rid} tokens malformed")
+        st = summary["stats"]
+        if launches["mita_paged_attention"] != m.n_layers * st["steps"] \
+                or launches["mita_chunk_prefill_fused"] \
+                != m.n_layers * st["prefill_dispatches"]:
+            fail(f"{arch_id} serve launches {launches} != {m.n_layers} "
+                 f"layers x {st['steps']} steps / "
+                 f"{st['prefill_dispatches']} dispatches")
+        res[arch_id] = dict(tok_s=summary["tok_s"],
+                            ttft_p50_ms=summary["ttft_p50_s"] * 1e3,
+                            ttft_p99_ms=summary["ttft_p99_s"] * 1e3,
+                            steps=st["steps"],
+                            prefill_dispatches=st["prefill_dispatches"],
+                            max_memory_allocated_gib=peak / 2**30,
+                            launches={k: launches[k]
+                                      for k in SERVING_KERNELS})
+        print(f"{arch_id} bf16 serve ({card}): {summary['tok_s']:.1f} tok/s, "
+              f"TTFT p50 {summary['ttft_p50_s'] * 1e3:.1f} ms p99 "
+              f"{summary['ttft_p99_s'] * 1e3:.1f} ms, {st['steps']} steps, "
+              f"{st['prefill_dispatches']} prefill dispatches, "
+              f"max_memory_allocated {peak / 2**30:.2f} GiB; launches "
+              f"{res[arch_id]['launches']}")
+        torch.cuda.empty_cache()
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda is not available; nothing to check",
@@ -2599,6 +3330,7 @@ def main() -> int:
     kern["chunk"] = timed("chunk_kernel", phase_chunk_kernel)
     kern.update(timed("fullseq_kernels", phase_fullseq_kernels))
     wide = timed("expert_d256", phase_expert_wide)
+    d64 = timed("kernels_d64", phase_kernels_d64)
     sampler = timed("sampler", phase_sampler)
     timed("parity", phase_parity)
     timed("fullseq_parity", phase_fullseq_parity)
@@ -2607,7 +3339,10 @@ def main() -> int:
     timed("per_job_parity", phase_per_job_parity)
     hybrid_layer_err = timed("hybrid_forward_parity",
                              phase_hybrid_forward_parity)
-    chunked_launches = timed("production", phase_production, card)
+    chaos = timed("chaos_parity", phase_chaos_parity)
+    dense = timed("dense_parity", phase_dense_parity)
+    chunked_launches, chunked_summary = timed("production", phase_production,
+                                              card)
     fs_launches, _ = timed("fullseq_production", phase_fullseq_production,
                            card)
     spec_summary, launches, spec_tps = timed(
@@ -2615,6 +3350,10 @@ def main() -> int:
     per_job_launches = timed("per_job_production", phase_per_job_production,
                              card)
     rec = timed("recurrent_production", phase_recurrent_production, card)
+    supervised, chaos_launches = timed(
+        "supervised_production", phase_supervised_production, card,
+        chunked_summary)
+    dense_serves = timed("dense_production", phase_dense_production, card)
     launches = dict(launches)
     launches["mita_expert_attention"] = fs_launches["mita_expert_attention"]
     launches["flash_attention"] = fs_launches["flash_attention"]
@@ -2672,6 +3411,24 @@ def main() -> int:
                 row[k], row["f32"][k] = r[k], r32[k]
         if key in ("attn", "fin"):
             row["launches_per_job_serve"] = per_job_launches[name]
+        if key in ("attn", "fin", "chunk"):
+            # the supervised paths: f32 chaos (qwen3-0.6b, 8 layers), the
+            # bf16 --chaos-seed 0 serve, and the head-dim-64 configs
+            row["launches_chaos_parity_f32"] = chaos["qwen3-0.6b"][
+                "launches"][name]
+            row["launches_supervised_chaos_serve"] = chaos_launches[name]
+            row["launches_dense_parity_f32"] = {
+                a: dense[a]["launches"][name] for a in DENSE_CELLS}
+            row["launches_dense_serve"] = {
+                a: dense_serves[a]["launches"][name] for a in DENSE_CELLS}
+            keep = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                    "tol", "idx_mismatch", "valid_mismatch") + traced
+            row["d64"] = {
+                f"{a} Hkv={D64_SHAPES[a][0]} G={D64_SHAPES[a][1]}": {
+                    "bf16": {k: d64[a][bf][key].get(k) for k in keep},
+                    "f32": {k: d64[a][torch.float32][key].get(k)
+                            for k in keep}}
+                for a in D64_SHAPES}
         if key == "expert":
             # recurrentgemma-9b's head dim: the wide CUDA-core instance
             keep = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
@@ -2697,7 +3454,8 @@ def main() -> int:
         "tok_s_spec_k3": spec_tps[3], "tok_s_spec_k0": spec_tps[0],
         **{k: st[k] for k in ("spec_drafted", "spec_accepted",
                               "spec_rollbacks")}},
-        "recurrent_serves": rec}))
+        "recurrent_serves": rec, "chaos": chaos, "dense_parity": dense,
+        "supervised_serve": supervised, "dense_serves": dense_serves}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

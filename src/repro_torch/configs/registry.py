@@ -1,7 +1,10 @@
 """Architecture registry (port of ``repro.configs.registry``).
 
-Only the configurations the port serves are ported (qwen3-0.6b, dense;
-mamba2-370m, ssm; recurrentgemma-9b, hybrid); each lives in its own module
+Only the configurations the port serves are ported: the dense qwen3-0.6b,
+tinyllama-1.1b (head dim 64, 32 heads over 4 KV heads), stablelm-1.6b
+(head dim 64, MHA) and qwen3-32b (held to the reference at the smoke size
+only: its float32 weights do not fit one card), the ssm mamba2-370m and
+the hybrid recurrentgemma-9b.  Each lives in its own module
 (``repro_torch.configs.<id>``, dashes -> underscores) exporting ``ARCH``.
 `arch_params` builds any of them, ``smoke_variant`` is the reduced
 same-family config the CPU tests use.

@@ -13,13 +13,20 @@
     priority preemption and optionally the prefix cache.  mamba2-370m and
     recurrentgemma-9b serve through the recurrent backends on the same
     engine (``--engine static`` then runs the backend's reference).
+    Every continuous serve runs under the `serve.Supervisor` (retries,
+    quarantine, the degradation ladder, straggler counting); with
+    ``--chaos-seed S`` the backend is wrapped in the seeded fault injector
+    (`serve.ChaosBackend`), whose faults the supervisor must absorb
+    without changing a token (a quarantined request is recomputed from
+    its prompt: exact in float32, not yet in bfloat16, ROADMAP C.13).
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-0.6b \\
       --batch 4 --prompt-len 512 --gen 160 --engine continuous \\
       [--prefill-chunk 256 [--prefill-mode per-job] [--prefix-cache]] \\
       [--attn-impl pallas] [--temperature 0.8] \\
-      [--sample-device fused [--spec-k 3]]
+      [--sample-device fused [--spec-k 3]] \\
+      [--chaos-seed 0 [--chaos-rate 0.2]] [--deadline-ms MS] [--max-retries 3]
   PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-370m \\
       --engine continuous --prefill-chunk 128 [--prefill-mode per-job]
   (``--arch recurrentgemma-9b`` likewise; add ``--smoke --device cpu``
@@ -29,8 +36,7 @@ Usage:
 ``--spec-k K --sample-device fused`` turns on lossless speculative decoding
 (landmark-branch drafts, verified by the exact decode step).
 
-Weights are random, drawn from seed 0.  Supervision (``Supervisor``) is
-not ported.
+Weights are random, drawn from seed 0.
 """
 
 from __future__ import annotations
@@ -175,6 +181,20 @@ def main(argv=None) -> dict:
                     help="routed branch of the monolithic prefill "
                          "(AttnConfig.impl; default: the config's, sorted): "
                          "pallas runs the expert CUDA kernel")
+    ap.add_argument("--chaos-seed", type=int, default=None,
+                    help="continuous: wrap the backend in the seeded "
+                         "fault injector (serve.ChaosBackend) — transient "
+                         "faults, slot faults, and allocator spikes on "
+                         "this seed's schedule, absorbed by the Supervisor")
+    ap.add_argument("--chaos-rate", type=float, default=0.2,
+                    help="chaos: per-dispatch new-fault probability")
+    ap.add_argument("--deadline-ms", type=float, default=None,
+                    help="continuous: per-request deadline; requests "
+                         "still unfinished when it expires are cancelled "
+                         "with finish reason 'deadline_expired'")
+    ap.add_argument("--max-retries", type=int, default=3,
+                    help="supervisor: step retries before a fault "
+                         "escalates to quarantine / degradation")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu")
     args = ap.parse_args(argv)
@@ -183,6 +203,9 @@ def main(argv=None) -> dict:
     if args.spec_k and args.sample_device != "fused":
         ap.error("--spec-k requires --sample-device fused (verification "
                  "samples inside the fused step)")
+    if args.chaos_seed is not None and args.engine != "continuous":
+        ap.error("--chaos-seed requires --engine continuous (the fault "
+                 "injector wraps the DecodeBackend)")
 
     device = resolve_device(args.device)
     arch = get_arch(args.arch, smoke=args.smoke)
@@ -239,23 +262,38 @@ def main(argv=None) -> dict:
               f"({tps:.1f} tok/s, batch={args.batch})")
         summary.update(tok_s=tps, tokens=toks)
     else:
+        from repro_torch.serve import (ChaosBackend, ChaosConfig,
+                                       Supervisor, SupervisorConfig)
         n_req = args.requests or 2 * args.batch
         backend = backends.for_arch(arch, params, ecfg, device=device)
+        if args.chaos_seed is not None:
+            # faults are gated at ops whose injection fires before any
+            # state mutation, so supervised retries stay bit-exact on
+            # every backend (recurrent self-drafters included)
+            backend = ChaosBackend(backend, ChaosConfig(
+                seed=args.chaos_seed, p_fault=args.chaos_rate,
+                transient_len=2, p_slot_fault=0.3,
+                alloc_spike_every=8, alloc_spike_pages=2,
+                ops=("decode_step", "prefill_chunks", "prefill_chunk",
+                     "prefill_group", "draft_steps")))
         eng = ServingEngine(params, cfg, ecfg, backend=backend)
+        sup = Supervisor(eng, SupervisorConfig(max_retries=args.max_retries))
         reqs = [Request(rid=i, prompt=prompts[i % len(prompts)],
                         max_new_tokens=args.gen,
                         temperature=args.temperature,
-                        priority=args.priority)
+                        priority=args.priority,
+                        deadline_ms=args.deadline_ms)
                 for i in range(n_req)]
         _sync(device)
         start = time.perf_counter()
-        done = eng.run(reqs)
+        done = sup.run(reqs)
         _sync(device)
         dt = time.perf_counter() - start
+        sup.close()
         total = sum(len(f.tokens) for f in done)
         ttft = np.asarray([f.first_token - start - f.arrival for f in done
                            if f.reason == "complete"])
-        st = eng.stats()
+        st = sup.stats()
         p50, p99 = (np.percentile(ttft, [50, 99]) if ttft.size
                     else (float("nan"), float("nan")))
         print(f"continuous[{st['backend']}]: {n_req} requests "
@@ -269,18 +307,27 @@ def main(argv=None) -> dict:
               f"prefix_hits={st['prefix_cache_hits']}, "
               f"spec_accepted={st['spec_accepted']}/"
               f"{st['spec_drafted']}, "
-              f"rejected={st['rejected']}")
+              f"rejected={st['rejected']}, "
+              f"deadline_expired={st['deadline_expired']}, "
+              f"stragglers={st['stragglers']}, "
+              f"retries={st['retries']}, "
+              f"quarantined={st['quarantined']}, "
+              f"degradation_level={st['degradation_level']}")
         summary.update(
             requests=n_req, finished=len(done), tokens_out=total,
             seconds=dt, tok_s=total / dt, ttft_p50_s=float(p50),
             ttft_p99_s=float(p99), steps=eng.steps, stats=st,
             reasons=[f.reason for f in done],
-            tokens={f.rid: f.tokens for f in done})
-        toks = np.stack([f.tokens for f in done[:2]]) if done else None
-    if toks is not None:
+            tokens={f.rid: f.tokens for f in done},
+            preemptions={f.rid: f.preemptions for f in done},
+            injected=getattr(backend, "n_injected", 0))
+        # deadline kills leave shorter streams: show completed ones first
+        toks = ([f.tokens for f in done if f.reason == "complete"]
+                or [f.tokens for f in done])
+    if toks is not None and len(toks):
         print("sample generations (token ids):")
-        for b in range(min(2, toks.shape[0])):
-            print(f"  [{b}] {toks[b, :16].tolist()}")
+        for b in range(min(2, len(toks))):
+            print(f"  [{b}] {toks[b][:16].tolist()}")
     return summary
 
 

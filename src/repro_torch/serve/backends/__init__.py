@@ -21,7 +21,25 @@ chunked modes:
     ``draft_steps(...)`` (cheap drafts [k, S] that change no state),
     ``verify_step(...)`` (the exact decode rule over the k + 1 positions
     [input, drafts...], tokens [k + 1, S]) and ``rollback(commits,
-    active)`` (state back to ``commits`` tokens past the round's start).
+    active)`` (state back to ``commits`` tokens past the round's start);
+  * supervision notifications, no-op by default: ``on_quarantine(slots)``,
+    ``on_degrade(level)`` and ``on_stall()``.  `serve.supervisor` fires
+    them on fault isolation, a degradation-ladder rung and a scheduler
+    stall; fault-injection wrappers (`serve.chaos`) key fault lifecycles
+    off them.
+
+Torn dispatches.  The port's backends update their state in place, layer
+by layer (the reference's programs are functional: a failed one leaves
+its state as it was).  An exception that escapes from inside a dispatch
+body (`torn_guard`: ``prefill_group``, ``prefill_chunk``,
+``prefill_chunks``, ``decode_step``, ``draft_steps``, ``verify_step``)
+may have left the live slots' state half updated, so re-running the
+dispatch could silently compute different tokens.  The guard re-raises it
+as `TornDispatch`, which names the dispatch's live slots, is not
+batch-wide and may not be retried: the supervisor quarantines those slots
+at once, and recompute-from-prompt rebuilds them (every port backend's
+``preempt_snapshot`` is None; exactly in float32, ROADMAP C.13 for
+bfloat16).
 
 `for_arch` serves the dense family (`backends.mita.MiTABackend`, paged
 MiTA pools) and the recurrent ones (`backends.recurrent`: ``ssm`` on
@@ -31,7 +49,9 @@ MiTA pools) and the recurrent ones (`backends.recurrent`: ``ssm`` on
 
 from __future__ import annotations
 
-from typing import Any
+import functools
+import inspect
+from typing import Any, Callable
 
 import numpy as np
 import torch
@@ -53,6 +73,60 @@ BACKEND_STAT_KEYS = frozenset({
     "paged_kernel_fallbacks", "finalize_kernel_fallbacks",
 })
 STATS_SCHEMA = ENGINE_STAT_KEYS | BACKEND_STAT_KEYS
+
+
+class TornDispatch(RuntimeError):
+    """A backend dispatch raised part way through: the state of ``slots``
+    (its live slots) may be partly updated.  ``retryable`` False tells the
+    supervisor to quarantine them instead of re-running the dispatch; the
+    original exception is ``__cause__``.  A CUDA error that poisons the
+    context (an illegal address) fails every later dispatch as well; the
+    supervisor then ends in `SupervisionExhausted`, and recovery is
+    `Supervisor.restore` from the journal in a new process."""
+
+    kind = "torn"
+    batchwide = False
+    retryable = False
+
+    def __init__(self, op: str, slots: list):
+        super().__init__(f"{op} raised mid-dispatch (slots={slots}); their "
+                         "state may be partly updated")
+        self.op = op
+        self.slots = list(slots)
+
+
+def dispatch_slots(op: str, args: dict) -> list[int]:
+    """The live slots of protocol dispatch ``op``, from its arguments by
+    name: the admission group, the chunked slot, the active prefill rows,
+    or the active decode slots."""
+    if op == "prefill_group":
+        return [int(s) for s in args["slots"]]
+    if op == "prefill_chunk":
+        return [int(args["slot"])]
+    if op == "prefill_chunks":
+        return [int(s) for s, a in zip(args["slot_ids"], args["job_active"])
+                if a]
+    return [int(s) for s in np.nonzero(np.asarray(args["active"]))[0]]
+
+
+def torn_guard(fn: Callable) -> Callable:
+    """Wrap a dispatch method so that an exception escaping its body
+    surfaces as `TornDispatch` over its live slots (one already raised by
+    a nested dispatch passes through unchanged)."""
+    sig = inspect.signature(fn)
+
+    @functools.wraps(fn)
+    def guarded(self, *args, **kwargs):
+        try:
+            return fn(self, *args, **kwargs)
+        except TornDispatch:
+            raise
+        except Exception as e:
+            bound = sig.bind(self, *args, **kwargs).arguments
+            raise TornDispatch(fn.__name__,
+                               dispatch_slots(fn.__name__, bound)) from e
+    return guarded
+
 
 def sample_host(logits, rid: int, index: int, temperature: float,
                 key) -> int:
@@ -147,6 +221,21 @@ class BackendBase:
     def invalidate(self) -> None:
         self._dirty = True
 
+    # --- supervision hooks (serve.supervisor) ----------------------------
+    # No-op by default: the supervisor notifies the backend of fault-
+    # isolation events so that wrappers (serve.chaos) can key fault
+    # lifecycles off them — quarantine clears slot-bound faults, a ladder
+    # rung clears persistent ones, a stall drains held resources.
+
+    def on_quarantine(self, slots: list) -> None:
+        pass
+
+    def on_degrade(self, level: int) -> None:
+        pass
+
+    def on_stall(self) -> None:
+        pass
+
     def stats(self) -> dict:
         # nothing falls back to a plain path on the card, so the fallback
         # counters of the schema are always 0
@@ -188,4 +277,5 @@ def for_arch(arch: Any, params: Any, ecfg: Any, device=None) -> BackendBase:
 
 
 __all__ = ["BackendBase", "resolve", "for_arch", "sample_host",
+           "TornDispatch", "dispatch_slots", "torn_guard",
            "ENGINE_STAT_KEYS", "BACKEND_STAT_KEYS", "STATS_SCHEMA"]

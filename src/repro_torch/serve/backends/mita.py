@@ -34,7 +34,8 @@ from repro_torch.core import mita_decode as mdec
 from repro_torch.kernels.ops import default_block_q
 from repro_torch.models import transformer as tfm
 from repro_torch.models.modules import ModelConfig
-from repro_torch.serve.backends import BackendBase, sample_host
+from repro_torch.serve.backends import (BackendBase, sample_host,
+                                        torn_guard)
 
 
 def _params_device(params) -> torch.device:
@@ -121,6 +122,7 @@ class MiTABackend(BackendBase):
 
     # ----------------------------------------------------------- prefill --
 
+    @torn_guard
     def prefill_group(self, prompts: np.ndarray, slots: list[int],
                       pages_list: list[list[int]]) -> np.ndarray:
         k, n = prompts.shape
@@ -140,6 +142,7 @@ class MiTABackend(BackendBase):
                                              pages, self.cfg)
             return logits.cpu()
 
+    @torn_guard
     def prefill_chunk(self, slot: int, pt_row: np.ndarray, toks: np.ndarray,
                       t0: int, n_valid: int, n_train: int) -> np.ndarray:
         """Per-job mode: one chunk of one slot (`models.transformer.
@@ -156,6 +159,7 @@ class MiTABackend(BackendBase):
                 int(n_train), self.cfg)
             return logits.cpu()
 
+    @torn_guard
     def prefill_chunks(self, slot_ids: list[int], toks: np.ndarray,
                        job_active: np.ndarray, page_table: np.ndarray,
                        t0: np.ndarray, n_valid: np.ndarray,
@@ -224,6 +228,7 @@ class MiTABackend(BackendBase):
 
     # ------------------------------------------------------------- decode --
 
+    @torn_guard
     def decode_step(self, tokens_in: np.ndarray, t: np.ndarray,
                     active: np.ndarray, page_table: np.ndarray,
                     rid: np.ndarray, temperature: np.ndarray,
@@ -272,6 +277,7 @@ class MiTABackend(BackendBase):
             return np.where(r != 0, self.window - r - 1, self.window - 1)
         return np.where(r < self.window - 1, self.window - 2 - r, 0)
 
+    @torn_guard
     def draft_steps(self, tokens_in: np.ndarray, t: np.ndarray,
                     active: np.ndarray, page_table: np.ndarray,
                     rid: np.ndarray, temperature: np.ndarray,
@@ -300,6 +306,7 @@ class MiTABackend(BackendBase):
         self.decode_dispatches += 1
         return drafts.cpu().numpy()
 
+    @torn_guard
     def verify_step(self, tokens_in: np.ndarray, t: np.ndarray,
                     active: np.ndarray, page_table: np.ndarray,
                     rid: np.ndarray, temperature: np.ndarray,

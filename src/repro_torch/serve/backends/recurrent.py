@@ -51,7 +51,8 @@ from repro_torch.core.mita_decode import window_aligned
 from repro_torch.models import mamba2 as m2
 from repro_torch.models import rglru as rg
 from repro_torch.models.transformer import sample_tokens
-from repro_torch.serve.backends import BackendBase, sample_host
+from repro_torch.serve.backends import (BackendBase, sample_host,
+                                        torn_guard)
 from repro_torch.serve.backends.mita import _params_device
 
 
@@ -123,6 +124,7 @@ class _RecurrentBackend(BackendBase):
             slotted.scatter_slots(self.states, ids, sub)
             return logits.cpu()
 
+    @torn_guard
     def prefill_group(self, prompts: np.ndarray, slots: list[int],
                       pages_list: list[list[int]]) -> torch.Tensor:
         del pages_list                  # constant-size states: no pages
@@ -132,6 +134,7 @@ class _RecurrentBackend(BackendBase):
         return self._prefill_rows(slots, toks, np.zeros(k, np.int32),
                                   np.full(k, n, np.int32))
 
+    @torn_guard
     def prefill_chunk(self, slot: int, pt_row: np.ndarray, toks: np.ndarray,
                       t0: int, n_valid: int, n_train: int) -> torch.Tensor:
         return self.prefill_chunks(
@@ -139,6 +142,7 @@ class _RecurrentBackend(BackendBase):
             np.asarray(pt_row)[None], np.array([t0], np.int32),
             np.array([n_valid], np.int32), np.array([n_train], np.int32))[0]
 
+    @torn_guard
     def prefill_chunks(self, slot_ids: list[int], toks: np.ndarray,
                        job_active: np.ndarray, page_table: np.ndarray,
                        t0: np.ndarray, n_valid: np.ndarray,
@@ -154,6 +158,7 @@ class _RecurrentBackend(BackendBase):
     def _sample(self, logits, rid, si, temperature, key):
         return sample_tokens(logits, rid, si, temperature, key)
 
+    @torn_guard
     def decode_step(self, tokens_in: np.ndarray, t: np.ndarray,
                     active: np.ndarray, page_table: np.ndarray,
                     rid: np.ndarray, temperature: np.ndarray,
@@ -199,6 +204,7 @@ class _RecurrentBackend(BackendBase):
             si = si + ac_i
         return np.stack(outs)
 
+    @torn_guard
     def draft_steps(self, tokens_in: np.ndarray, t: np.ndarray,
                     active: np.ndarray, page_table: np.ndarray,
                     rid: np.ndarray, temperature: np.ndarray,
@@ -220,6 +226,7 @@ class _RecurrentBackend(BackendBase):
         self.decode_dispatches += 1
         return drafts
 
+    @torn_guard
     def verify_step(self, tokens_in: np.ndarray, t: np.ndarray,
                     active: np.ndarray, page_table: np.ndarray,
                     rid: np.ndarray, temperature: np.ndarray,

@@ -30,6 +30,12 @@ re-derives them plus one correction with its exact decode rule
 verification reproduced plus the first corrected token, rewinding the
 backend past the commit point (``rollback``).
 
+Fault handling is not the engine's: `serve.supervisor.Supervisor` wraps
+`step` with retries, per-slot quarantine (through `_preempt`), the
+degradation ladder and a snapshot / restore journal, and counts them in
+``n_retries`` / ``n_quarantined`` / ``degradation_level``, which `stats`
+reports.
+
 Greedy tokens are exact w.r.t. the backend's static reference: a request
 decoded here emits the tokens it would emit in a fixed batch, preempted or
 not.  Tempered tokens are keyed by (request id, token index), so they do
@@ -52,7 +58,9 @@ from repro_torch.serve import backends as _backends
 
 class AllocatorInvariantError(RuntimeError):
     """Page accounting corruption: double-free, duplicate release, retain
-    of a free page, or an allocation not guarded by `can_alloc`."""
+    of a free page, or an allocation not guarded by `can_alloc`.  A
+    scheduler bug, not a workload condition: the supervisor re-raises it
+    instead of retrying."""
 
 
 @dataclasses.dataclass(eq=False)
@@ -307,8 +315,14 @@ class ServingEngine:
         self.n_spec_accepted = 0          # draft tokens verification kept
         self.n_spec_rollbacks = 0         # rounds that rejected a draft
 
+        # robustness counters (`serve.supervisor` increments retries /
+        # quarantined / degradation_level; rejections and deadline kills
+        # are the engine's own admission-control outcomes)
         self.n_rejected = 0
         self.n_deadline_expired = 0
+        self.n_retries = 0                # supervised step re-executions
+        self.n_quarantined = 0            # slots evicted by fault isolation
+        self.degradation_level = 0        # supervisor ladder rung (0 = full)
         self._deadline: dict[int, float] = {}
         self.reject_reasons: dict[int, str] = {}
 
@@ -324,7 +338,7 @@ class ServingEngine:
 
     def stats(self) -> dict[str, Any]:
         """Scheduler counters merged with the backend's; every key of
-        `backends.STATS_SCHEMA` (supervision reads 0)."""
+        `backends.STATS_SCHEMA`."""
         s = {"backend": self.backend.name, "steps": self.steps,
              "chunks": self.n_chunks,
              "prefill_dispatches": self.prefill_dispatches,
@@ -344,7 +358,9 @@ class ServingEngine:
              "spec_rollbacks": self.n_spec_rollbacks,
              "rejected": self.n_rejected,
              "deadline_expired": self.n_deadline_expired,
-             "retries": 0, "quarantined": 0, "degradation_level": 0}
+             "retries": self.n_retries,
+             "quarantined": self.n_quarantined,
+             "degradation_level": self.degradation_level}
         s.update(self.backend.stats())
         return s
 

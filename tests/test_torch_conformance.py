@@ -25,8 +25,14 @@ The same battery runs on the reference's two recurrent cells (``mamba2``:
 `Mamba2Backend` and `RGLRUBackend`, speculation in both recurrent modes
 (``self`` never rejects, ``stress`` always rolls back).
 
-Chaos under a supervisor and the schedule fuzzer wait for the supervision
-slice.
+Under a supervisor, on all three cells: seeded chaos (transient and
+slot-bound faults, allocator spikes) leaves every stream equal to the
+fault-free engine's with zero leaks and moving counters
+(`test_supervised_chaos_parity`); and the reference's schedule fuzzer
+(mita and mamba2, Hypothesis with its settings: 6 examples of random
+prompts, budgets, ``spec_k``, staggered arrivals, an optional cancel and
+optional chaos gated at ``draft_steps``, never at ``verify_step``) holds
+every completed stream to the fault-free ``spec_k = 0`` run.
 
 The gate imports ``benchmarks/serve_bench.py``'s Poisson trace (`_trace`,
 8 of its 32 requests, monolithic engine, 8 slots) and its interference
@@ -38,12 +44,14 @@ tokens per request.
 """
 
 import dataclasses
+import functools
 
 import jax
 import numpy as np
 import pytest
 import torch
 
+from _hypothesis_compat import given, settings, st
 from benchmarks.common import tiny_lm_cfg
 from benchmarks.serve_bench import _interference_trace, _trace
 from repro.core.mita_decode import window_aligned
@@ -56,7 +64,9 @@ from repro.serve import EngineConfig as JEngineConfig
 from repro.serve import ServingEngine as JServingEngine
 from repro_torch.convert import params_from_jax
 from repro_torch.models.modules import AttnConfig, ModelConfig
-from repro_torch.serve import EngineConfig, Request, ServingEngine
+from repro_torch.serve import (ChaosBackend, ChaosConfig, EngineConfig,
+                               Request, ServingEngine, Supervisor,
+                               SupervisorConfig)
 from repro_torch.serve.backends import (BACKEND_STAT_KEYS, ENGINE_STAT_KEYS,
                                         STATS_SCHEMA, BackendBase)
 from repro_torch.serve.backends.mita import MiTABackend
@@ -85,15 +95,35 @@ def _port_cfg(jc: JModelConfig) -> ModelConfig:
     return ModelConfig(**kw)
 
 
+@functools.lru_cache(maxsize=None)
+def _cells(name):
+    """``(cfg, params, backend class)`` of the battery's three cells: the
+    reference's configs, the JAX init's weights."""
+    key = jax.random.PRNGKey(0)
+    if name == "mita":
+        jc = JModelConfig(n_layers=2, d_model=64, n_heads=4, n_kv=2,
+                          d_ff=128, vocab=97,
+                          attn=JAttnConfig(window=W, k=W,
+                                           backend="mita_ref"))
+        jp, mk = jtfm.lm_init(key, jc), MiTABackend
+    elif name == "mamba2":
+        jc = JModelConfig(n_layers=2, d_model=32, n_heads=1, n_kv=1, d_ff=0,
+                          vocab=97, attn=JAttnConfig(window=W,
+                                                     backend="full"))
+        jp, mk = jm2.mamba_init(key, jc), Mamba2Backend
+    else:
+        jc = JModelConfig(n_layers=3, d_model=64, n_heads=4, n_kv=2,
+                          d_ff=128, vocab=97,
+                          attn=JAttnConfig(window=W, k=W,
+                                           backend="mita_ref"))
+        jp, mk = jrg.rg_init(key, jc), RGLRUBackend
+    return _port_cfg(jc), params_from_jax(jax.device_get(jp)), mk
+
+
 @pytest.fixture(scope="module")
 def cell():
     """``(cfg, params, engine factory)`` of the reference's MiTA cell."""
-    jc = JModelConfig(n_layers=2, d_model=64, n_heads=4, n_kv=2, d_ff=128,
-                      vocab=97, attn=JAttnConfig(window=W, k=W,
-                                                 backend="mita_ref"))
-    cfg = _port_cfg(jc)
-    params = params_from_jax(jax.device_get(
-        jtfm.lm_init(jax.random.PRNGKey(0), jc)))
+    cfg, params, _ = _cells("mita")
 
     def engine(ecfg, backend=None):
         backend = backend or MiTABackend(params, cfg, ecfg, device="cpu")
@@ -294,20 +324,7 @@ def test_midstep_exception_leaks_no_pages(cell, chunk, op):
 def rcell(request):
     """``(name, cfg, params, engine factory, backend class)`` of the
     reference's recurrent cells, on the port."""
-    key = jax.random.PRNGKey(0)
-    if request.param == "mamba2":
-        jc = JModelConfig(n_layers=2, d_model=32, n_heads=1, n_kv=1, d_ff=0,
-                          vocab=97, attn=JAttnConfig(window=W,
-                                                     backend="full"))
-        jp, mk = jm2.mamba_init(key, jc), Mamba2Backend
-    else:
-        jc = JModelConfig(n_layers=3, d_model=64, n_heads=4, n_kv=2,
-                          d_ff=128, vocab=97,
-                          attn=JAttnConfig(window=W, k=W,
-                                           backend="mita_ref"))
-        jp, mk = jrg.rg_init(key, jc), RGLRUBackend
-    cfg = _port_cfg(jc)
-    params = params_from_jax(jax.device_get(jp))
+    cfg, params, mk = _cells(request.param)
 
     def engine(ecfg, backend=None):
         backend = backend or mk(params, cfg, ecfg, device="cpu")
@@ -454,6 +471,122 @@ def test_recurrent_cell_midstep_exception_leaks_no_pages(rcell, chunk, op):
             f.tokens, ref.static_reference(r.prompt[None],
                                            r.max_new_tokens)[0],
             err_msg=f"{name}/{op}: stream diverged after fault")
+
+
+# ------------------------------------------------- supervision and fuzzing
+
+def _complete(done):
+    return {f.rid: f.tokens.tolist() for f in done if f.reason == "complete"}
+
+
+@pytest.mark.parametrize("name", ["mita", "mamba2", "rglru"])
+def test_supervised_chaos_parity(name):
+    """Seeded chaos (transient + slot-bound faults + allocator spikes)
+    under the supervisor: every request completes bit-identical to the
+    fault-free engine, the pool drains to zero, and the robustness
+    counters in `stats()` actually move — for every backend."""
+    cfg, params, mk = _cells(name)
+    specs = [(W, 4), (2 * W, 6), (W, 3), (2 * W, 5)]
+    ecfg = EngineConfig(n_slots=2, pages_per_slot=4, n_pages=12,
+                        prefill_chunk=W)
+    ref = _complete(ServingEngine(
+        params, cfg, ecfg, backend=mk(params, cfg, ecfg, device="cpu")).run(
+            _requests(cfg.vocab, specs)))
+    chaos = ChaosConfig(seed=5, p_fault=0.3, transient_len=2,
+                        p_slot_fault=0.4, alloc_spike_every=5,
+                        alloc_spike_pages=2,
+                        ops=("decode_step", "prefill_chunks"))
+    cb = ChaosBackend(mk(params, cfg, ecfg, device="cpu"), chaos)
+    eng = ServingEngine(params, cfg, ecfg, backend=cb)
+    sup = Supervisor(eng, SupervisorConfig(max_retries=2, stall_steps=4))
+    done = sup.run(_requests(cfg.vocab, specs))
+    sup.close()
+    assert _complete(done) == ref, f"{name}: supervised streams diverged"
+    assert eng.alloc.in_use == 0 and eng.alloc.refs == {}
+    assert cb.n_injected > 0, f"{name}: chaos schedule fired nothing"
+    assert sup.stats()["retries"] > 0
+
+
+@settings(max_examples=6, deadline=None)
+@given(st.sampled_from(["mita", "mamba2"]), st.integers(1, 4),
+       st.booleans(), st.booleans(), st.integers(0, 2**31 - 1))
+def test_speculative_schedule_fuzz(name, spec_k, cancel, chaos, seed):
+    """Property: ANY random schedule — prompt lengths, generation budgets,
+    staggered arrivals, optional mid-trace cancellation, optional seeded
+    chaos (supervised transient/slot faults + allocator spikes) — gives
+    token streams bit-identical to the fault-free spec_k=0 engine for
+    every request that ran to completion, and the allocator ends every
+    trace with zero pages in use (mita exercises the landmark drafter;
+    mamba2 the stress mode, so rollback replay is fuzzed too).  Chaos
+    only intercepts ops whose faults fire BEFORE any state mutation
+    (`draft_steps` is gated pre-draft, never `verify_step`), so a retried
+    step replays against unchanged backend state by construction."""
+    _fuzz_case(name, spec_k, cancel, chaos, seed)
+
+
+def _fuzz_case(name, spec_k, cancel, chaos, seed):
+    cfg, params, mk = _cells(name)
+    rng = np.random.default_rng(seed)
+    servable = [5, 6, W, W + 2, 2 * W - 2, 2 * W]
+    specs = [(int(rng.choice(servable)), int(rng.integers(2, 10)))
+             for _ in range(5)]
+    mode = "auto" if name == "mita" else "stress"
+
+    def run(k, with_chaos):
+        ecfg = EngineConfig(n_slots=2, pages_per_slot=4, n_pages=16,
+                            prefill_chunk=W, sample_device="fused",
+                            spec_k=k, spec_mode=mode if k else "auto")
+        backend = mk(params, cfg, ecfg, device="cpu")
+        cb = None
+        if with_chaos:
+            backend = cb = ChaosBackend(backend, ChaosConfig(
+                seed=seed ^ 0xC0FFEE, p_fault=0.2, transient_len=2,
+                p_slot_fault=0.3, alloc_spike_every=7, alloc_spike_pages=2,
+                ops=("decode_step", "prefill_chunks", "draft_steps")))
+        eng = ServingEngine(params, cfg, ecfg, backend=backend)
+        sup = Supervisor(eng, SupervisorConfig(max_retries=2,
+                                               stall_steps=4)) \
+            if with_chaos else None
+        step = sup.step if sup is not None else eng.step
+        pend = _requests(cfg.vocab, specs, seed=seed)
+        idx = steps = 0
+        while idx < len(pend) or eng.waiting or eng.prefilling \
+                or eng.active.any():
+            while idx < len(pend) and idx <= steps:
+                eng.submit(pend[idx])
+                idx += 1
+            if cancel and steps == 3:
+                eng.cancel(1)
+            step()
+            steps += 1
+        if cb is not None:
+            cb.release_spikes()
+            sup.close()
+        assert eng.alloc.in_use == 0 and eng.alloc.refs == {}, "page leak"
+        return _complete(eng.finished)
+
+    got, base = run(spec_k, chaos), run(0, False)
+    # the one cancel target may legitimately finish before the cancel
+    # fires in one run but not the other (spec_k / retries shift how many
+    # tokens a loop iteration emits); every request completed in BOTH
+    # runs must be bit-identical, and no other request may go missing
+    ctx = f"{name} spec_k={spec_k} cancel={cancel} chaos={chaos} seed={seed}"
+    assert set(got) ^ set(base) <= ({1} if cancel else set()), (
+        f"{ctx}: completed-request sets diverged beyond the cancel target")
+    for r in set(got) & set(base):
+        assert got[r] == base[r], f"{ctx}: rid {r} diverged"
+
+
+# schedules on which the reference's supervisor ends in SupervisionExhausted
+# (ROADMAP C.9: a new slot fault with the last quarantine's signature once
+# the ladder is spent); the port quarantines it again and completes
+C9_EXAMPLES = [("mamba2", 1, False, 3398), ("mita", 2, True, 1375484614),
+               ("mamba2", 4, True, 383294387)]
+
+
+@pytest.mark.parametrize("name,spec_k,cancel,seed", C9_EXAMPLES)
+def test_speculative_schedule_fuzz_c9_examples(name, spec_k, cancel, seed):
+    _fuzz_case(name, spec_k, cancel, True, seed)
 
 
 # ------------------------------------------------------------ main-path gate

@@ -1029,3 +1029,97 @@ def test_speculative_streams_equal_plain_decode_on_the_card(
         out[k] = {f.rid: f.tokens.tolist() for f in done}
     assert out[3] == out[0]
     assert eng.stats()["spec_drafted"] > 0
+
+
+# the dense configs with head dim 64: tinyllama-1.1b (Hkv 4, G 8) and
+# stablelm-1.6b (Hkv 32, G 1)
+D64_HEADS = [(4, 8), (32, 1)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hkv,g", D64_HEADS)
+def test_paged_kernels_at_head_dim_64(cuda_device, dtype, hkv, g):
+    """B.1 and B.2 at the dense configs' head shapes (d 64, G 8 / G 1,
+    w = K = 128, M = 6): ragged t, an inactive slot and a non-due slot
+    against the plain versions, pools and expert rows exact."""
+    w = 128
+    st, pt, q, kn, vn = _state(21 + g, dtype, cuda_device, s_n=4, m_slot=6,
+                               hkv=hkv, d=64, g=g, w=w, k=w)
+    t = torch.tensor([130, 300, 0, 767], dtype=torch.int32,
+                     device=cuda_device)
+    act = torch.tensor([True, True, False, True], device=cuda_device)
+    a, b = _clone(st, torch.float32), _clone(st)
+    args = lambda s, x: (x(q), x(kn), x(vn), s.lm_q,  # noqa: E731
+                         s.lm_v, s.expert_idx, s.expert_valid, s.k_pool,
+                         s.v_pool, pt, t, act, t // w)
+    ref = mpa.paged_attention_plain(*args(a, lambda x: x.float()), window=w,
+                                    n_route=1, fuse_append=True)
+    ops.reset_launch_counts()
+    out = ops.paged_decode_attend(*args(b, lambda x: x), window=w,
+                                  n_route=1, fuse_append=True)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["mita_paged_attention"] == 1
+    tol = TOL[dtype]
+    torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=tol)
+    assert torch.equal(a.k_pool[:-1], b.k_pool[:-1].float())
+    assert torch.equal(a.v_pool[:-1], b.v_pool[:-1].float())
+
+    td = torch.tensor([256, 640, 300, 768], dtype=torch.int32,
+                      device=cuda_device)
+    dd = torch.tensor([True, True, False, True], device=cuda_device)
+    a, b = _finalize_both(st, pt, td, dd, dtype, w, w)
+    _assert_finalize(st, a, b, dd, dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hkv,g", D64_HEADS)
+def test_chunk_prefill_kernel_at_head_dim_64(cuda_device, dtype, hkv, g):
+    """B.3 at the dense configs' head shapes (d 64, G 8 / G 1) against
+    the plain version: outputs, pools, both landmark systems and the
+    expert rows."""
+    inputs = _chunk_inputs(dtype, cuda_device, hkv=hkv, g=g, d=64,
+                           seed=30 + g)
+    kw = dict(window=W, k_width=K, n_route=1, external_finalize=True)
+    got, ref, pools_ref, pools_got = _chunk_vs_plain(dtype, inputs,
+                                                     CHUNK_ROWS, kw)
+    _assert_chunk_matches(dtype, inputs, CHUNK_ROWS, got, ref, pools_ref,
+                          pools_got)
+
+
+@pytest.mark.gpu
+def test_supervised_chaos_serve_on_the_card_vs_cpu(cuda_device):
+    """A supervised chaos serve (qwen3-0.6b smoke size, float32, chunk 16,
+    the serving CLI's chaos configuration at seed 0) gives the same tokens
+    on the card as on the CPU with the same weights, and its injector
+    fired on both."""
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.models import transformer as tfm
+    from repro_torch.serve import (ChaosBackend, ChaosConfig, EngineConfig,
+                                   Request, ServingEngine, Supervisor)
+    from repro_torch.serve.backends.mita import MiTABackend
+    cfg = get_arch("qwen3-0.6b", smoke=True).model
+    w = cfg.attn.window
+    params = tfm.lm_init(torch.Generator().manual_seed(0), cfg, "cpu")
+    ecfg = EngineConfig(n_slots=2, pages_per_slot=4, n_pages=16,
+                        prefill_chunk=w)
+    chaos = ChaosConfig(seed=0, p_fault=0.2, transient_len=2,
+                        p_slot_fault=0.3, alloc_spike_every=8,
+                        alloc_spike_pages=2,
+                        ops=("decode_step", "prefill_chunks", "prefill_chunk",
+                             "prefill_group", "draft_steps"))
+    rng = np.random.default_rng(4)
+    prompts = [rng.integers(0, cfg.vocab, n).astype(np.int32)
+               for n in (2 * w, w, 2 * w, w)]
+    out = {}
+    for dev in ("cpu", cuda_device):
+        p = _map_params(params, dev)
+        cb = ChaosBackend(MiTABackend(p, cfg, ecfg, device=dev), chaos)
+        sup = Supervisor(ServingEngine(p, cfg, ecfg, backend=cb))
+        done = sup.run([Request(rid=i, prompt=x, max_new_tokens=12)
+                        for i, x in enumerate(prompts)])
+        assert cb.n_injected > 0
+        assert [f.reason for f in done] == ["complete"] * len(prompts)
+        out[dev] = {f.rid: f.tokens.tolist() for f in done}
+    assert out[cuda_device] == out["cpu"]
