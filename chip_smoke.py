@@ -54,7 +54,7 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
        near-ties; one fused tempered sample timed (CUDA events) with its
        CUDA launches from a trace;
   3. parity (float32, TF32 off, random weights from a seed; the serves
-     of the earlier slices at 8 layers, the rest at 28):
+     of the earlier slices at 4 layers, the rest at 28):
      8 requests (batch 4, prompt 512, gen 160) through the monolithic and
      the chunked (prefill chunk 256) engine, and 4 requests of the
      non-aligned prompt length 96 through the chunked engine, every greedy
@@ -71,20 +71,20 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      tempered (0.8) spec_k = 3 streams equal spec_k = 0's, host-sampled
      tempered streams equal the fused ones, greedy spec_k = 3 equals
      ``static_generate`` except at recorded near-ties; then
-     mamba2-370m (8 layers) and recurrentgemma-9b (2 super-blocks) at
+     mamba2-370m (4 layers) and recurrentgemma-9b (1 super-block) at
      full width: the monolithic, batched-chunked and per-job-chunked
      (128) engines held to the backend's ``static_reference`` except at
      near-ties, a preemption round trip token-exact, spec_k = 3 (self)
      equal to spec_k = 0 at temperatures 0 and 0.8; the qwen3-0.6b
-     per-job serve (8 layers) against the batched serve and
+     per-job serve (4 layers) against the batched serve and
      ``static_generate`` (first-token logits within 1e-4 of
      ``lm_prefill``'s unless a landmark top-K near-tie is proven pick by
      pick); the hybrid's full-sequence forward (2
      super-blocks, N = 4096), impl="pallas" against "sorted" at span = m
      layer by layer within 1e-5, expert launches = attention layers x
      forwards; supervision (PR 21, float32): `benchmarks/chaos_bench.py`'s
-     four phases on qwen3-0.6b (8 layers), mamba2-370m (8 layers) and
-     recurrentgemma-9b (2 super-blocks) at full width -- a fault-free
+     four phases on qwen3-0.6b (4 layers), mamba2-370m (4 layers) and
+     recurrentgemma-9b (1 super-block) at full width -- a fault-free
      oracle, seed 11 chaos under the `Supervisor` (faults on >= 20% of
      step attempts, streams equal, zero leaks, B.1-B.3 launched), a
      persistent fault that walks the ladder to level 3, a kill after 6
@@ -117,18 +117,35 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      (expert launches = 13 x forwards); the chunked qwen3-0.6b serve
      again with ``--chaos-seed 0`` (requests never recomputed equal to
      the plain supervised serve, the recomputed ones' first parting token
-     recorded: ROADMAP C.13; retries, quarantines, stragglers, tok/s and
+     recorded: bf16 recompute parts as in the reference, ROADMAP C.13;
+     retries, quarantines, stragglers, tok/s and
      TTFT of both),
      and bf16 chunked serves of tinyllama-1.1b and stablelm-1.6b at full
      width and depth (8 requests, 512 + 64, 4 slots: tok/s, TTFT, peak
      memory, the serving kernels' launches);
+  then the MoE family, run last: B.1-B.3 at the d-128 decode
+     shapes of deepseek-moe-16b (Hkv 16, G 1), dbrx-132b (Hkv 8, G 6)
+     and internvl2-76b (Hkv 8, G 8) in both dtypes as at d 64, and B.4 at
+     deepseek-moe-16b's forward lead [1, 16, 1]; deepseek-moe-16b in
+     float32 at 4 layers, full width: the chunked supervised serve held
+     to `static_generate` (capacity factor raised so nothing drops),
+     `moe_apply` on the card against the CPU on the serve's chunk inputs
+     at the real factor 1.25 (picks, slots, kept assignments exact away
+     from router near-ties; outputs within 1e-5), the forward's routed
+     partials layer by layer; then in bf16 at full width and depth (28
+     layers, 62.9 GiB of float32 weights) through
+     ``launch.serve.main``: 8 requests, 512 + 160, 4 slots, chunk 256
+     (tok/s, TTFT, peak memory < 80 GB, decode = 28 x steps, chunk = 28 x
+     dispatches, finalize > 0) and a ``lm_forward(impl="pallas")`` at
+     N = 4096 (tok/s, expert launches = 28 x forwards);
   5. summary: one JSON line of per-kernel results (launches from each
      kernel's main path: the spec_k = 3 serve for the serving kernels,
      with the plain chunked serve's beside them, the bf16 full-sequence
      path for the expert kernel, 0 for flash attention, which no model
      path calls; B.1-B.3 also carry their launches on the supervised and
-     dense paths and their head-dim-64 rows; plus the sampler's, the spec
-     serve's, the chaos gates' and the new serves' numbers), then
+     dense paths and their head-dim-64 rows, and the MoE paths' launches
+     and d-128 shape rows; plus the sampler's, the spec serve's, the chaos
+     gates' and the new serves' numbers), then
      the final line
      ``{"ok": true, "device": {...}}``.
 
@@ -139,6 +156,7 @@ repository's ``src/`` is missing.
 from __future__ import annotations
 
 import contextlib
+import gc
 import json
 import re
 import subprocess
@@ -157,7 +175,7 @@ PEAK_OPS = {torch.float32: 67e12,   # FP32 outside the tensor cores
 TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
 S, HKV, G, D, W, K, M = 4, 8, 2, 128, 128, 128, 6
 PARITY_GAP = 1e-3
-PARITY_LAYERS = 8     # depth of the earlier slices' f32 serves (from 28)
+PARITY_LAYERS = 4     # depth of the earlier slices' f32 serves (from 28)
 LAYER_TOL = 1e-5      # float32 routed partials, expert kernel vs span = m
 LOSS_TOL = 1e-3       # float32 lm_loss (nats), pallas vs sorted span = m
 PREFILL_LOGIT_TOL = 1e-4  # float32 first-token logits, engine vs lm_prefill
@@ -1249,19 +1267,21 @@ def expert_partials(out):
     return (o / l.clamp(min=1e-30)[..., None])[act], m[act], l
 
 
-def check_expert(dtype, mod=None):
+def check_expert(dtype, mod=None, shape=None):
     """The routed-expert kernel of ``mod`` (default: this tree's) against
     this tree's plain version at the forward shape (and a ragged NS), P
     rounded to bf16 in the plain version where this tree's kernel rounds
     it; inactive rows exactly empty; timed, its launches and names read
-    from a trace."""
+    from a trace.  ``shape``: (Hkv, G, d) of another model's forward
+    (default qwen3-0.6b's)."""
     from repro_torch.kernels import mita_expert_attn as plain
     mod = mod or plain
+    hkv, g_n, d = shape or (HKV, G, D)
     tol = TOL[dtype]
     errs = []
-    round_p = plain.expert_path(dtype, D) == plain.TENSOR_CORES
+    round_p = plain.expert_path(dtype, d) == plain.TENSOR_CORES
     for ns, seed in ((FWD_N, 20), (FWD_N - 37, 21)):     # then ragged
-        args = expert_inputs(dtype, ns, seed)
+        args = expert_inputs(dtype, ns, seed, hkv, g_n, d)
         ref = plain.expert_attention_plain(*args, round_p=round_p)
         got = mod.mita_expert_attention(*args)
         torch.cuda.synchronize()
@@ -1290,7 +1310,8 @@ def check_expert(dtype, mod=None):
             rec = kernel_record(kern, iters=20)
             bms, by = bound_ms(*expert_bound(args, dtype), dtype)
     err = max(errs)
-    print(f"mita_expert_attention {dtype}: max_abs_err {err:.3e} (tol "
+    print(f"mita_expert_attention {dtype} lead [1, {hkv}, {g_n}] d {d}: "
+          f"max_abs_err {err:.3e} (tol "
           f"{tol}), kernel {ms:.4f} ms, plain {pms:.4f} ms, bound "
           f"{bms:.5f} ms ({by}); {record_text(rec)}")
     return dict(max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=bms,
@@ -1684,6 +1705,53 @@ def phase_parity():
     torch.cuda.empty_cache()
 
 
+def routed_layer_err(params, base, toks) -> float:
+    """Every layer's routed branch of a float32 forward over ``toks`` on
+    one routing: the expert kernel (span 0) against the span path over
+    all m experts, compared as normalised partials on the active rows
+    (inputs: the span run); fails past LAYER_TOL.  Returns the largest
+    error."""
+    import dataclasses
+    from repro_torch.core import mita as mref
+    from repro_torch.core import mita_sparse as msp
+    from repro_torch.models import modules as nn
+    from repro_torch.models import transformer as tfm
+    n = toks.shape[1]
+    cfg_s = dataclasses.replace(base, attn=dataclasses.replace(
+        base.attn, impl="sorted", expert_span=n // W))
+    with torch.inference_mode():
+        x = nn.embed(params["emb"], toks, base)
+        pos = torch.arange(n, device="cuda")
+        mcfg = base.attn.mita_cfg(n)
+        layer_err = 0.0
+        for i in range(base.n_layers):
+            lp = tfm.layer_params(params["blocks"], i)
+            q, k, v = nn._qkv(lp["attn"], nn.rms_norm(x, lp["ln1"]), base,
+                              pos)
+            q_lm = mref.extract_landmarks(q.mean(dim=2, keepdim=True), mcfg)
+            s_kv = mref.landmark_scores(k, q_lm, mcfg)
+            r = mref.routing_logits(q, q_lm, mcfg)
+            k_e, v_e, valid = mref.gather_topk(k, v, s_kv, mcfg)
+            p_k, p_s = (msp._routed_sorted(q, k_e, v_e, valid, r, mcfg,
+                                           base.attn.block_q, span)
+                        for span in (0, n // W))
+            act = p_s.l > 0
+            if not torch.equal(act, p_k.l > 0):
+                fail(f"layer {i}: routed branch active rows differ")
+            for name, a, b in (
+                    ("o / l", p_k.o / p_k.l.clamp(min=1e-30)[..., None],
+                     p_s.o / p_s.l.clamp(min=1e-30)[..., None]),
+                    ("m", p_k.m, p_s.m)):
+                a, b = a[act], b[act]
+                err = (a - b).abs().max().item()
+                layer_err = max(layer_err, err)
+                if not torch.allclose(a, b, atol=LAYER_TOL, rtol=LAYER_TOL):
+                    fail(f"layer {i}: routed {name}, expert kernel vs span "
+                         f"path, max_abs_err {err} > {LAYER_TOL}")
+            x, _ = tfm.block_apply(lp, x, cfg_s, pos)
+    return layer_err
+
+
 def phase_fullseq_parity():
     """float32 (TF32 off), 28 layers: the full-sequence forward with the
     expert kernel (impl="pallas") against the span path with the whole
@@ -1702,8 +1770,6 @@ def phase_fullseq_parity():
     that float sensitivity; lm_loss must agree to LOSS_TOL."""
     import dataclasses
     from repro_torch.configs.registry import get_arch
-    from repro_torch.core import mita as mref
-    from repro_torch.core import mita_sparse as msp
     from repro_torch.data import DataConfig, synthetic_batch
     from repro_torch.models import modules as nn
     from repro_torch.models import transformer as tfm
@@ -1725,38 +1791,7 @@ def phase_fullseq_parity():
                                        global_batch=1), 0)
     toks = torch.as_tensor(batch["tokens"], device="cuda")
     with torch.inference_mode():
-        # every layer's routed branch on one routing: the expert kernel
-        # (span 0) against the span path over all m experts, compared as
-        # normalised partials on the active rows (inputs: the span run)
-        x = nn.embed(params["emb"], toks, base)
-        pos = torch.arange(FWD_N, device="cuda")
-        mcfg = base.attn.mita_cfg(FWD_N)
-        layer_err = 0.0
-        for i in range(base.n_layers):
-            lp = tfm.layer_params(params["blocks"], i)
-            q, k, v = nn._qkv(lp["attn"], nn.rms_norm(x, lp["ln1"]), base,
-                              pos)
-            q_lm = mref.extract_landmarks(q.mean(dim=2, keepdim=True), mcfg)
-            s_kv = mref.landmark_scores(k, q_lm, mcfg)
-            r = mref.routing_logits(q, q_lm, mcfg)
-            k_e, v_e, valid = mref.gather_topk(k, v, s_kv, mcfg)
-            p_k, p_s = (msp._routed_sorted(q, k_e, v_e, valid, r, mcfg,
-                                           base.attn.block_q, span)
-                        for span in (0, FWD_M))
-            act = p_s.l > 0
-            if not torch.equal(act, p_k.l > 0):
-                fail(f"layer {i}: routed branch active rows differ")
-            for name, a, b in (
-                    ("o / l", p_k.o / p_k.l.clamp(min=1e-30)[..., None],
-                     p_s.o / p_s.l.clamp(min=1e-30)[..., None]),
-                    ("m", p_k.m, p_s.m)):
-                a, b = a[act], b[act]
-                err = (a - b).abs().max().item()
-                layer_err = max(layer_err, err)
-                if not torch.allclose(a, b, atol=LAYER_TOL, rtol=LAYER_TOL):
-                    fail(f"layer {i}: routed {name}, expert kernel vs span "
-                         f"path, max_abs_err {err} > {LAYER_TOL}")
-            x = tfm.block_apply(lp, x, cfg_s, pos)
+        layer_err = routed_layer_err(params, base, toks)
         logits = {what: tfm.lm_forward(params, toks, c)[0]
                   for what, c in (("pallas", cfg_p), ("sorted", cfg_s),
                                   ("oracle", cfg_ref))}
@@ -1766,7 +1801,7 @@ def phase_fullseq_parity():
         x = nn.embed(params["emb"], toks, base)
         x = x * (1 + 1e-7 * torch.randn(x.shape, generator=g, device="cuda"))
         logits["sorted, input x (1 + 1e-7 noise)"] = nn.unembed(
-            params["emb"], tfm.lm_backbone(params, x, cfg_s), base)[0]
+            params["emb"], tfm.lm_backbone(params, x, cfg_s)[0], base)[0]
         loss = {what: tfm.lm_loss(params, batch, c).item()
                 for what, c in (("pallas", cfg_p), ("sorted", cfg_s))}
     if logits["pallas"].shape != (FWD_N, base.vocab) \
@@ -1825,7 +1860,8 @@ def phase_fullseq_parity():
 
 
 def phase_spec_parity():
-    """float32 (TF32 off), 28 layers: this slice's path.  4 requests (two
+    """float32 (TF32 off), PARITY_LAYERS layers: the speculative path.
+    4 requests (two
     of prompt 96, whose first window closes at 128 while they decode, two
     of prompt 512 with four finalised landmarks to draft from), 48 new
     tokens, batch 4, chunked prefill 256, fused sampling:
@@ -1841,7 +1877,8 @@ def phase_spec_parity():
     from repro_torch.serve import EngineConfig, Request, ServingEngine
 
     cfg = dataclasses.replace(get_arch("qwen3-0.6b").model,
-                              compute_dtype=torch.float32)
+                              compute_dtype=torch.float32,
+                              n_layers=PARITY_LAYERS)
     batch, gen = 4, 48
     params = tfm.lm_init(torch.Generator(device="cuda").manual_seed(0), cfg,
                          "cuda")
@@ -1905,23 +1942,26 @@ def phase_spec_parity():
 
 # ------------------------------------------------------------ phase 4 ------
 
-def production_serve(card: str, extra: list, what: str):
+def production_serve(card: str, extra: list, what: str,
+                     arch: str = "qwen3-0.6b"):
     """The bf16 trace through `repro_torch.launch.serve.main`, launch
-    counters set to 0 just before and read just after."""
+    counters set to 0 just before and read just after; the summary gains
+    ``max_memory_allocated`` (bytes)."""
     from repro_torch.configs.registry import get_arch
     from repro_torch.kernels import ops
     from repro_torch.launch.serve import main
 
-    n_layers = get_arch("qwen3-0.6b").model.n_layers
-    vocab = get_arch("qwen3-0.6b").model.vocab
+    n_layers = get_arch(arch).model.n_layers
+    vocab = get_arch(arch).model.vocab
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
-    summary = main(["--engine", "continuous", "--batch", "4",
-                    "--prompt-len", "512", "--gen", "160", "--requests",
+    summary = main(["--arch", arch, "--engine", "continuous", "--batch",
+                    "4", "--prompt-len", "512", "--gen", "160", "--requests",
                     "8", "--device", "cuda", *extra])
     torch.cuda.synchronize()
     launches = ops.launch_counts()
     peak = torch.cuda.max_memory_allocated()
+    summary["max_memory_allocated"] = peak
     if summary["finished"] != 8 or set(summary["reasons"]) != {"complete"}:
         fail(f"{what} serve finished {summary['reasons']}")
     for rid, toks in summary["tokens"].items():
@@ -2123,7 +2163,7 @@ def phase_fullseq_production(card: str):
 
 # ------------------------------- phase 3 / 4 (recurrent, per-job) --------
 
-REC_PARITY_LAYERS = {"mamba2-370m": 8, "recurrentgemma-9b": 6}
+REC_PARITY_LAYERS = {"mamba2-370m": 4, "recurrentgemma-9b": 3}
 REC_CHUNK = 128
 
 
@@ -2645,7 +2685,7 @@ def phase_hybrid_forward_parity():
                 if not torch.allclose(a, b, atol=LAYER_TOL, rtol=LAYER_TOL):
                     fail(f"hybrid attention layer {i}: routed {name}, expert "
                          f"kernel vs span path, max_abs_err {err}")
-            x = tfm.block_apply(lp, x, cfg, pos)
+            x, _ = tfm.block_apply(lp, x, cfg, pos)
         del x, q, k, v, k_e, v_e, p_k, p_s
         ops.reset_launch_counts()
         logits, _ = rg.rg_forward(params, toks, arch_p.model)
@@ -2801,13 +2841,19 @@ def phase_kernels_d64():
     on the real-valued inputs a row may differ only where its two picks'
     scores lie within float32 rounding (`pick_gaps`): stablelm's 32 heads
     meet such near ties in float32."""
+    return serving_kernels_at(D64_SHAPES, 64)
+
+
+def serving_kernels_at(shapes: dict, d: int) -> dict:
+    """B.1-B.3 at each {arch: (Hkv, G)} of ``shapes`` and head dim ``d``,
+    both dtypes, as `phase_kernels_d64` sets out."""
     from repro_torch.kernels import mita_chunk_prefill as mcp
     res = {}
-    for arch_id, (hkv, g) in D64_SHAPES.items():
+    for arch_id, (hkv, g) in shapes.items():
         res[arch_id] = {}
-        with head_shape(hkv, g, 64):
+        with head_shape(hkv, g, d):
             for dtype in (torch.float32, torch.bfloat16):
-                label = f"d64 {arch_id} (Hkv={hkv}, G={g})"
+                label = f"d{d} {arch_id} (Hkv={hkv}, G={g})"
                 print(f"--- {label} {dtype}")
                 _, *case = next(paged_attn_cases(dtype))
                 attn = check_paged_attn(dtype, f"{label} serving", *case)
@@ -2828,8 +2874,8 @@ def phase_kernels_d64():
 # --------------------------------------------------- phase 3 (supervision) --
 
 # chaos_bench's cells: full width, depth cut as in the earlier f32 phases
-CHAOS_CELLS = {"qwen3-0.6b": PARITY_LAYERS, "mamba2-370m": 8,
-               "recurrentgemma-9b": 6}
+CHAOS_CELLS = {"qwen3-0.6b": PARITY_LAYERS, "mamba2-370m": 4,
+               "recurrentgemma-9b": 3}
 CHAOS_HI = 13                # new tokens per request: 2 .. 12
 CHAOS = dict(seed=11, p_fault=0.35, transient_len=2, p_slot_fault=0.3,
              alloc_spike_every=6, alloc_spike_pages=2, alloc_spike_len=3,
@@ -2898,8 +2944,8 @@ class _RaiseOnce:
 def phase_chaos_parity():
     """float32 (TF32 off): `benchmarks/chaos_bench.py`'s four phases on the
     card, re-implemented here (the bench imports JAX).  Cells: qwen3-0.6b
-    (PARITY_LAYERS layers), mamba2-370m (8 layers), recurrentgemma-9b (2
-    super-blocks), full width; its trace (`chaos_trace`: 8 requests,
+    (PARITY_LAYERS layers), mamba2-370m (4 layers), recurrentgemma-9b (1
+    super-block), full width; its trace (`chaos_trace`: 8 requests,
     prompts of w or 2w, 2-12 new tokens, and two that cross a window
     close while decoding) on 4 slots, prefill chunk w.
       1. a fault-free engine: the oracle;
@@ -3122,13 +3168,7 @@ def phase_dense_parity():
     dispatches."""
     import dataclasses
     from repro_torch.configs.registry import get_arch
-    from repro_torch.data import DataConfig, synthetic_batch
-    from repro_torch.kernels import ops
-    from repro_torch.launch.serve import static_generate
     from repro_torch.models import transformer as tfm
-    from repro_torch.serve import (EngineConfig, Request, ServingEngine,
-                                   Supervisor)
-    n, gen, batch = 512, 160, 4
     out = {}
     for arch_id in DENSE_CELLS:
         cfg = dataclasses.replace(get_arch(arch_id).model,
@@ -3136,66 +3176,81 @@ def phase_dense_parity():
                                   n_layers=DENSE_LAYERS)
         params = tfm.lm_init(torch.Generator(device="cuda").manual_seed(0),
                              cfg, "cuda")
-        prompts = list(synthetic_batch(DataConfig(
-            vocab=cfg.vocab, seq_len=n, global_batch=batch), 0)["tokens"])
-        w = cfg.attn.window
-        pages = -(-(n + gen) // w)
-        eng = ServingEngine(params, cfg, EngineConfig(
-            n_slots=batch, pages_per_slot=pages, n_pages=2 * batch * pages,
-            prefill_chunk=256), device="cuda")
-        first = _keep_first_logits(eng)
-        sup = Supervisor(eng)
-        t0 = time.perf_counter()
-        ops.reset_launch_counts()
-        with _ChunkRows(DENSE_LAYERS) as chunk_rows:
-            done = sup.run([Request(rid=i, prompt=p, max_new_tokens=gen)
-                            for i, p in enumerate(prompts)])
-        torch.cuda.synchronize()
-        launches = ops.launch_counts()
-        slots = {int(eng.slot_rid[s]): s for s in range(batch)}
-        dt = time.perf_counter() - t0
-        if [f.reason for f in done] != ["complete"] * batch:
-            fail(f"{arch_id} dense parity reasons {[f.reason for f in done]}")
-        scfg = eng.backend.cfg
-        near_tie, first_err = _prefill_near_ties(
-            params, scfg, prompts, first, "batched", pages, chunk_rows, slots)
-        with torch.inference_mode():
-            ref, tm = static_generate(
-                params, scfg, torch.as_tensor(np.stack(prompts),
-                                              device="cuda"),
-                gen, capacity=pages * w, record_gaps=True)
-        div, bad = _near_tie_check(np.stack([f.tokens for f in done]), ref,
-                                   tm["top2_gap"], f"{arch_id} chunked 256")
-        if set(bad) - set(near_tie):
-            fail("; ".join(m for r, m in bad.items() if r not in near_tie))
-        div += len(bad)
-        st = sup.stats()
-        want = {"mita_paged_attention": DENSE_LAYERS * st["steps"],
-                "mita_chunk_prefill_fused":
-                    DENSE_LAYERS * st["prefill_dispatches"]}
-        for k, v in want.items():
-            if launches[k] != v or v <= 0:
-                fail(f"{arch_id} dense parity: {k} launches {launches[k]} "
-                     f"!= {v} (> 0)")
-        if launches["mita_paged_finalize_fused"] <= 0:
-            fail(f"{arch_id} dense parity never launched the finalize")
-        m = cfg
-        out[arch_id] = dict(near_tie_divergences=div, launches={
-            k: launches[k] for k in SERVING_KERNELS}, steps=st["steps"],
-            prefill_dispatches=st["prefill_dispatches"],
-            first_token_logit_err=first_err,
-            top_k_near_ties={i: list(r) for i, r in near_tie.items()})
-        print(f"dense parity ({arch_id}, float32, {DENSE_LAYERS} layers, "
-              f"d {m.dh}, Hkv {m.n_kv}, G {m.group}, chunked 256, "
-              f"supervised): {batch} requests {n} + {gen} in {dt:.2f} s, "
-              f"{div} divergences at near-ties (token or top-K: "
-              f"{near_tie}), tokens otherwise identical to "
-              f"static_generate; first-token logits of the others within "
-              f"{first_err:.3e} of lm_prefill's; {st['steps']} steps, "
-              f"{st['prefill_dispatches']} prefill dispatches; launches "
-              f"{out[arch_id]['launches']}")
-        del params, eng
+        out[arch_id] = chunked_parity(arch_id, cfg, params)
+        del params
         torch.cuda.empty_cache()
+    return out
+
+
+def chunked_parity(arch_id: str, cfg, params) -> dict:
+    """`phase_dense_parity`'s check of one configuration (float32,
+    ``cfg.n_layers`` layers, ``params`` on the card): 4 requests of
+    512 + 160 chunked (256) through the supervised engine, held to
+    `static_generate`; its launch gates."""
+    from repro_torch.data import DataConfig, synthetic_batch
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import static_generate
+    from repro_torch.serve import (EngineConfig, Request, ServingEngine,
+                                   Supervisor)
+    n, gen, batch = 512, 160, 4
+    n_layers = cfg.n_layers
+    prompts = list(synthetic_batch(DataConfig(
+        vocab=cfg.vocab, seq_len=n, global_batch=batch), 0)["tokens"])
+    w = cfg.attn.window
+    pages = -(-(n + gen) // w)
+    eng = ServingEngine(params, cfg, EngineConfig(
+        n_slots=batch, pages_per_slot=pages, n_pages=2 * batch * pages,
+        prefill_chunk=256), device="cuda")
+    first = _keep_first_logits(eng)
+    sup = Supervisor(eng)
+    t0 = time.perf_counter()
+    ops.reset_launch_counts()
+    with _ChunkRows(n_layers) as chunk_rows:
+        done = sup.run([Request(rid=i, prompt=p, max_new_tokens=gen)
+                        for i, p in enumerate(prompts)])
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    slots = {int(eng.slot_rid[s]): s for s in range(batch)}
+    dt = time.perf_counter() - t0
+    if [f.reason for f in done] != ["complete"] * batch:
+        fail(f"{arch_id} parity reasons {[f.reason for f in done]}")
+    scfg = eng.backend.cfg
+    near_tie, first_err = _prefill_near_ties(
+        params, scfg, prompts, first, "batched", pages, chunk_rows, slots)
+    with torch.inference_mode():
+        ref, tm = static_generate(
+            params, scfg, torch.as_tensor(np.stack(prompts), device="cuda"),
+            gen, capacity=pages * w, record_gaps=True)
+    div, bad = _near_tie_check(np.stack([f.tokens for f in done]), ref,
+                               tm["top2_gap"], f"{arch_id} chunked 256")
+    if set(bad) - set(near_tie):
+        fail("; ".join(m for r, m in bad.items() if r not in near_tie))
+    div += len(bad)
+    st = sup.stats()
+    want = {"mita_paged_attention": n_layers * st["steps"],
+            "mita_chunk_prefill_fused": n_layers * st["prefill_dispatches"]}
+    for k, v in want.items():
+        if launches[k] != v or v <= 0:
+            fail(f"{arch_id} parity: {k} launches {launches[k]} != {v} "
+                 "(> 0)")
+    if launches["mita_paged_finalize_fused"] <= 0:
+        fail(f"{arch_id} parity never launched the finalize")
+    m = cfg
+    out = dict(near_tie_divergences=div, launches={
+        k: launches[k] for k in SERVING_KERNELS}, steps=st["steps"],
+        prefill_dispatches=st["prefill_dispatches"],
+        first_token_logit_err=first_err,
+        top_k_near_ties={i: list(r) for i, r in near_tie.items()})
+    print(f"chunked parity ({arch_id}, float32, {n_layers} layers, "
+          f"d {m.dh}, Hkv {m.n_kv}, G {m.group}, chunked 256, "
+          f"supervised): {batch} requests {n} + {gen} in {dt:.2f} s, "
+          f"{div} divergences at near-ties (token or top-K: "
+          f"{near_tie}), tokens otherwise identical to "
+          f"static_generate; first-token logits of the others within "
+          f"{first_err:.3e} of lm_prefill's; {st['steps']} steps, "
+          f"{st['prefill_dispatches']} prefill dispatches; launches "
+          f"{out['launches']}")
+    del eng
     return out
 
 
@@ -3208,10 +3263,10 @@ def phase_supervised_production(card: str, plain: dict):
     recomputed (no preemption or quarantine) must equal the plain serve
     token for token.  A recomputed one is rebuilt by chunk prefill over
     its prompt and emitted tokens, where the uninterrupted run had decoded
-    them: in bf16 on the card the two paths round differently and a later
-    token may part (ROADMAP C.13; float32 recompute is held to the
-    fault-free stream exactly in `phase_chaos_parity`), so for those the
-    first parting token is recorded."""
+    them: in bf16 the two paths round differently and a later token may
+    part, as in the reference (ROADMAP C.13; float32 recompute is held to
+    the fault-free stream exactly in `phase_chaos_parity`), so for those
+    the first parting token is recorded."""
     from repro_torch.configs.registry import get_arch
     n_layers = get_arch("qwen3-0.6b").model.n_layers
     summary, launches = production_serve(
@@ -3304,6 +3359,251 @@ def phase_dense_production(card: str):
     return res
 
 
+# ------------------------------------------------------- the MoE family --
+
+# (Hkv, G) at head dim 128 of the configs of the MoE slice
+MOE_SHAPES = {"deepseek-moe-16b": (16, 1), "dbrx-132b": (8, 6),
+              "internvl2-76b": (8, 8)}
+MOE_ARCH = "deepseek-moe-16b"      # the one that fits the card
+MOE_LAYERS = 4                     # depth of its float32 parity
+MOE_OUT_TOL = 1e-5                 # float32 moe_apply, card vs CPU
+
+
+def phase_kernels_moe():
+    """B.1-B.3 at the decode shapes of deepseek-moe-16b (S 4, Hkv 16, G 1),
+    dbrx-132b (Hkv 8, G 6: the first group size that is not a power of
+    two) and internvl2-76b (Hkv 8, G 8), head dim 128, w = K = 128, M = 6,
+    both dtypes, as `phase_kernels_d64` checks and times them; and B.4 at
+    deepseek-moe-16b's forward lead [1, 16, 1] (m 32, N 4096)."""
+    res = serving_kernels_at(MOE_SHAPES, D)
+    hkv, g = MOE_SHAPES[MOE_ARCH]
+    res["expert"] = {dt: check_expert(dt, shape=(hkv, g, D))
+                     for dt in (torch.float32, torch.bfloat16)}
+    return res
+
+
+class _MoEInputs:
+    """While active, records the inputs of the first ``n`` `moe_apply`
+    calls of more than one token a row (chunk prefills) as the model
+    makes them."""
+
+    def __init__(self, n: int):
+        self.n, self.calls = n, []
+
+    def __enter__(self):
+        from repro_torch.models import transformer as tfm
+        self.tfm, self.fn = tfm, tfm.moe_apply
+
+        def record(p, x, cfg):
+            if x.shape[1] > 1 and len(self.calls) < self.n:
+                self.calls.append(x.clone())
+            return self.fn(p, x, cfg)
+
+        tfm.moe_apply = record
+        return self
+
+    def __exit__(self, *exc):
+        self.tfm.moe_apply = self.fn
+
+
+def moe_card_vs_cpu(p, x, cfg) -> dict:
+    """`moe_apply` on the card against the same call on the CPU (float32,
+    the layer's parameters copied): the gate picks, queue slots and kept
+    assignments exact and the outputs within MOE_OUT_TOL, except in a
+    capacity group holding a token whose picks differ; each such token
+    must be a router near-tie, the two experts' float64 logits apart by no
+    more than float32 rounding can make of them (``(d + 1) 2^-24`` times
+    the sum of |x_i r_ij|, for each of the two).  Returns the counts."""
+    import math
+    from repro_torch.models import moe
+    b, n, d = x.shape
+    g = math.gcd(b * n, moe.MOE_GROUPS)
+    pc = {k: ({kk: vv.cpu() for kk, vv in v.items()} if isinstance(v, dict)
+              else v.cpu()) for k, v in p.items()}
+    with torch.inference_mode():
+        out_c, aux_c = moe.moe_apply(p, x, cfg)
+        out_h, aux_h = moe.moe_apply(pc, x.cpu(), cfg)
+        rc = moe.route(p, x.reshape(g, -1, d), cfg)
+        rh = moe.route(pc, x.cpu().reshape(g, -1, d), cfg)
+    idx_c, idx_h = rc.gate_idx.cpu(), rh.gate_idx
+    cap = rh.cap
+    differ = (idx_c != idx_h).any(-1)                           # [G, Tg]
+    worst = 0.0
+    for gi, ti in differ.nonzero().tolist():
+        xt = x.reshape(g, -1, d)[gi, ti].cpu().double()
+        r = pc["router"].double()
+        logit = xt @ r
+        mag = (xt[:, None].abs() * r.abs()).sum(0)
+        j = int((idx_c[gi, ti] != idx_h[gi, ti]).nonzero()[0])
+        ea, eb = int(idx_h[gi, ti, j]), int(idx_c[gi, ti, j])
+        gap = abs(float(logit[ea] - logit[eb]))
+        bound = (d + 1) * 2.0 ** -24 * float(mag[ea] + mag[eb])
+        worst = max(worst, gap / bound)
+        if gap > bound:
+            fail(f"moe_apply card vs CPU: group {gi} token {ti} picks "
+                 f"expert {eb} for {ea}, logit gap {gap:.3e} > its float32 "
+                 f"rounding bound {bound:.3e}")
+    ok = ~differ.any(-1)                                        # [G]
+    for name, a, c in (("slot", rh.slot, rc.slot.cpu()),
+                       ("keep", rh.slot < cap, rc.slot.cpu() < cap)):
+        if not torch.equal(a[ok], c[ok]):
+            fail(f"moe_apply card vs CPU: {name} differs away from a "
+                 "router near-tie")
+    oc = out_c.reshape(g, -1, d)[ok.to(x.device)].cpu()
+    oh = out_h.reshape(g, -1, d)[ok]
+    err = (oc - oh).abs().max().item()
+    if not torch.allclose(oc, oh, atol=MOE_OUT_TOL, rtol=MOE_OUT_TOL):
+        fail(f"moe_apply card vs CPU: max_abs_err {err} > {MOE_OUT_TOL}")
+    return dict(max_abs_err=err, aux_err=abs(aux_c.item() - aux_h.item()),
+                near_tie_tokens=int(differ.sum()),
+                groups_compared=int(ok.sum()), groups=g,
+                dropped=int((rh.slot >= cap).sum()),
+                near_tie_gap_over_bound=worst)
+
+
+def phase_moe_parity():
+    """float32 (TF32 off), deepseek-moe-16b at MOE_LAYERS layers and full
+    width (64 experts top-6, 2 shared):
+      * `chunked_parity`: 4 requests of 512 + 160 chunked (256) through
+        the supervised engine, held to `static_generate` except at proven
+        near-ties, its launch gates.  This run raises
+        ``moe_capacity_factor`` to ceil(n_experts / moe_top_k) = 11, so
+        that every capacity group keeps all its tokens: with drops, which
+        tokens drop depends on how a call groups the tokens, and the
+        engine's chunks group them otherwise than the static prefill, in
+        the reference too (the engine is held to the JAX engine with
+        drops in `tests/test_torch_moe.py`);
+      * with the real factor 1.25, on the serve's recorded chunk inputs
+        (the first dispatch, every layer): `moe_card_vs_cpu`;
+      * `lm_forward` with impl="pallas" against "sorted" at span = m
+        (N 4096) layer by layer within LAYER_TOL (`routed_layer_err`),
+        expert launches = layers x forwards."""
+    import dataclasses
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.data import DataConfig, synthetic_batch
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as tfm
+    m = get_arch(MOE_ARCH).model
+    real = dataclasses.replace(m, compute_dtype=torch.float32,
+                               n_layers=MOE_LAYERS)
+    cfg = dataclasses.replace(
+        real, moe_capacity_factor=float(-(-m.n_experts // m.moe_top_k)))
+    params = tfm.lm_init(torch.Generator(device="cuda").manual_seed(0),
+                         cfg, "cuda")
+    with _MoEInputs(MOE_LAYERS) as rec:
+        out = chunked_parity(MOE_ARCH, cfg, params)
+    moe_res = []
+    for i, x in enumerate(rec.calls):
+        lp = tfm.layer_params(params["blocks"], i)["moe"]
+        moe_res.append(moe_card_vs_cpu(lp, x, real))
+        print(f"moe_apply card vs CPU ({MOE_ARCH}, float32, factor "
+              f"{real.moe_capacity_factor}, layer {i}, {tuple(x.shape)}): "
+              f"{moe_res[-1]}")
+    if len(moe_res) != MOE_LAYERS or not any(r["dropped"] for r in moe_res):
+        fail(f"moe_apply card vs CPU: {len(moe_res)} recorded calls, "
+             "or no assignment dropped at factor 1.25")
+    out["moe_card_vs_cpu"] = dict(
+        max_abs_err=max(r["max_abs_err"] for r in moe_res),
+        near_tie_tokens=sum(r["near_tie_tokens"] for r in moe_res),
+        dropped=sum(r["dropped"] for r in moe_res))
+    del rec
+    toks = torch.as_tensor(synthetic_batch(DataConfig(
+        vocab=m.vocab, seq_len=FWD_N, global_batch=1), 0)["tokens"],
+        device="cuda")
+    layer_err = routed_layer_err(params, real, toks)
+    cfg_p = dataclasses.replace(real, attn=dataclasses.replace(
+        real.attn, impl="pallas"))
+    ops.reset_launch_counts()
+    with torch.inference_mode():
+        logits = tfm.lm_forward(params, toks, cfg_p)
+    torch.cuda.synchronize()
+    n_exp = ops.launch_counts()["mita_expert_attention"]
+    if n_exp != MOE_LAYERS or not torch.isfinite(logits).all():
+        fail(f"{MOE_ARCH} pallas forward: expert launches {n_exp} != "
+             f"{MOE_LAYERS}, or logits not finite")
+    out["forward_layer_max_abs_err"] = layer_err
+    print(f"{MOE_ARCH} forward (float32, {MOE_LAYERS} layers, N {FWD_N}): "
+          f"routed partials, expert kernel vs span {FWD_N // W}, max_abs_err "
+          f"{layer_err:.3e} (tol {LAYER_TOL}); expert launches {n_exp}")
+    del params, logits
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_moe_production(card: str):
+    """bf16, deepseek-moe-16b at full width and depth (28 layers, 62.9 GiB
+    of float32 weights) through `repro_torch.launch.serve.main`: 8
+    requests of 512 + 160, 4 slots, chunk 256 (windows close at 640, so
+    the finalize runs): tok/s, TTFT, `max_memory_allocated`; decode
+    launches = layers x steps, chunk launches = layers x dispatches,
+    finalize > 0.  Then a bf16 `lm_forward(impl="pallas")` at B 1, N
+    4096: tok/s, expert launches = layers x forwards."""
+    import dataclasses
+    from repro_torch.configs.registry import arch_params, get_arch
+    from repro_torch.data import DataConfig, synthetic_batch
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as tfm
+    arch = get_arch(MOE_ARCH)
+    m = arch.model
+    summary, launches = production_serve(
+        card, ["--prefill-chunk", "256"], f"{MOE_ARCH} chunked",
+        arch=MOE_ARCH)
+    st = summary["stats"]
+    if launches["mita_chunk_prefill_fused"] \
+            != m.n_layers * st["prefill_dispatches"]:
+        fail(f"{MOE_ARCH} serve: chunk launches "
+             f"{launches['mita_chunk_prefill_fused']} != {m.n_layers} x "
+             f"{st['prefill_dispatches']} dispatches")
+    peak = summary["max_memory_allocated"]
+    if peak >= 80e9:
+        fail(f"{MOE_ARCH} serve: max_memory_allocated {peak} >= 80 GB")
+    res = dict(tok_s=summary["tok_s"],
+               ttft_p50_ms=summary["ttft_p50_s"] * 1e3,
+               ttft_p99_ms=summary["ttft_p99_s"] * 1e3,
+               steps=summary["steps"],
+               prefill_dispatches=st["prefill_dispatches"],
+               max_memory_allocated_gib=peak / 2**30,
+               launches={k: launches[k] for k in SERVING_KERNELS})
+    del summary
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    cfg = dataclasses.replace(m, attn=dataclasses.replace(m.attn,
+                                                          impl="pallas"))
+    params = arch_params(arch, torch.Generator(device="cuda").manual_seed(0),
+                         "cuda")
+    toks = torch.as_tensor(synthetic_batch(DataConfig(
+        vocab=m.vocab, seq_len=FWD_N, global_batch=1), 0)["tokens"],
+        device="cuda")
+    with torch.inference_mode():
+        tfm.lm_forward(params, toks, cfg)                 # warm
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0, forwards = time.perf_counter(), 2
+        for _ in range(forwards):
+            logits = tfm.lm_forward(params, toks, cfg)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+    n_exp = ops.launch_counts()["mita_expert_attention"]
+    if n_exp != m.n_layers * forwards or not torch.isfinite(logits).all():
+        fail(f"{MOE_ARCH} bf16 pallas forward: expert launches {n_exp} != "
+             f"{m.n_layers} x {forwards}, or logits not finite")
+    res["forward"] = dict(tok_s=forwards * FWD_N / dt,
+                          ms=dt / forwards * 1e3, launches=n_exp)
+    print(f"{MOE_ARCH} bf16 serve ({card}): {res['tok_s']:.1f} tok/s, TTFT "
+          f"p50 {res['ttft_p50_ms']:.1f} ms p99 {res['ttft_p99_ms']:.1f} "
+          f"ms, {res['steps']} steps, {res['prefill_dispatches']} prefill "
+          f"dispatches, max_memory_allocated "
+          f"{res['max_memory_allocated_gib']:.2f} GiB; launches "
+          f"{res['launches']}; forward (impl=pallas, N {FWD_N}): "
+          f"{res['forward']['tok_s']:.1f} tok/s, "
+          f"{res['forward']['ms']:.1f} ms, expert launches {n_exp}")
+    del params, logits
+    torch.cuda.empty_cache()
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda is not available; nothing to check",
@@ -3322,6 +3622,10 @@ def main() -> int:
     def timed(name, fn, *args):
         t0 = time.perf_counter()
         out = fn(*args)
+        # a phase's engines can hold its weights in reference cycles
+        # (hooks bound to the engine): free them before the next phase
+        gc.collect()
+        torch.cuda.empty_cache()
         seconds[name] = round(time.perf_counter() - t0, 1)
         return out
 
@@ -3354,6 +3658,9 @@ def main() -> int:
         "supervised_production", phase_supervised_production, card,
         chunked_summary)
     dense_serves = timed("dense_production", phase_dense_production, card)
+    moe_kern = timed("kernels_moe", phase_kernels_moe)
+    moe_parity = timed("moe_parity", phase_moe_parity)
+    moe_serve = timed("moe_production", phase_moe_production, card)
     launches = dict(launches)
     launches["mita_expert_attention"] = fs_launches["mita_expert_attention"]
     launches["flash_attention"] = fs_launches["flash_attention"]
@@ -3412,7 +3719,7 @@ def main() -> int:
         if key in ("attn", "fin"):
             row["launches_per_job_serve"] = per_job_launches[name]
         if key in ("attn", "fin", "chunk"):
-            # the supervised paths: f32 chaos (qwen3-0.6b, 8 layers), the
+            # the supervised paths: f32 chaos (qwen3-0.6b, 4 layers), the
             # bf16 --chaos-seed 0 serve, and the head-dim-64 configs
             row["launches_chaos_parity_f32"] = chaos["qwen3-0.6b"][
                 "launches"][name]
@@ -3429,6 +3736,16 @@ def main() -> int:
                     "f32": {k: d64[a][torch.float32][key].get(k)
                             for k in keep}}
                 for a in D64_SHAPES}
+            # the MoE slice: deepseek-moe-16b's paths, the three new
+            # head shapes at d 128
+            row["launches_moe_parity_f32"] = moe_parity["launches"][name]
+            row["launches_moe_serve"] = moe_serve["launches"][name]
+            row["d128_moe"] = {
+                f"{a} Hkv={MOE_SHAPES[a][0]} G={MOE_SHAPES[a][1]}": {
+                    "bf16": {k: moe_kern[a][bf][key].get(k) for k in keep},
+                    "f32": {k: moe_kern[a][torch.float32][key].get(k)
+                            for k in keep}}
+                for a in MOE_SHAPES}
         if key == "expert":
             # recurrentgemma-9b's head dim: the wide CUDA-core instance
             keep = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
@@ -3438,6 +3755,18 @@ def main() -> int:
             row["d256"]["launches_hybrid_forward_bf16"] = rec[
                 "hybrid_forward"]["launches"][name]
             row["d256"]["hybrid_layer_max_abs_err_f32"] = hybrid_layer_err
+            keep = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                    "tol") + traced
+            hkv, g = MOE_SHAPES[MOE_ARCH]
+            row["moe_forward"] = {
+                "shape": f"lead [1, {hkv}, {g}], m {FWD_M}, N {FWD_N}",
+                "bf16": {k: moe_kern["expert"][bf][k] for k in keep},
+                "f32": {k: moe_kern["expert"][torch.float32][k]
+                        for k in keep},
+                "launches_moe_forward_bf16": moe_serve["forward"][
+                    "launches"],
+                "layer_max_abs_err_f32": moe_parity[
+                    "forward_layer_max_abs_err"]}
         if key == "flash":
             row["shape"] = f"[1, 16, {FWD_N}, {D}] causal"
             row["full"] = r["full"]
@@ -3455,7 +3784,8 @@ def main() -> int:
         **{k: st[k] for k in ("spec_drafted", "spec_accepted",
                               "spec_rollbacks")}},
         "recurrent_serves": rec, "chaos": chaos, "dense_parity": dense,
-        "supervised_serve": supervised, "dense_serves": dense_serves}))
+        "supervised_serve": supervised, "dense_serves": dense_serves,
+        "moe_parity": moe_parity, "moe_serve": moe_serve}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -3,7 +3,9 @@
 Only the configurations the port serves are ported: the dense qwen3-0.6b,
 tinyllama-1.1b (head dim 64, 32 heads over 4 KV heads), stablelm-1.6b
 (head dim 64, MHA) and qwen3-32b (held to the reference at the smoke size
-only: its float32 weights do not fit one card), the ssm mamba2-370m and
+only: its float32 weights do not fit one card), the moe deepseek-moe-16b
+(full size on one card) and dbrx-132b (smoke size only), the vlm
+internvl2-76b's LM backbone (smoke size only), the ssm mamba2-370m and
 the hybrid recurrentgemma-9b.  Each lives in its own module
 (``repro_torch.configs.<id>``, dashes -> underscores) exporting ``ARCH``.
 `arch_params` builds any of them, ``smoke_variant`` is the reduced
@@ -23,8 +25,9 @@ from repro_torch.models.modules import ModelConfig
 @dataclasses.dataclass(frozen=True)
 class ArchConfig:
     arch_id: str
-    family: str                     # dense | ssm | hybrid
+    family: str                     # dense | moe | vlm | ssm | hybrid
     model: ModelConfig
+    n_img_tokens: int = 0           # vlm: embeddings over the first P
     notes: str = ""
 
 
@@ -42,7 +45,7 @@ def get_arch(arch_id: str, *, smoke: bool = False) -> ArchConfig:
 def arch_params(arch: ArchConfig, gen: torch.Generator, device="cuda"):
     """Random parameters of ``arch``, drawn from ``gen``: the one place a
     family resolves to its init function."""
-    if arch.family == "dense":
+    if arch.family in ("dense", "moe", "vlm"):
         from repro_torch.models import transformer as tfm
         return tfm.lm_init(gen, arch.model, device)
     if arch.family == "ssm":
@@ -70,10 +73,14 @@ def smoke_variant(arch: ArchConfig) -> ArchConfig:
         n_heads=4,
         n_kv=max(1, min(m.n_kv, 2 if m.n_kv < m.n_heads else 4)),
         head_dim=32,
-        d_ff=256,
+        d_ff=64 if m.n_experts else 256,
         vocab=251,
+        n_experts=min(m.n_experts, 8),
+        moe_top_k=min(m.moe_top_k, 2),
+        n_shared_experts=min(m.n_shared_experts, 1),
         attn=dataclasses.replace(m.attn, window=16, k=16, block_q=16),
         param_dtype=torch.float32,
         compute_dtype=torch.float32,
     )
-    return dataclasses.replace(arch, model=sm)
+    return dataclasses.replace(arch, model=sm,
+                               n_img_tokens=min(arch.n_img_tokens, 16))

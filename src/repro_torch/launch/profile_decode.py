@@ -2,7 +2,7 @@
 forward of the port spends its time.
 
     PYTHONPATH=src python -m repro_torch.launch.profile_decode \\
-        [--arch qwen3-0.6b|mamba2-370m|recurrentgemma-9b]
+        [--arch qwen3-0.6b|deepseek-moe-16b|mamba2-370m|recurrentgemma-9b]
         [--compute-dtype bfloat16|float32] [--steps 20] [--window-close]
         [--prefill-chunk 256] [--forward 4096 [--attn-impl ...]]
 
@@ -187,8 +187,8 @@ def _forward_runner(args, arch, device):
     toks = torch.as_tensor(synthetic_batch(DataConfig(
         vocab=cfg.vocab, seq_len=args.forward, global_batch=1), 0)["tokens"],
         device=device)
-    fwd = {"dense": tfm.lm_forward, "ssm": mamba_forward,
-           "hybrid": rg_forward}[arch.family]
+    fwd = {"dense": tfm.lm_forward, "moe": tfm.lm_forward,
+           "ssm": mamba_forward, "hybrid": rg_forward}[arch.family]
 
     def run():
         with torch.inference_mode():

@@ -6,7 +6,8 @@
     the engine's greedy tokens are held to);
   * ``--engine continuous`` — `repro_torch.serve.ServingEngine` over the
     architecture's backend (`serve.backends.for_arch`): the paged MiTA
-    backend for qwen3-0.6b, whose decode step runs the paged-decode and
+    backend for the dense, moe and vlm families (qwen3-0.6b,
+    deepseek-moe-16b, ...), whose decode step runs the paged-decode and
     paged-finalize CUDA kernels on the card; with ``--prefill-chunk N``
     prompts are admitted by chunked prefill (batched: the chunk-prefill
     CUDA kernel; ``--prefill-mode per-job``: one job's chunk a step), with
@@ -18,7 +19,8 @@
     ``--chaos-seed S`` the backend is wrapped in the seeded fault injector
     (`serve.ChaosBackend`), whose faults the supervisor must absorb
     without changing a token (a quarantined request is recomputed from
-    its prompt: exact in float32, not yet in bfloat16, ROADMAP C.13).
+    its prompt: exact in float32; in bfloat16 it may part, as in the
+    reference, ROADMAP C.13).
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-0.6b \\
@@ -209,9 +211,9 @@ def main(argv=None) -> dict:
 
     device = resolve_device(args.device)
     arch = get_arch(args.arch, smoke=args.smoke)
-    if arch.family not in ("dense", "ssm", "hybrid"):
-        raise SystemExit(f"serve drives decoder LMs (dense, ssm, hybrid); "
-                         f"{arch.arch_id} is {arch.family}")
+    if arch.family not in ("dense", "moe", "vlm", "ssm", "hybrid"):
+        raise SystemExit(f"serve drives decoder LMs (dense, moe, vlm, ssm, "
+                         f"hybrid); {arch.arch_id} is {arch.family}")
     if args.attn_impl:
         arch = dataclasses.replace(arch, model=dataclasses.replace(
             arch.model, attn=dataclasses.replace(arch.model.attn,
@@ -238,7 +240,7 @@ def main(argv=None) -> dict:
     summary = {"engine": args.engine, "arch": arch.arch_id,
                "device": str(device)}
 
-    if args.engine == "static" and arch.family != "dense":
+    if args.engine == "static" and arch.family in ("ssm", "hybrid"):
         backend = backends.for_arch(arch, params, ecfg, device=device)
         _sync(device)
         t0 = time.perf_counter()

@@ -76,7 +76,11 @@ class ModelConfig:
     norm_eps: float = 1e-6
     tie_embeddings: bool = False
     attn: AttnConfig = dataclasses.field(default_factory=AttnConfig)
-    n_experts: int = 0         # MoE is not ported: > 0 raises
+    # MoE (n_experts == 0 -> dense FFN; `models.moe`)
+    n_experts: int = 0
+    moe_top_k: int = 2
+    n_shared_experts: int = 0
+    moe_capacity_factor: float = 1.25
     param_dtype: Any = torch.float32
     compute_dtype: Any = torch.float32
 

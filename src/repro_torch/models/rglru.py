@@ -163,7 +163,7 @@ def super_block_apply(p: Params, x, cfg: nn.ModelConfig, positions):
     x = rglru_block_apply(p["rec1"], x, cfg)
     x = _ffn1(p, x, cfg)
     x = rglru_block_apply(p["rec2"], x, cfg)
-    return tfm.block_apply(p["attn_blk"], x, cfg, positions)
+    return tfm.block_apply(p["attn_blk"], x, cfg, positions)[0]
 
 
 def n_super(cfg: nn.ModelConfig) -> int:

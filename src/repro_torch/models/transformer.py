@@ -1,5 +1,5 @@
-"""Decoder-only MiTA transformer LM (port of ``repro.models.transformer``,
-dense FFN only).
+"""Decoder-only MiTA transformer LM, dense or MoE FFN (port of
+``repro.models.transformer``; the MoE layers are `models.moe`).
 
 Parameters are the reference's pytree as a nested dict of tensors, with
 per-layer parameters stacked on axis 0; the reference's ``lax.scan`` over
@@ -14,7 +14,9 @@ caches), ``lm_paged_decode_step``, ``lm_prefill_chunks`` (batched),
 ``lm_prefill_chunk`` (per-job) and ``lm_landmark_draft`` (the serving
 engine's paged pools; `sample_tokens` samples on the device), and
 ``init_slot_attn_state`` / ``block_decode_slots`` (the hybrid model's
-per-slot attention caches).
+per-slot attention caches).  ``lm_forward``, ``lm_loss`` (batch
+``"image_embeds"``) and ``lm_prefill`` take the VLM's multimodal
+embeddings, which overwrite the first P positions.
 """
 
 from __future__ import annotations
@@ -27,14 +29,9 @@ import torch
 from repro_torch import prng
 from repro_torch.core import mita_decode as mdec
 from repro_torch.models import modules as nn
+from repro_torch.models.moe import moe_apply, moe_init
 
 Params = dict[str, Any]
-
-
-def _no_moe(cfg: nn.ModelConfig) -> None:
-    if cfg.n_experts:
-        raise NotImplementedError(
-            "MoE FFN layers are not ported yet (ROADMAP A.12)")
 
 
 def layer_params(tree, i: int):
@@ -65,67 +62,109 @@ def _stack_states(per_layer: list):
 
 # ------------------------------------------------------------------ block ---
 
-def block_init(gen, cfg: nn.ModelConfig, device) -> Params:
-    _no_moe(cfg)
+def block_init(gen, cfg: nn.ModelConfig, device, ffn: bool = True) -> Params:
+    """One block's parameters; ``ffn`` False leaves out the FFN (`lm_init`
+    draws the MoE layers' leaves stacked, `moe.moe_init`)."""
     pd = cfg.param_dtype
-    return {"ln1": torch.zeros((cfg.d_model,), dtype=pd, device=device),
-            "ln2": torch.zeros((cfg.d_model,), dtype=pd, device=device),
-            "attn": nn.attention_init(gen, cfg, device),
-            "ffn": nn.swiglu_init(gen, cfg, device)}
+    p = {"ln1": torch.zeros((cfg.d_model,), dtype=pd, device=device),
+         "ln2": torch.zeros((cfg.d_model,), dtype=pd, device=device),
+         "attn": nn.attention_init(gen, cfg, device)}
+    if ffn and cfg.n_experts:
+        p["moe"] = moe_init(gen, cfg, device)
+    elif ffn:
+        p["ffn"] = nn.swiglu_init(gen, cfg, device)
+    return p
+
+
+def _ffn(params: Params, xn, cfg: nn.ModelConfig):
+    """The block's FFN on normed activations xn [B, N, D]: (out, aux)."""
+    if cfg.n_experts:
+        return moe_apply(params["moe"], xn, cfg)
+    return nn.swiglu_apply(params["ffn"], xn, cfg), 0.0
 
 
 def block_apply(params: Params, x, cfg: nn.ModelConfig, positions):
+    """x: [B, N, D] -> (x, aux), aux the MoE load-balance loss (0 for a
+    dense FFN)."""
     h = nn.attention_apply(params["attn"], nn.rms_norm(x, params["ln1"]),
                            cfg, positions)
     x = x + h
-    return x + nn.swiglu_apply(params["ffn"], nn.rms_norm(x, params["ln2"]),
-                               cfg)
+    f, aux = _ffn(params, nn.rms_norm(x, params["ln2"]), cfg)
+    return x + f, aux
 
 
 def lm_init(gen: torch.Generator, cfg: nn.ModelConfig,
             device="cuda") -> Params:
     """Random parameters with the reference's shapes, dtypes and init
-    scales (``transformer.lm_init``), drawn from ``gen``."""
-    _no_moe(cfg)
+    scales (``transformer.lm_init``), drawn from ``gen``.  MoE layers'
+    leaves are allocated stacked and drawn layer by layer into their
+    slices, after the other blocks' parameters."""
     emb = nn.embedding_init(gen, cfg, device)
-    blocks = [block_init(gen, cfg, device) for _ in range(cfg.n_layers)]
-    return {"emb": emb, "blocks": stack_layers(blocks),
+    blocks = [block_init(gen, cfg, device, ffn=not cfg.n_experts)
+              for _ in range(cfg.n_layers)]
+    blocks = stack_layers(blocks)
+    if cfg.n_experts:
+        blocks["moe"] = moe_init(gen, cfg, device, n_layers=cfg.n_layers)
+    return {"emb": emb, "blocks": blocks,
             "ln_f": torch.zeros((cfg.d_model,), dtype=cfg.param_dtype,
                                 device=device)}
 
 
 def lm_backbone(params: Params, x, cfg: nn.ModelConfig, positions=None):
-    """Run the layer stack on embeddings x: [B, N, D]."""
+    """Run the layer stack on embeddings x: [B, N, D] -> (x, aux), aux the
+    per-layer MoE losses summed (a float32 scalar; 0.0 for a dense FFN)."""
     if positions is None:
         positions = torch.arange(x.shape[1], device=x.device)
+    aux = 0.0
     for i in range(cfg.n_layers):
-        x = block_apply(layer_params(params["blocks"], i), x, cfg, positions)
-    return nn.rms_norm(x, params["ln_f"])
+        x, a = block_apply(layer_params(params["blocks"], i), x, cfg,
+                           positions)
+        aux = aux + a
+    return nn.rms_norm(x, params["ln_f"]), aux
 
 
-def lm_forward(params: Params, tokens, cfg: nn.ModelConfig):
-    """tokens: [B, N] -> logits [B, N, V] (the reference also returns the
-    MoE aux loss, which is 0 for the dense family ported here)."""
-    _no_moe(cfg)
+def _embed(params: Params, tokens, cfg: nn.ModelConfig, extra_embeds=None):
+    """Token embeddings [B, N, D]; ``extra_embeds`` [B, P, D] (VLM)
+    overwrite the first P positions."""
     x = nn.embed(params["emb"], tokens, cfg)
-    return nn.unembed(params["emb"], lm_backbone(params, x, cfg), cfg)
+    if extra_embeds is not None:
+        p = extra_embeds.shape[1]
+        x = torch.cat([extra_embeds.to(x.dtype), x[:, p:]], dim=1)
+    return x
 
 
-def lm_loss(params: Params, batch: dict, cfg: nn.ModelConfig) -> torch.Tensor:
+def lm_forward_aux(params: Params, tokens, cfg: nn.ModelConfig,
+                   extra_embeds=None):
+    """tokens: [B, N] -> (logits [B, N, V], aux): the reference's
+    ``lm_forward``."""
+    x, aux = lm_backbone(params, _embed(params, tokens, cfg, extra_embeds),
+                         cfg)
+    return nn.unembed(params["emb"], x, cfg), aux
+
+
+def lm_forward(params: Params, tokens, cfg: nn.ModelConfig,
+               extra_embeds=None):
+    """tokens: [B, N] -> logits [B, N, V] (`lm_forward_aux` also returns
+    the MoE aux loss)."""
+    return lm_forward_aux(params, tokens, cfg, extra_embeds)[0]
+
+
+def lm_loss(params: Params, batch: dict, cfg: nn.ModelConfig,
+            aux_weight: float = 0.01) -> torch.Tensor:
     """Next-token cross-entropy of ``batch`` ("tokens", "labels", optional
-    "loss_mask"; tensors or numpy arrays).  The reference adds
-    ``aux_weight`` times the MoE aux loss per layer, which is 0 for the
-    dense family.  With ``impl="pallas"`` it is forward only (scoring)."""
-    if "image_embeds" in batch:
-        raise NotImplementedError("VLM inputs are not ported (ROADMAP A.12)")
+    "loss_mask" and "image_embeds"; tensors or numpy arrays) plus
+    ``aux_weight`` times the MoE aux loss per layer.  With
+    ``impl="pallas"`` it is forward only (scoring)."""
     dev = params["ln_f"].device
 
     def up(x):
         return None if x is None else torch.as_tensor(x, device=dev)
 
-    logits = lm_forward(params, up(batch["tokens"]), cfg)
-    return nn.cross_entropy(logits, up(batch["labels"]),
+    logits, aux = lm_forward_aux(params, up(batch["tokens"]), cfg,
+                                 up(batch.get("image_embeds")))
+    loss = nn.cross_entropy(logits, up(batch["labels"]),
                             up(batch.get("loss_mask")))
+    return loss + aux_weight * aux / cfg.n_layers
 
 
 def _decode_cfg(cfg: nn.ModelConfig) -> mdec.DecodeConfig:
@@ -134,13 +173,14 @@ def _decode_cfg(cfg: nn.ModelConfig) -> mdec.DecodeConfig:
                              external_finalize=cfg.attn.external_finalize)
 
 
-def lm_prefill(params: Params, tokens, cfg: nn.ModelConfig, capacity: int):
-    """Forward over the prompt, building per-layer decode states.
-    Returns (last_logits [B, V], stacked states)."""
-    _no_moe(cfg)
+def lm_prefill(params: Params, tokens, cfg: nn.ModelConfig, capacity: int,
+               extra_embeds=None):
+    """Forward over the prompt, building per-layer decode states
+    (``extra_embeds`` as in `lm_forward`).  Returns (last_logits [B, V],
+    stacked states)."""
     n = tokens.shape[1]
     positions = torch.arange(n, device=tokens.device)
-    x = nn.embed(params["emb"], tokens, cfg)
+    x = _embed(params, tokens, cfg, extra_embeds)
     dcfg = _decode_cfg(cfg)
     states = []
     for i in range(cfg.n_layers):
@@ -148,7 +188,7 @@ def lm_prefill(params: Params, tokens, cfg: nn.ModelConfig, capacity: int):
         q, k, v = nn._qkv(lp["attn"], nn.rms_norm(x, lp["ln1"]), cfg,
                           positions)
         states.append(mdec.mita_prefill_state(q, k, v, dcfg, capacity))
-        x = block_apply(lp, x, cfg, positions)
+        x, _ = block_apply(lp, x, cfg, positions)
     x = nn.rms_norm(x, params["ln_f"])
     return nn.unembed(params["emb"], x[:, -1], cfg), _stack_states(states)
 
@@ -204,8 +244,13 @@ def attention_decode(params: Params, x, state, cfg: nn.ModelConfig, pos):
 
 
 def _ffn_residual(params: Params, x, cfg: nn.ModelConfig):
-    return x + nn.swiglu_apply(params["ffn"], nn.rms_norm(x, params["ln2"]),
-                               cfg)
+    """x + FFN(norm(x)) for x [B, N, D], or one token a row, x [S, D]: an
+    MoE FFN then sees [S, 1, D], the reference's shape at that call (its
+    capacity groups are cut from the flattened tokens)."""
+    xn = nn.rms_norm(x, params["ln2"])
+    if x.ndim == 2:
+        return x + _ffn(params, xn[:, None, :], cfg)[0][:, 0]
+    return x + _ffn(params, xn, cfg)[0]
 
 
 def block_decode(params: Params, x, state, cfg: nn.ModelConfig, pos):
@@ -269,7 +314,6 @@ def block_decode_slots(params: Params, x, state, cfg: nn.ModelConfig, pos,
 def lm_decode_step(params: Params, states, token, pos, cfg: nn.ModelConfig):
     """token: [B]; pos: scalar position.  Returns (logits [B, V], states
     with t + 1); the caches are updated in place."""
-    _no_moe(cfg)
     pos = torch.as_tensor(pos, device=token.device)
     x = nn.embed(params["emb"], token, cfg)
     for i in range(cfg.n_layers):
@@ -356,7 +400,6 @@ def lm_paged_decode_step(params: Params, states, token, pos, page_table,
     ``due`` (external finalize): HOST [S] bool — slots whose last completed
     window still needs its landmark.  The branch is taken once per step in
     Python on this host value, never by reading a device flag per layer."""
-    _no_moe(cfg)
     dcfg = _decode_cfg(cfg)
     due_dev = None
     if due is not None and np.asarray(due).any():
@@ -417,7 +460,6 @@ def lm_landmark_draft(params: Params, states, tokens, t, active, m_cnt,
     key the verify step uses at the same output index, so a tempered draft
     can match its verification.  Returns drafts [n_pos, S] int32.  Reads
     the states only: no append, no ``q_sum`` change, nothing to undo."""
-    _no_moe(cfg)
     active = np.asarray(active, bool)
     ac_dev = torch.as_tensor(active, device=tokens.device)
     si = np.asarray(sample_idx, np.int32).copy()
@@ -464,7 +506,6 @@ def lm_prefill_chunk(params: Params, states, tokens, slot: int,
     positions replicate decode-time landmark availability) are host
     integers.  Returns (logits [V] at position ``t0 + n_valid - 1``,
     states); the pools and the slot's rows update in place."""
-    _no_moe(cfg)
     nc = tokens.shape[0]
     pos = t0 + torch.arange(nc, device=tokens.device)
     x = nn.embed(params["emb"], tokens[None], cfg)
@@ -494,7 +535,6 @@ def lm_prefill_chunks(params: Params, states, tokens, job_active,
     [P, V] at each row's position ``t0 + n_valid - 1``, states); the
     stacked pools and the rows' slot state are updated in place, one
     chunk-prefill call per layer."""
-    _no_moe(cfg)
     nc = tokens.shape[1]
     pos = t0.long()[:, None] + torch.arange(nc, device=tokens.device)
     x = nn.embed(params["emb"], tokens, cfg)

@@ -38,11 +38,12 @@ dispatch could silently compute different tokens.  The guard re-raises it
 as `TornDispatch`, which names the dispatch's live slots, is not
 batch-wide and may not be retried: the supervisor quarantines those slots
 at once, and recompute-from-prompt rebuilds them (every port backend's
-``preempt_snapshot`` is None; exactly in float32, ROADMAP C.13 for
-bfloat16).
+``preempt_snapshot`` is None; exactly in float32; in bfloat16 a
+recomputed stream may part from the uninterrupted one, as in the
+reference, ROADMAP C.13).
 
-`for_arch` serves the dense family (`backends.mita.MiTABackend`, paged
-MiTA pools) and the recurrent ones (`backends.recurrent`: ``ssm`` on
+`for_arch` serves the dense, moe and vlm families
+(`backends.mita.MiTABackend`, paged MiTA pools) and the recurrent ones (`backends.recurrent`: ``ssm`` on
 `Mamba2Backend`, ``hybrid`` on `RGLRUBackend`); `resolve` gives a bare
 `ModelConfig` the MiTA backend and refuses the rest, as the reference.
 """
@@ -263,7 +264,7 @@ def resolve(params: Any, cfg: Any, ecfg: Any, device=None) -> BackendBase:
 def for_arch(arch: Any, params: Any, ecfg: Any, device=None) -> BackendBase:
     """Backend for a registry `ArchConfig`: any ported architecture with a
     decode state serves through the same scheduler."""
-    if arch.family == "dense":
+    if arch.family in ("dense", "moe", "vlm"):
         from repro_torch.serve.backends.mita import MiTABackend
         return MiTABackend(params, arch.model, ecfg, device=device)
     if arch.family == "ssm":

@@ -46,9 +46,9 @@ Crash recovery: `snapshot()` journals every in-flight request (prompt +
 tokens committed so far) plus the finished list; `restore()` rebuilds
 them on a FRESH, identically-configured engine as resume entries — the
 same recompute-from-prompt machinery preemption uses, so a killed and
-restarted engine continues every stream bit-identically (on the card in
-float32; in bfloat16 a recomputed stream may part, ROADMAP C.13, as a
-quarantined one may).  The journal
+restarted engine continues every stream bit-identically in float32; in
+bfloat16 a recomputed stream may part, as a quarantined one may, as in
+the reference (ROADMAP C.13).  The journal
 holds host integers only.  Snapshots write atomically (tmp + rename).
 
 `AllocatorInvariantError` is never retried: page-accounting corruption

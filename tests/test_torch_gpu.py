@@ -1043,9 +1043,13 @@ def test_paged_kernels_at_head_dim_64(cuda_device, dtype, hkv, g):
     """B.1 and B.2 at the dense configs' head shapes (d 64, G 8 / G 1,
     w = K = 128, M = 6): ragged t, an inactive slot and a non-due slot
     against the plain versions, pools and expert rows exact."""
+    _paged_kernels_at(cuda_device, dtype, hkv, g, 64)
+
+
+def _paged_kernels_at(cuda_device, dtype, hkv, g, d):
     w = 128
     st, pt, q, kn, vn = _state(21 + g, dtype, cuda_device, s_n=4, m_slot=6,
-                               hkv=hkv, d=64, g=g, w=w, k=w)
+                               hkv=hkv, d=d, g=g, w=w, k=w)
     t = torch.tensor([130, 300, 0, 767], dtype=torch.int32,
                      device=cuda_device)
     act = torch.tensor([True, True, False, True], device=cuda_device)
@@ -1079,13 +1083,71 @@ def test_chunk_prefill_kernel_at_head_dim_64(cuda_device, dtype, hkv, g):
     """B.3 at the dense configs' head shapes (d 64, G 8 / G 1) against
     the plain version: outputs, pools, both landmark systems and the
     expert rows."""
-    inputs = _chunk_inputs(dtype, cuda_device, hkv=hkv, g=g, d=64,
+    _chunk_kernel_at(cuda_device, dtype, hkv, g, 64)
+
+
+def _chunk_kernel_at(cuda_device, dtype, hkv, g, d):
+    inputs = _chunk_inputs(dtype, cuda_device, hkv=hkv, g=g, d=d,
                            seed=30 + g)
     kw = dict(window=W, k_width=K, n_route=1, external_finalize=True)
     got, ref, pools_ref, pools_got = _chunk_vs_plain(dtype, inputs,
                                                      CHUNK_ROWS, kw)
     _assert_chunk_matches(dtype, inputs, CHUNK_ROWS, got, ref, pools_ref,
                           pools_got)
+
+
+# the MoE configs at head dim 128: deepseek-moe-16b (Hkv 16, G 1) and
+# dbrx-132b (Hkv 8, G 6, the first group size that is not a power of two)
+MOE_HEADS = [(16, 1), (8, 6)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hkv,g", MOE_HEADS)
+def test_paged_kernels_at_moe_head_shapes(cuda_device, dtype, hkv, g):
+    """B.1 and B.2 at the MoE configs' head shapes (d 128, G 1 / G 6),
+    as at head dim 64."""
+    _paged_kernels_at(cuda_device, dtype, hkv, g, 128)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hkv,g", MOE_HEADS)
+def test_chunk_prefill_kernel_at_moe_head_shapes(cuda_device, dtype, hkv,
+                                                 g):
+    """B.3 at the MoE configs' head shapes (d 128, G 1 / G 6) against the
+    plain version, as at head dim 64."""
+    _chunk_kernel_at(cuda_device, dtype, hkv, g, 128)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cf", [1.25, 8.0])
+def test_moe_apply_on_the_card_vs_cpu(cuda_device, cf):
+    """`moe_apply` of the smoke deepseek-moe-16b layer (8 experts top-2,
+    one shared) on the card against the CPU, float32: the gate picks,
+    queue slots and outputs agree; at capacity factor 1.25 tokens drop."""
+    import dataclasses
+    import math
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.models import moe
+    cfg = dataclasses.replace(get_arch("deepseek-moe-16b", smoke=True).model,
+                              moe_capacity_factor=cf)
+    p = moe.moe_init(torch.Generator().manual_seed(0), cfg, "cpu")
+    rng = np.random.default_rng(1)
+    x = torch.from_numpy((rng.standard_normal((1, 1, cfg.d_model))
+                          + 0.5 * rng.standard_normal((4, 64, cfg.d_model)))
+                         .astype(np.float32))
+    pc = _map_params(p, cuda_device)
+    out_h, aux_h = moe.moe_apply(p, x, cfg)
+    out_c, aux_c = moe.moe_apply(pc, x.to(cuda_device), cfg)
+    g = math.gcd(x.shape[0] * x.shape[1], moe.MOE_GROUPS)
+    rh = moe.route(p, x.reshape(g, -1, cfg.d_model), cfg)
+    rc = moe.route(pc, x.to(cuda_device).reshape(g, -1, cfg.d_model), cfg)
+    assert torch.equal(rh.gate_idx, rc.gate_idx.cpu())
+    assert torch.equal(rh.slot, rc.slot.cpu())
+    assert bool((rh.slot >= rh.cap).any()) == (cf == 1.25)
+    torch.testing.assert_close(out_c.cpu(), out_h, atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(aux_c.cpu(), aux_h, atol=1e-6, rtol=0)
 
 
 @pytest.mark.gpu

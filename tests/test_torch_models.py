@@ -219,10 +219,3 @@ def test_sample_tokens_first_index_and_nan():
                    jax.random.PRNGKey(0))
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
     assert got.numpy()[:2].tolist() == [1, 0]
-
-
-def test_moe_config_raises():
-    _, tc = _cfgs()
-    with pytest.raises(NotImplementedError, match="MoE"):
-        ttfm.lm_init(torch.Generator(), dataclasses.replace(tc, n_experts=4),
-                     device="cpu")

@@ -23,7 +23,10 @@ injector counters, supervision counters and journals; no tolerance enters.
     ran, on each backend.  Supervised, the streams equal the fault-free
     run and the dispatch is quarantined, not retried; on the bare engine
     the exception propagates; a control that retries instead shows a
-    different state where the dispatch had written state in place.
+    different state where the dispatch had written state in place;
+  * ROADMAP C.13, a property the reference shares: its preemption round
+    trip is bit exact in float32 and parts in bfloat16; the port's is
+    exact in float32.
 """
 
 import dataclasses
@@ -33,6 +36,7 @@ import os
 import time
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -711,3 +715,69 @@ def test_torn_dispatch_control_retry(monkeypatch, name, op):
         _state_leaves(ref.backend.states), after[0]))
     tokens_same = _tokens(eng.finished) == _torn_reference(name)
     assert (not same or not tokens_same) == TEARS[(name, op)]
+
+
+# --------------------------------------------------------------- C.13 -----
+
+C13_CFG = dict(n_layers=4, d_model=128, n_heads=4, n_kv=2, d_ff=256,
+               vocab=97)
+C13_ENGINE = dict(n_slots=2, pages_per_slot=8, n_pages=10, prefill_chunk=16)
+
+
+def _c13_run(eng_cls, req_cls, params, cfg, ecfg, device=None):
+    """A 16-token victim with 40 new tokens, evicted after 12 steps by two
+    priority-5 arrivals: (preemptions, its tokens, its unpreempted
+    tokens)."""
+    rng = np.random.default_rng(0)
+    victim = rng.integers(0, cfg.vocab, 16).astype(np.int32)
+    hp = rng.integers(0, cfg.vocab, (2, 16)).astype(np.int32)
+
+    def engine():
+        return (eng_cls(params, cfg, ecfg) if device is None
+                else eng_cls(params, cfg, ecfg, device=device))
+
+    ref = engine().run([req_cls(rid=0, prompt=victim,
+                                max_new_tokens=40)])[0].tokens
+    eng = engine()
+    eng.submit(req_cls(rid=0, prompt=victim, max_new_tokens=40))
+    for _ in range(12):
+        eng.step()
+    for i in range(2):
+        eng.submit(req_cls(rid=1 + i, prompt=hp[i], max_new_tokens=24,
+                           priority=5))
+    while eng.step():
+        pass
+    done = sorted(eng.finished, key=lambda f: f.rid)
+    return done[0].preemptions, np.asarray(done[0].tokens), np.asarray(ref)
+
+
+def test_c13_bf16_recompute_parts_in_the_reference():
+    """ROADMAP C.13 is a property of chunk-prefill recompute in bfloat16
+    that the reference shares: on one schedule and one set of weights, the
+    JAX engine's preempted victim re-emits its unpreempted stream in
+    float32 and parts from it in bfloat16; the port's float32 run of the
+    same schedule (the JAX weights) is exact too."""
+    parted = []
+    for seed in (1,):
+        for dt in (jnp.float32, jnp.bfloat16):
+            jc = JModelConfig(**C13_CFG, compute_dtype=dt,
+                                 attn=JAttnConfig(window=8, k=8,
+                                                     backend="mita_ref"))
+            jp = jtfm.lm_init(jax.random.PRNGKey(seed), jc)
+            n_pre, toks, ref = _c13_run(JServingEngine, JRequest, jp, jc,
+                                        JEngineConfig(**C13_ENGINE))
+            assert n_pre >= 1
+            if dt == jnp.float32:
+                np.testing.assert_array_equal(toks, ref)
+                tc = ModelConfig(**C13_CFG, attn=AttnConfig(
+                    window=8, k=8, backend="mita_ref"))
+                t_pre, t_toks, t_ref = _c13_run(
+                    ServingEngine, Request,
+                    params_from_jax(jax.device_get(jp)), tc,
+                    EngineConfig(**C13_ENGINE), "cpu")
+                assert t_pre >= 1
+                np.testing.assert_array_equal(t_toks, t_ref)
+                np.testing.assert_array_equal(t_toks, toks)
+            else:
+                parted.append(not np.array_equal(toks, ref))
+    assert parted == [True], "the reference's bf16 recompute no longer parts"
