@@ -123,6 +123,20 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      and bf16 chunked serves of tinyllama-1.1b and stablelm-1.6b at full
      width and depth (8 requests, 512 + 64, 4 slots: tok/s, TTFT, peak
      memory, the serving kernels' launches);
+  the vision families (run inside phases 2, 3 and 4): B.4 on the
+     bidirectional routing of a real layer at the ViT-B/16's shape (lead
+     [4, 12, 1], m = K = 49, NS 196) and whisper-tiny's encoder's (lead
+     [4, 6, 1], m 25, K 64, NS 1500), both dtypes against the plain
+     version with a dropped-keys control; the float32 ViT-B/16 (12
+     layers, B 4, N 196) pallas against sorted at span = m layer by layer
+     and in the logits' argmax, a pool2d ((14, 14) -> (7, 7)) attention
+     call and a random-landmark forward held to the same calls on the
+     CPU; whisper-tiny at full width and depth in float32: the encoder
+     layer by layer, 448 greedy decode steps from token 50258 held to
+     ``whisper_decode_train`` on the emitted stream (logits within 1e-4);
+     bf16 ViT images/s at B 64 x N 196 and B 8 x N 1024, whisper-tiny's
+     encode ms and decode tok/s, peak memory, B.4 launches = 12 x ViT
+     forwards and 4 x whisper encodes;
   then the MoE family, run last: B.1-B.3 at the d-128 decode
      shapes of deepseek-moe-16b (Hkv 16, G 1), dbrx-132b (Hkv 8, G 6)
      and internvl2-76b (Hkv 8, G 8) in both dtypes as at d 64, and B.4 at
@@ -144,8 +158,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      path for the expert kernel, 0 for flash attention, which no model
      path calls; B.1-B.3 also carry their launches on the supervised and
      dense paths and their head-dim-64 rows, and the MoE paths' launches
-     and d-128 shape rows; plus the sampler's, the spec serve's, the chaos
-     gates' and the new serves' numbers), then
+     and d-128 shape rows; B.4 its ``vit`` and ``whisper_encoder``
+     sub-rows; plus the sampler's, the spec serve's, the chaos gates', the
+     new serves' and the vision phases' numbers), then
      the final line
      ``{"ok": true, "device": {...}}``.
 
@@ -1237,17 +1252,14 @@ def expert_bound(args, dtype):
     KV head, m and l out.  Operations: each active row's score and value
     products over the valid keys of its own expert."""
     q, a, ke, _, valid = args
-    hkv, d = q.shape[1], q.shape[-1]
+    d, m = q.shape[-1], ke.shape[-3]
     es = torch.tensor([], dtype=dtype).element_size()
     rows = q.numel() // d
     nbytes = 2 * q.numel() * es + rows * (4 + 8) \
         + 2 * ke.numel() * es + valid.numel()
-    n_valid = valid.sum(-1).reshape(hkv, FWD_M)               # [Hkv, M]
-    act = a < FWD_M                                           # [1,Hkv,G,NS]
-    keys = torch.where(act, n_valid[torch.arange(hkv, device="cuda")
-                                    [:, None, None],
-                                    a[0].long().clamp(max=FWD_M - 1)][None],
-                       0)
+    n_valid = valid.sum(-1).expand(q.shape[:-2] + (m,))     # [lead..., M]
+    keys = torch.where(a < m, torch.gather(n_valid, -1,
+                                           a.long().clamp(max=m - 1)), 0)
     return nbytes, 4 * d * int(keys.sum())
 
 
@@ -1705,15 +1717,50 @@ def phase_parity():
     torch.cuda.empty_cache()
 
 
+def routing(q, k, v, mcfg, q_lm_src=None):
+    """One attention call's routing as `core.mita` computes it, landmarks
+    pooled from ``q_lm_src`` (default q): (q_lm, s_kv, r, k_e, v_e,
+    valid)."""
+    from repro_torch.core import mita as mref
+    q_lm = mref.extract_landmarks(q if q_lm_src is None else q_lm_src, mcfg)
+    s_kv = mref.landmark_scores(k, q_lm, mcfg)
+    r = mref.routing_logits(q, q_lm, mcfg)
+    return (q_lm, s_kv, r) + tuple(mref.gather_topk(k, v, s_kv, mcfg))
+
+
+def routed_branch_err(q, k, v, mcfg, block_q: int, what: str,
+                      q_lm_src=None):
+    """One attention layer's routed branch on one routing: the expert
+    kernel (span 0) against the span path over all m experts, compared as
+    normalised partials on the active rows; fails past LAYER_TOL.
+    ``q_lm_src``: the queries the landmarks pool (default q).  Returns
+    (largest error, the active rows)."""
+    from repro_torch.core import mita_sparse as msp
+    _, _, r, k_e, v_e, valid = routing(q, k, v, mcfg, q_lm_src)
+    p_k, p_s = (msp._routed_sorted(q, k_e, v_e, valid, r, mcfg, block_q,
+                                   span) for span in (0, mcfg.m))
+    act = p_s.l > 0
+    if not torch.equal(act, p_k.l > 0):
+        fail(f"{what}: routed branch active rows differ")
+    worst = 0.0
+    for name, a, b in (
+            ("o / l", p_k.o / p_k.l.clamp(min=1e-30)[..., None],
+             p_s.o / p_s.l.clamp(min=1e-30)[..., None]),
+            ("m", p_k.m, p_s.m)):
+        a, b = a[act], b[act]
+        err = (a - b).abs().max().item()
+        worst = max(worst, err)
+        if not torch.allclose(a, b, atol=LAYER_TOL, rtol=LAYER_TOL):
+            fail(f"{what}: routed {name}, expert kernel vs span path, "
+                 f"max_abs_err {err} > {LAYER_TOL}")
+    return worst, act
+
+
 def routed_layer_err(params, base, toks) -> float:
     """Every layer's routed branch of a float32 forward over ``toks`` on
-    one routing: the expert kernel (span 0) against the span path over
-    all m experts, compared as normalised partials on the active rows
-    (inputs: the span run); fails past LAYER_TOL.  Returns the largest
-    error."""
+    one routing (`routed_branch_err`; inputs: the span run).  Returns the
+    largest error."""
     import dataclasses
-    from repro_torch.core import mita as mref
-    from repro_torch.core import mita_sparse as msp
     from repro_torch.models import modules as nn
     from repro_torch.models import transformer as tfm
     n = toks.shape[1]
@@ -1728,26 +1775,10 @@ def routed_layer_err(params, base, toks) -> float:
             lp = tfm.layer_params(params["blocks"], i)
             q, k, v = nn._qkv(lp["attn"], nn.rms_norm(x, lp["ln1"]), base,
                               pos)
-            q_lm = mref.extract_landmarks(q.mean(dim=2, keepdim=True), mcfg)
-            s_kv = mref.landmark_scores(k, q_lm, mcfg)
-            r = mref.routing_logits(q, q_lm, mcfg)
-            k_e, v_e, valid = mref.gather_topk(k, v, s_kv, mcfg)
-            p_k, p_s = (msp._routed_sorted(q, k_e, v_e, valid, r, mcfg,
-                                           base.attn.block_q, span)
-                        for span in (0, n // W))
-            act = p_s.l > 0
-            if not torch.equal(act, p_k.l > 0):
-                fail(f"layer {i}: routed branch active rows differ")
-            for name, a, b in (
-                    ("o / l", p_k.o / p_k.l.clamp(min=1e-30)[..., None],
-                     p_s.o / p_s.l.clamp(min=1e-30)[..., None]),
-                    ("m", p_k.m, p_s.m)):
-                a, b = a[act], b[act]
-                err = (a - b).abs().max().item()
-                layer_err = max(layer_err, err)
-                if not torch.allclose(a, b, atol=LAYER_TOL, rtol=LAYER_TOL):
-                    fail(f"layer {i}: routed {name}, expert kernel vs span "
-                         f"path, max_abs_err {err} > {LAYER_TOL}")
+            err, _ = routed_branch_err(q, k, v, mcfg, base.attn.block_q,
+                                       f"layer {i}",
+                                       q.mean(dim=2, keepdim=True))
+            layer_err = max(layer_err, err)
             x, _ = tfm.block_apply(lp, x, cfg_s, pos)
     return layer_err
 
@@ -3604,6 +3635,648 @@ def phase_moe_production(card: str):
     return res
 
 
+# ------------------------------------- the vision families (ViT, whisper) --
+
+VIT_PATCH, VIT_CLASSES = 768, 1000   # 16 x 16 x 3 patches; ImageNet classes
+VIT_WINDOW = {196: 4, 1024: 16}      # 224^2: m = k = 49; 512^2: m 64, k 49
+VIT_K = 49                           # Tab. 4's expert width
+VISION_B = 4                         # batch of the float32 checks
+VISION_SERVE_B = {"vit": 64, "vit_512": 8, "whisper_encoder": 4}
+WHISPER_START = 50258                # <|startoftranscript|>
+LOGIT_TOL = 1e-4          # float32 logits of two paths that decide alike
+CARD_CPU_TOL = 1e-4       # float32 attention rows, card vs CPU, one call
+
+
+def vit_cfg(n: int, dtype=torch.float32, **attn):
+    """ViT-B/16 (`benchmarks/tables.py`'s vit_b widths: 12 layers, d 768,
+    12 heads of 64, d_ff 3072) built as `benchmarks/common.py`'s
+    ``tiny_vit_cfg`` builds its config: bidirectional MiTA, n_kv =
+    n_heads, s = 1, pool1d landmarks, block_q 32; N patches, window
+    `VIT_WINDOW[N]`, k 49.  float32 parameters, ``dtype`` compute."""
+    from repro_torch.models.modules import AttnConfig, ModelConfig
+    a = dict(backend="mita", window=VIT_WINDOW[n], k=VIT_K, s=1,
+             causal=False, block_q=32, landmark="pool1d")
+    a.update(attn)
+    return ModelConfig(name=f"vit-b16-{n}", n_layers=12, d_model=768,
+                       n_heads=12, n_kv=12, d_ff=3072, vocab=VIT_CLASSES,
+                       attn=AttnConfig(**a), param_dtype=torch.float32,
+                       compute_dtype=dtype)
+
+
+def whisper_cfg(dtype=torch.float32, **attn):
+    """whisper-tiny at its registry config (full width and depth)."""
+    import dataclasses
+    from repro_torch.configs.registry import get_arch
+    m = get_arch("whisper-tiny").model
+    return dataclasses.replace(m, compute_dtype=dtype,
+                               attn=dataclasses.replace(m.attn, **attn))
+
+
+def with_attn(cfg, **attn):
+    import dataclasses
+    return dataclasses.replace(cfg, attn=dataclasses.replace(cfg.attn,
+                                                             **attn))
+
+
+def attn_block_q(cfg, n: int) -> int:
+    """The sorted path's query block as `modules.attention_apply` sizes
+    it (bidirectional)."""
+    mcfg = cfg.attn.mita_cfg(n, bidir=True)
+    return min(cfg.attn.block_q, cfg.attn.window * mcfg.s, n * mcfg.s)
+
+
+def numpy_input(shape, seed: int) -> torch.Tensor:
+    """Standard normal numpy draws on the card (the CPU tests' inputs are
+    made the same way)."""
+    return torch.from_numpy(np.random.default_rng(seed).standard_normal(
+        shape).astype(np.float32)).to("cuda")
+
+
+def vision_layer_qkv(which: str, params, x, cfg, i: int):
+    """Layer ``i``'s (q, k, v) of the ViT ("vit") or whisper's encoder
+    ("whisper") on the block input x."""
+    from repro_torch.models import modules as nn
+    from repro_torch.models import transformer as tfm
+    lp = tfm.layer_params(params["blocks" if which == "vit" else "enc"], i)
+    pos = torch.arange(x.shape[1], device=x.device)
+    return nn._qkv(lp["attn"], nn.rms_norm(x, lp["ln1"]), cfg, pos)
+
+
+def vision_layer_step(which: str, params, x, cfg, i: int):
+    """Layer ``i`` of the ViT or whisper's encoder on x, through the
+    model's own block."""
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models import whisper as wh
+    pos = torch.arange(x.shape[1], device=x.device)
+    if which == "vit":
+        return tfm.block_apply(tfm.layer_params(params["blocks"], i), x, cfg,
+                               pos, bidir=True)[0]
+    return wh.enc_block_apply(tfm.layer_params(params["enc"], i), x, cfg,
+                              pos)
+
+
+def vision_layers_err(which: str, params, x, cfg) -> float:
+    """Every layer's routed branch, expert kernel vs span = m on one
+    routing (`routed_branch_err`, float32); every sub-query must be active
+    (bidirectional).  The layers run the span path.  Returns the largest
+    error."""
+    n = x.shape[1]
+    mcfg = cfg.attn.mita_cfg(n, bidir=True)
+    cfg_s = with_attn(cfg, impl="sorted", expert_span=mcfg.m)
+    bq = attn_block_q(cfg, n)
+    worst = 0.0
+    for i in range(cfg.n_layers):
+        q, k, v = vision_layer_qkv(which, params, x, cfg, i)
+        err, act = routed_branch_err(q, k, v, mcfg, bq,
+                                     f"{which} layer {i}")
+        if not bool(act.all()):
+            fail(f"{which} layer {i}: {int((~act).sum())} inactive rows in "
+                 "a bidirectional layer")
+        worst = max(worst, err)
+        x = vision_layer_step(which, params, x, cfg_s, i)
+    return worst
+
+
+def vision_models():
+    """float32 parameters from seed 0 and layer-0 block inputs from numpy
+    draws at the production batches (`VISION_SERVE_B`): the ViT-B/16 at
+    224^2 ("vit") and at 512^2 ("vit_512", the same parameters), and
+    whisper-tiny's encoder ("whisper_encoder").  {name: (model, params,
+    cfg, x)}."""
+    from repro_torch.models import whisper as wh
+    from repro_torch.models.vit import vit_embed, vit_init
+    out = {}
+    with torch.inference_mode():
+        p = vit_init(torch.Generator(device="cuda").manual_seed(0),
+                     vit_cfg(196), VIT_PATCH, VIT_CLASSES, "cuda")
+        for name, n, seed in (("vit", 196, 1), ("vit_512", 1024, 5)):
+            cfg = vit_cfg(n)
+            out[name] = ("vit", p, cfg, vit_embed(p, numpy_input(
+                (VISION_SERVE_B[name], n, VIT_PATCH), seed), cfg))
+        cfg = whisper_cfg()
+        p = wh.whisper_init(torch.Generator(device="cuda").manual_seed(0),
+                            cfg, 1500, "cuda")
+        out["whisper_encoder"] = ("whisper", p, wh.encoder_cfg(cfg),
+                                  wh.enc_embed(p, numpy_input(
+                                      (VISION_SERVE_B["whisper_encoder"],
+                                       1500, cfg.d_model), 2), cfg))
+    return out
+
+
+def phase_kernels_vision():
+    """B.4 at the shapes the vision paths give it, on bidirectional
+    assignments from a real routing (layer 0, float32 weights, numpy
+    inputs, at the production batches): the ViT-B/16 at 224^2, B 64
+    (lead [64, 12, 1], m 49, K 49, NS 196) and at 512^2, B 8 (lead [8,
+    12, 1], m 64, K 49, NS 1024); whisper-tiny's encoder on [4, 1500, 384]
+    audio (lead [4, 6, 1], m 25, K 64, NS 1500).  Both dtypes (bf16: the
+    same routing, inputs rounded), against the plain version (1e-5 /
+    2e-2, P rounded where the tensor-core kernel rounds it); every row
+    active and finite; timed (CUDA events, cold L2), launches and grid
+    from a trace, the bound; the control with keys 32..48 of expert 1
+    dropped must fail."""
+    from repro_torch.core import mita_sparse as msp
+    from repro_torch.kernels import mita_expert_attn as mea
+    res = {}
+    for name, (which, params, cfg, x) in vision_models().items():
+        n = x.shape[1]
+        mcfg = cfg.attn.mita_cfg(n, bidir=True)
+        with torch.inference_mode():
+            q, k, v = vision_layer_qkv(which, params, x, cfg, 0)
+            _, _, r, ke32, ve32, valid = routing(q, k, v, mcfg)
+            q32, a, _ = msp.sort_subqueries(q, r, mcfg)
+        del params, x, q, k, v, r
+        shape = (f"lead [{VISION_SERVE_B[name]}, {cfg.n_heads}, 1], m "
+                 f"{mcfg.m}, K {mcfg.k}, NS {n}, d {cfg.dh}")
+        if not bool((a < mcfg.m).all()) or not bool(valid.all()):
+            fail(f"{name}: a bidirectional routing with inactive rows or "
+                 "invalid expert keys")
+        res[name] = {}
+        for dtype in (torch.float32, torch.bfloat16):
+            tol = TOL[dtype]
+            args = (q32.to(dtype), a, ke32.to(dtype), ve32.to(dtype), valid)
+            path = mea.expert_path(dtype, cfg.dh)
+            rp = path == mea.TENSOR_CORES
+            ref = mea.expert_attention_plain(*args, round_p=rp)
+            got = mea.mita_expert_attention(*args)
+            torch.cuda.synchronize()
+            if not bool((got[2] > 0).all()) \
+                    or not bool(torch.isfinite(got[0].float()).all()):
+                fail(f"B.4 {name} {dtype}: an empty or non-finite row")
+            errs = []
+            for part, xx, yy in zip(("o / l", "m", "l"),
+                                    expert_partials(got),
+                                    expert_partials(ref)):
+                errs.append((xx - yy).abs().max().item())
+                if not torch.allclose(xx, yy, atol=tol, rtol=tol):
+                    fail(f"B.4 {name} {dtype} {part} max_abs_err "
+                         f"{errs[-1]}")
+            dropped = valid.clone()
+            dropped[..., 1, 32:49] = False
+            o, _, l = mea.mita_expert_attention(*args[:4], dropped)
+            use = a == 1
+            xx = o.float()[use] / l[use][:, None]
+            yy = ref[0].float()[use] / ref[2][use][:, None]
+            ctrl = (xx - yy).abs().max().item()
+            if ctrl <= tol or torch.allclose(xx, yy, atol=tol, rtol=tol):
+                fail(f"B.4 {name} {dtype}: the control with keys 32..48 of "
+                     f"expert 1 dropped passes the check ({ctrl})")
+            del ref, got, o, l, xx, yy
+            kern = lambda: mea.mita_expert_attention(*args)  # noqa: E731
+            pl = lambda: mea.expert_attention_plain(*args)  # noqa: E731
+            ms, pms = cuda_ms(kern, iters=20), cuda_ms(pl, iters=5)
+            rec = kernel_record(kern, iters=20)
+            want = ("expert_mma_kernel" if rp else "expert_attn_kernel")
+            if rec["cuda_kernels"] != [want]:
+                fail(f"B.4 {name} {dtype}: traced {rec['cuda_kernels']}")
+            bms, by = bound_ms(*expert_bound(args, dtype), dtype)
+            res[name][dtype] = dict(
+                max_abs_err=max(errs), ms=ms, plain_ms=pms, bound_ms=bms,
+                bound_by=by, library_ms=None, tol=tol,
+                control_max_abs_err=ctrl, path=path, shape=shape, **rec)
+            print(f"mita_expert_attention {name} {dtype} ({shape}, "
+                  f"bidirectional): max_abs_err {max(errs):.3e} (tol {tol}),"
+                  f" kernel {ms:.4f} ms, plain {pms:.4f} ms, bound "
+                  f"{bms:.5f} ms ({by}); {record_text(rec)}; control (keys "
+                  f"32..48 of expert 1 dropped, {int(use.sum())} rows) "
+                  f"{ctrl:.3e} fails the check, as it must")
+            del args
+            torch.cuda.empty_cache()
+        del q32, a, ke32, ve32, valid
+        torch.cuda.empty_cache()
+    return res
+
+
+def _gap_bound(u_a, w1_a, w2_a, u_b, w1_b, w2_b):
+    """Two sides rank the scores u.w1 / sqrt(d) and u.w2 / sqrt(d) (each a
+    float32 dot product) in opposite orders.  float64 rows [R, d] of each
+    side's u, w1, w2.  Returns the exact gap of side a's two scores and the
+    most it can be for the two sides to part: twice float32's rounding of
+    a dot product in any summation order on the larger score (`pick_gaps`'
+    bound), plus what the two sides' input differences make of the gap."""
+    d = u_a.shape[-1]
+    dw = w1_a - w2_a
+    mag = torch.stack([(u * w).abs().sum(-1) for u, w in (
+        (u_a, w1_a), (u_a, w2_a), (u_b, w1_b), (u_b, w2_b))]).amax(0)
+    bound = 2 * (d + 1) * 2.0 ** -24 * mag \
+        + ((u_a - u_b).abs() * dw.abs()).sum(-1) \
+        + (u_b.abs() * ((w1_a - w1_b).abs()
+                        + (w2_a - w2_b).abs())).sum(-1)
+    return (u_a * dw).sum(-1).abs() / d ** 0.5, bound / d ** 0.5
+
+
+def parted_decisions(side_a, side_b, mcfg, what: str):
+    """Where two computations of one bidirectional attention call's
+    routing part (each side (q, k, v), on any device): rows routed to
+    another expert (first-index argmax of the routing logits), and experts
+    whose top-k key sets differ.  Each parted decision must be a near tie
+    (`_gap_bound`, in float64 on the CPU): a row's two experts by their
+    routing logits, every pair of keys that one side picks and the other
+    leaves by their landmark scores; fails otherwise.  Returns (rows [L, N]
+    that a parted decision moved, {route_rows, key_sets, widest gap over
+    its bound})."""
+    from repro_torch.core import mita as mref
+    sides = []
+    for q, k, v in (side_a, side_b):
+        lead, n = q.shape[:-2], q.shape[-2]
+        q_lm, s_kv, r = routing(q, k, v, mcfg)[:3]
+        top = torch.sort(mref.topk_indices(s_kv, mcfg)[0].long(),
+                         dim=-1).values
+
+        def flat(t, dt=torch.float64):
+            t = t.expand(lead + t.shape[-2:])
+            return t.reshape((-1,) + t.shape[-2:]).cpu().to(dt)
+        sides.append((flat(q), flat(k), flat(q_lm), flat(top, torch.long),
+                      mref.argmax_first(r).reshape(-1, n).cpu()))
+    (qa, ka, la, ta, ea), (qb, kb, lb, tb, eb) = sides
+    moved = ea != eb
+    li, ni = moved.nonzero().T
+    ra, rb = ea[li, ni], eb[li, ni]
+    gaps = [_gap_bound(qa[li, ni], la[li, ra], la[li, rb], qb[li, ni],
+                       lb[li, ra], lb[li, rb])]
+    pairs = []
+    for l, j in (ta != tb).any(-1).nonzero().tolist():
+        a_set, b_set = set(ta[l, j].tolist()), set(tb[l, j].tolist())
+        pairs += [(l, j, x, y) for x in a_set - b_set for y in b_set - a_set]
+        moved[l] |= (ea[l] == j) | (eb[l] == j)
+    if pairs:
+        l, j, x, y = torch.tensor(pairs).T
+        gaps.append(_gap_bound(la[l, j], ka[l, x], ka[l, y], lb[l, j],
+                               kb[l, x], kb[l, y]))
+    gap = torch.cat([g for g, _ in gaps])
+    bound = torch.cat([b for _, b in gaps])
+    ratio = (gap / bound.clamp(min=1e-300)).max().item() \
+        if gap.numel() else 0.0
+    if bool((gap > bound).any()):
+        fail(f"{what}: a routing or top-k decision parts away from a near "
+             f"tie (widest gap {ratio:.2f}x its bound)")
+    return moved, dict(route_rows=int(li.numel()),
+                       key_sets=len({p[:2] for p in pairs}),
+                       gap_over_bound=ratio)
+
+
+def card_vs_cpu_rows(q, k, v, mcfg, out_card, out_cpu, what) -> dict:
+    """One attention call on the card against the same call on the CPU
+    (same inputs): rows within CARD_CPU_TOL, except rows that a decision
+    the two devices took apart moved, each such decision a near tie
+    (`parted_decisions`)."""
+    moved, parted = parted_decisions((q, k, v), (q.cpu(), k.cpu(), v.cpu()),
+                                     mcfg, what)
+    diff = (out_card.float().cpu() - out_cpu.float()).abs()
+    tol = CARD_CPU_TOL * (1 + out_cpu.float().abs())
+    bad = (diff > tol).any(-1).reshape(moved.shape)
+    err = diff.reshape(moved.shape + (-1,))[~moved].max().item()
+    if bool((bad & ~moved).any()):
+        fail(f"{what}: card vs CPU max_abs_err {err} > {CARD_CPU_TOL} on "
+             "rows of equal decisions")
+    return dict(max_abs_err=err, near_tie_rows=int(moved.sum()), **parted)
+
+
+def first_parting(which: str, sides, what: str):
+    """Two forwards of the ViT ("vit") or whisper's encoder ("whisper"),
+    each side (params, block input, cfg) on any device, run layer by layer
+    through the model's own block.  At each layer the two sides' routing
+    decisions are compared (`parted_decisions`, which fails where one
+    parts away from a near tie).  Returns the first layer at which any
+    decision parts, with what parted there, or None where none does."""
+    xs = [x for _, x, _ in sides]
+    cfg = sides[0][2]
+    mcfg = cfg.attn.mita_cfg(xs[0].shape[1], bidir=True)
+    for i in range(cfg.n_layers):
+        qkv = [vision_layer_qkv(which, p, x, c, i)
+               for (p, _, c), x in zip(sides, xs)]
+        _, parted = parted_decisions(*qkv, mcfg, f"{what}, layer {i}")
+        if parted["route_rows"] or parted["key_sets"]:
+            return dict(layer=i, **parted)
+        xs = [vision_layer_step(which, p, x, c, i)
+              for (p, _, c), x in zip(sides, xs)]
+    return None
+
+
+def tree_to_cpu(tree):
+    if isinstance(tree, dict):
+        return {key: tree_to_cpu(val) for key, val in tree.items()}
+    return tree.cpu()
+
+
+def argmax_gate(a, b, what: str) -> int:
+    """Greedy argmax of logits a equals b's except where b's two best
+    logits lie within PARITY_GAP.  Returns the number of such rows."""
+    ta, tb = a.argmax(-1), b.argmax(-1)
+    top2 = torch.topk(b.float(), 2, dim=-1).values
+    near = (top2[..., 0] - top2[..., 1]) < PARITY_GAP
+    if bool(((ta != tb) & ~near).any()):
+        fail(f"{what}: greedy argmax differs away from a near tie")
+    return int(((ta != tb) & near).sum())
+
+
+def logits_gate(la, lb, parting, what: str) -> float:
+    """Two float32 forwards' logits: within LOGIT_TOL where no routing or
+    top-k decision parted between them (`first_parting` gave None); past
+    a near-tie parting, argmax equal except at near ties (`argmax_gate`).
+    Returns the largest difference."""
+    err = (la - lb).abs().max().item()
+    if parting is None and err > LOGIT_TOL:
+        fail(f"{what}: no decision parts, yet the logits differ by {err} > "
+             f"{LOGIT_TOL}")
+    argmax_gate(la, lb, what)
+    return err
+
+
+def phase_vit_parity():
+    """float32 (TF32 off), the ViT-B/16, 12 layers, random weights from
+    seed 0 and numpy patches: every layer's routed branch, expert kernel
+    (impl="pallas") vs the sorted path at span = m, on one routing within
+    LAYER_TOL (every sub-query active), at 224^2 (B 4, N 196) and 512^2
+    (B 4, N 1024); at 224^2, the logits of `vit_forward` pallas vs sorted
+    span = m and of a random-landmark `vit_forward` on the card vs the
+    CPU, each pair also walked layer by layer to the first routing or
+    top-k decision that parts (`first_parting`: a near tie, or the logits
+    within LOGIT_TOL where none parts; `logits_gate`);
+    `mita_attention_sparse(impl="pallas")` on layer 0's q/k/v with a
+    pool2d config ((14, 14) -> (7, 7)), card vs CPU (`card_vs_cpu_rows`);
+    B.4 launches = 12 x pallas forwards + the pool2d call."""
+    from repro_torch.core import mita_sparse as msp
+    from repro_torch.core.mita import MiTAConfig
+    from repro_torch.kernels import ops
+    from repro_torch.models.vit import vit_embed, vit_forward, vit_init
+    n = 196
+    cfg = vit_cfg(n)
+    mcfg = cfg.attn.mita_cfg(n, bidir=True)
+    cfg_p = with_attn(cfg, impl="pallas")
+    cfg_s = with_attn(cfg, expert_span=mcfg.m)
+    cfg_r = with_attn(cfg_p, landmark="random")
+    params = vit_init(torch.Generator(device="cuda").manual_seed(0), cfg,
+                      VIT_PATCH, VIT_CLASSES, "cuda")
+    patches = numpy_input((VISION_B, n, VIT_PATCH), 1)
+    res = {}
+    with torch.inference_mode():
+        x = vit_embed(params, patches, cfg)
+        res["layer_max_abs_err"] = vision_layers_err("vit", params, x, cfg)
+        c512 = vit_cfg(1024)
+        res["layer_max_abs_err_512"] = vision_layers_err(
+            "vit", params, vit_embed(params, numpy_input(
+                (VISION_B, 1024, VIT_PATCH), 5), c512), c512)
+        # the main path: pallas, pool2d and random-landmark calls
+        ops.reset_launch_counts()
+        lp = vit_forward(params, patches, cfg_p)
+        q, k, v = vision_layer_qkv("vit", params, x, cfg, 0)
+        m2d = MiTAConfig(m=49, k=VIT_K, s=1, causal=False,
+                         landmark="pool2d", grid_hw=(14, 14), m_hw=(7, 7))
+        o2 = msp.mita_attention_sparse(q, k, v, m2d, impl="pallas",
+                                       block_q=4)
+        lr = vit_forward(params, patches, cfg_r)
+        forwards = 2
+        launches = ops.launch_counts()["mita_expert_attention"]
+        if lp.shape != (VISION_B, VIT_CLASSES) \
+                or not bool(torch.isfinite(lp).all()):
+            fail(f"vit logits malformed {tuple(lp.shape)}")
+        # pallas vs sorted at span = m
+        ls = vit_forward(params, patches, cfg_s)
+        res["parting_pallas_vs_sorted"] = first_parting(
+            "vit", ((params, x, cfg_p), (params, x, cfg_s)),
+            "vit pallas vs sorted")
+        res["logits_pallas_vs_sorted"] = logits_gate(
+            lp, ls, res["parting_pallas_vs_sorted"], "vit pallas vs sorted")
+        # pool2d on layer 0's q/k/v, the card against the CPU
+        o2_cpu = msp.mita_attention_sparse(q.cpu(), k.cpu(), v.cpu(), m2d,
+                                           impl="pallas", block_q=4)
+        res["pool2d_card_vs_cpu"] = card_vs_cpu_rows(
+            q, k, v, m2d, o2, o2_cpu, "vit pool2d layer 0")
+        # random landmarks through vit_forward, the card against the CPU
+        cpu = tree_to_cpu(params)
+        lr_cpu = vit_forward(cpu, patches.cpu(), cfg_r)
+        res["parting_random_card_vs_cpu"] = first_parting(
+            "vit", ((params, x, cfg_r),
+                    (cpu, vit_embed(cpu, patches.cpu(), cfg_r), cfg_r)),
+            "vit random landmarks, card vs CPU")
+        res["random_logits_card_vs_cpu"] = logits_gate(
+            lr.cpu(), lr_cpu, res["parting_random_card_vs_cpu"],
+            "vit random landmarks, card vs CPU")
+    if launches != cfg.n_layers * forwards + 1:
+        fail(f"vit: expert launches {launches} != {cfg.n_layers} x "
+             f"{forwards} pallas forwards + 1 pool2d call")
+    res["launches"] = launches
+    print(f"vit parity (float32, {cfg.n_layers} layers, B {VISION_B}): "
+          f"per-layer routed partials, expert kernel vs span = m: N 196 "
+          f"(m {mcfg.m}, k {mcfg.k}) max_abs_err "
+          f"{res['layer_max_abs_err']:.3e}, N 1024 (m 64, k {VIT_K}) "
+          f"{res['layer_max_abs_err_512']:.3e} (tol {LAYER_TOL}); logits "
+          f"pallas vs sorted max {res['logits_pallas_vs_sorted']:.3e}, first "
+          f"parting decision {res['parting_pallas_vs_sorted']}; pool2d "
+          f"(14, 14) -> (7, 7) card vs CPU {res['pool2d_card_vs_cpu']}; "
+          f"random landmarks card vs CPU logits max "
+          f"{res['random_logits_card_vs_cpu']:.3e}, first parting decision "
+          f"{res['parting_random_card_vs_cpu']}; expert launches "
+          f"{launches} = {cfg.n_layers} x {forwards} + 1")
+    del params, cpu
+    return res
+
+
+def phase_whisper_parity():
+    """float32 (TF32 off), whisper-tiny at full width and depth (4 + 4
+    layers, d 384), random weights from seed 0, numpy audio [4, 1500,
+    384]: the encoder's routed branch layer by layer, expert kernel vs
+    span = m, within LAYER_TOL; 448 greedy decode steps from token 50258
+    through `whisper_init_serve` / `whisper_decode_step` (impl="pallas";
+    window closes at t = 64 .. 448), every step's logits within
+    LOGIT_TOL of `whisper_decode_train` on the emitted stream, the
+    greedy tokens equal to that path's argmax except at near ties
+    (1e-3)."""
+    from repro_torch.core.mita import argmax_first
+    from repro_torch.models import whisper as wh
+    cfg = whisper_cfg(impl="pallas")
+    params = wh.whisper_init(torch.Generator(device="cuda").manual_seed(0),
+                             cfg, 1500, "cuda")
+    audio = numpy_input((VISION_B, 1500, cfg.d_model), 2)
+    steps = 448
+    res = {}
+    with torch.inference_mode():
+        ecfg = wh.encoder_cfg(cfg)
+        res["encoder_layer_max_abs_err"] = vision_layers_err(
+            "whisper", params, wh.enc_embed(params, audio, cfg), ecfg)
+        st = wh.whisper_init_serve(params, audio, cfg, steps)
+        tok = torch.full((VISION_B,), WHISPER_START, dtype=torch.int32,
+                         device="cuda")
+        fed, step_logits = [tok], []
+        for pos in range(steps):
+            lg, st = wh.whisper_decode_step(params, st, tok, pos, cfg)
+            step_logits.append(lg)
+            tok = argmax_first(lg).to(torch.int32)
+            fed.append(tok)
+        step_logits = torch.stack(step_logits, dim=1)        # [B, 448, V]
+        enc = wh.whisper_encode(params, audio, cfg)
+        tf = wh.whisper_decode_train(params, enc,
+                                     torch.stack(fed[:steps], dim=1), cfg)
+        err = (step_logits - tf).abs()
+        per_step = err.amax(dim=(0, 2))
+        res["decode_logits_max_abs_err"] = per_step.max().item()
+        if not bool(torch.isfinite(step_logits).all()) \
+                or per_step.max().item() > LOGIT_TOL:
+            worst = int(per_step.argmax())
+            fail(f"whisper decode vs teacher forcing: max_abs_err "
+                 f"{per_step.max().item()} at step {worst} > "
+                 f"{LOGIT_TOL}")
+        res["near_tie_tokens"] = argmax_gate(step_logits, tf,
+                                             "whisper greedy decode")
+    print(f"whisper parity (float32, {cfg.n_layers} + {cfg.n_layers} "
+          f"layers, d {cfg.d_model}, B {VISION_B}): "
+          f"encoder routed partials, expert kernel vs span 25: max_abs_err "
+          f"{res['encoder_layer_max_abs_err']:.3e} (tol {LAYER_TOL}); "
+          f"{steps} decode steps vs whisper_decode_train: logits max_abs_err "
+          f"{res['decode_logits_max_abs_err']:.3e} (tol {LOGIT_TOL}), "
+          f"{res['near_tie_tokens']} near-tie token differences")
+    del params, st, step_logits, tf
+    return res
+
+
+def profiled(fn, n: int = 1) -> dict:
+    """``n`` calls of ``fn`` under `torch.profiler` (CPU + CUDA): wall and
+    device ms a call, the device-busy share of the wall time (the
+    profiler's own host cost included), the five kernels of most device
+    time and the expert kernel's share (`launch.profile_decode`'s
+    counting)."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.launch.profile_decode import _kernel_us, _top_kernels
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    avgs = prof.key_averages()
+    dev_us = _kernel_us(avgs)
+    port = _top_kernels(avgs, dev_us, port=True)
+    return dict(wall_ms=wall * 1e3 / n, device_ms=dev_us / 1e3 / n,
+                busy_share=dev_us / 1e3 / (wall * 1e3),
+                expert_share=sum(v["share"] for k, v in port.items()
+                                 if "expert" in k),
+                top_kernels={k: round(v["share"], 4) for k, v in
+                             _top_kernels(avgs, dev_us, n=5).items()})
+
+
+def phase_vision_production(card: str):
+    """bf16 compute (f32 parameters), impl="pallas": the ViT-B/16's
+    images/s at B 64 x N 196 and B 8 x N 1024 (mean of 3 forwards after
+    one warm-up), peak memory, B.4 launches = 12 x forwards; whisper-tiny's
+    encode ms on [4, 1500, 384] (mean of 3 after one warm-up), greedy
+    decode tok/s over 448 steps from `whisper_init_serve` (4 streams),
+    peak memory, B.4 launches = 4 x encodes.  The launch counters are set
+    to 0 just before each part and read just after."""
+    from repro_torch.core.mita import argmax_first
+    from repro_torch.kernels import ops
+    from repro_torch.models import whisper as wh
+    from repro_torch.models.vit import vit_forward, vit_init
+    res = {}
+    params = vit_init(torch.Generator(device="cuda").manual_seed(0),
+                      vit_cfg(196, torch.bfloat16), VIT_PATCH, VIT_CLASSES,
+                      "cuda")
+    for n, b in ((196, 64), (1024, 8)):
+        cfg = vit_cfg(n, torch.bfloat16, impl="pallas")
+        patches = numpy_input((b, n, VIT_PATCH), 3)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        times = []
+        with torch.inference_mode():
+            for i in range(4):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                logits = vit_forward(params, patches, cfg)
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+        launches = ops.launch_counts()["mita_expert_attention"]
+        if not bool(torch.isfinite(logits.float()).all()):
+            fail(f"bf16 vit N {n}: non-finite logits")
+        if launches != cfg.n_layers * 4:
+            fail(f"bf16 vit N {n}: expert launches {launches} != "
+                 f"{cfg.n_layers} x 4")
+        s = sum(times[1:]) / 3
+        key = f"vit_b{b}_n{n}"
+        res[key] = dict(images_s=b / s, ms=s * 1e3, launches=launches,
+                        peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+        with torch.inference_mode():
+            res[key]["profile"] = profiled(
+                lambda: vit_forward(params, patches, cfg))
+        print(f"bf16 vit ({card}) B {b} x N {n} (m {n // VIT_WINDOW[n]}, k "
+              f"{VIT_K}): {res[key]['images_s']:.1f} images/s, "
+              f"{res[key]['ms']:.2f} ms a forward, peak "
+              f"{res[key]['peak_gib']:.2f} GiB, expert launches {launches} "
+              f"= {cfg.n_layers} x 4 forwards; one forward profiled: "
+              f"{res[key]['profile']}")
+        del patches, logits
+    del params
+    torch.cuda.empty_cache()
+
+    cfg = whisper_cfg(torch.bfloat16, impl="pallas")
+    params = wh.whisper_init(torch.Generator(device="cuda").manual_seed(0),
+                             cfg, 1500, "cuda")
+    audio = numpy_input((VISION_B, 1500, cfg.d_model), 4)
+    steps = 448
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    times = []
+    with torch.inference_mode():
+        for _ in range(4):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            wh.whisper_encode(params, audio, cfg)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        st = wh.whisper_init_serve(params, audio, cfg, steps)
+        tok = torch.full((VISION_B,), WHISPER_START, dtype=torch.int32,
+                         device="cuda")
+        out = []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for pos in range(steps):
+            lg, st = wh.whisper_decode_step(params, st, tok, pos, cfg)
+            tok = argmax_first(lg).to(torch.int32)
+            out.append(tok)
+        torch.cuda.synchronize()
+        dec_s = time.perf_counter() - t0
+    launches = ops.launch_counts()["mita_expert_attention"]
+    with torch.inference_mode():
+        enc_prof = profiled(lambda: wh.whisper_encode(params, audio, cfg))
+        st = wh.whisper_init_serve(params, audio, cfg, steps)
+
+        def decode8():
+            t = torch.full((VISION_B,), WHISPER_START, dtype=torch.int32,
+                           device="cuda")
+            nonlocal st
+            for pos in range(8):
+                lg, st = wh.whisper_decode_step(params, st, t, pos, cfg)
+                t = argmax_first(lg).to(torch.int32)
+
+        dec_prof = profiled(decode8)
+    toks = torch.stack(out, 1)
+    if int(toks.min()) < 0 or int(toks.max()) >= cfg.vocab:
+        fail("bf16 whisper decode: tokens out of the vocabulary")
+    if launches != cfg.n_layers * 5:
+        fail(f"bf16 whisper: expert launches {launches} != {cfg.n_layers} "
+             "layers x 5 encodes")
+    res["whisper"] = dict(
+        encode_ms=sum(times[1:]) / 3 * 1e3,
+        decode_tok_s=VISION_B * steps / dec_s,
+        decode_ms_per_step=dec_s / steps * 1e3, launches=launches,
+        peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+        encode_profile=enc_prof, decode_profile_8_steps=dec_prof)
+    w = res["whisper"]
+    print(f"bf16 whisper-tiny ({card}): encode [4, 1500, 384] "
+          f"{w['encode_ms']:.2f} ms, greedy decode {steps} steps x 4 "
+          f"streams {w['decode_tok_s']:.1f} tok/s "
+          f"({w['decode_ms_per_step']:.2f} ms a step), peak "
+          f"{w['peak_gib']:.2f} GiB, expert launches {launches} = "
+          f"{cfg.n_layers} x 5 encodes; one encode profiled: {enc_prof}; "
+          f"8 decode steps profiled: {dec_prof}")
+    del params, st
+    torch.cuda.empty_cache()
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda is not available; nothing to check",
@@ -3635,6 +4308,7 @@ def main() -> int:
     kern.update(timed("fullseq_kernels", phase_fullseq_kernels))
     wide = timed("expert_d256", phase_expert_wide)
     d64 = timed("kernels_d64", phase_kernels_d64)
+    vision_kern = timed("kernels_vision", phase_kernels_vision)
     sampler = timed("sampler", phase_sampler)
     timed("parity", phase_parity)
     timed("fullseq_parity", phase_fullseq_parity)
@@ -3645,6 +4319,8 @@ def main() -> int:
                              phase_hybrid_forward_parity)
     chaos = timed("chaos_parity", phase_chaos_parity)
     dense = timed("dense_parity", phase_dense_parity)
+    vit_parity = timed("vit_parity", phase_vit_parity)
+    whisper_parity = timed("whisper_parity", phase_whisper_parity)
     chunked_launches, chunked_summary = timed("production", phase_production,
                                               card)
     fs_launches, _ = timed("fullseq_production", phase_fullseq_production,
@@ -3658,6 +4334,7 @@ def main() -> int:
         "supervised_production", phase_supervised_production, card,
         chunked_summary)
     dense_serves = timed("dense_production", phase_dense_production, card)
+    vision = timed("vision_production", phase_vision_production, card)
     moe_kern = timed("kernels_moe", phase_kernels_moe)
     moe_parity = timed("moe_parity", phase_moe_parity)
     moe_serve = timed("moe_production", phase_moe_production, card)
@@ -3767,6 +4444,29 @@ def main() -> int:
                     "launches"],
                 "layer_max_abs_err_f32": moe_parity[
                     "forward_layer_max_abs_err"]}
+            # the vision slice: bidirectional routing, K 49 / 64
+            keep = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                    "library_ms", "tol", "control_max_abs_err", "path",
+                    "shape") + traced
+            for which, launched, layer_err in (
+                    ("vit", {"launches_vit_b64_n196_bf16": vision[
+                        "vit_b64_n196"]["launches"],
+                        "launches_vit_parity_f32": vit_parity["launches"]},
+                     vit_parity["layer_max_abs_err"]),
+                    ("vit_512", {"launches_vit_b8_n1024_bf16": vision[
+                        "vit_b8_n1024"]["launches"]},
+                     vit_parity["layer_max_abs_err_512"]),
+                    ("whisper_encoder", {
+                        "launches_encode_and_decode_bf16":
+                            vision["whisper"]["launches"]},
+                     whisper_parity["encoder_layer_max_abs_err"])):
+                vk = vision_kern[which]
+                row[which] = {
+                    "launches": sum(v for k, v in launched.items()
+                                    if k.endswith("_bf16")),
+                    **launched, **{k: vk[bf][k] for k in keep},
+                    "f32": {k: vk[torch.float32][k] for k in keep},
+                    "layer_max_abs_err_f32": layer_err}
         if key == "flash":
             row["shape"] = f"[1, 16, {FWD_N}, {D}] causal"
             row["full"] = r["full"]
@@ -3785,7 +4485,9 @@ def main() -> int:
                               "spec_rollbacks")}},
         "recurrent_serves": rec, "chaos": chaos, "dense_parity": dense,
         "supervised_serve": supervised, "dense_serves": dense_serves,
-        "moe_parity": moe_parity, "moe_serve": moe_serve}))
+        "moe_parity": moe_parity, "moe_serve": moe_serve,
+        "vit_parity": vit_parity, "whisper_parity": whisper_parity,
+        "vision_serve": vision}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

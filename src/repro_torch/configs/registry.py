@@ -5,9 +5,11 @@ tinyllama-1.1b (head dim 64, 32 heads over 4 KV heads), stablelm-1.6b
 (head dim 64, MHA) and qwen3-32b (held to the reference at the smoke size
 only: its float32 weights do not fit one card), the moe deepseek-moe-16b
 (full size on one card) and dbrx-132b (smoke size only), the vlm
-internvl2-76b's LM backbone (smoke size only), the ssm mamba2-370m and
-the hybrid recurrentgemma-9b.  Each lives in its own module
-(``repro_torch.configs.<id>``, dashes -> underscores) exporting ``ARCH``.
+internvl2-76b's LM backbone (smoke size only), the ssm mamba2-370m, the
+hybrid recurrentgemma-9b and the encdec whisper-tiny (driven through
+`models.whisper`; it has no serving backend).  Each lives in its own
+module (``repro_torch.configs.<id>``, dashes -> underscores) exporting
+``ARCH``.
 `arch_params` builds any of them, ``smoke_variant`` is the reduced
 same-family config the CPU tests use.
 """
@@ -25,9 +27,11 @@ from repro_torch.models.modules import ModelConfig
 @dataclasses.dataclass(frozen=True)
 class ArchConfig:
     arch_id: str
-    family: str                     # dense | moe | vlm | ssm | hybrid
+    family: str                     # dense | moe | vlm | ssm | hybrid | encdec
     model: ModelConfig
     n_img_tokens: int = 0           # vlm: embeddings over the first P
+    t_enc: int = 0                  # encdec: encoder frames (whisper: 1500)
+    dec_len: int = 0                # encdec: decoder length (whisper: 448)
     notes: str = ""
 
 
@@ -54,8 +58,9 @@ def arch_params(arch: ArchConfig, gen: torch.Generator, device="cuda"):
     if arch.family == "hybrid":
         from repro_torch.models.rglru import rg_init
         return rg_init(gen, arch.model, device)
-    raise ValueError(f"family {arch.family!r} has no ported parameter "
-                     "constructor (ROADMAP A.12)")
+    raise ValueError(f"family {arch.family!r} has no servable parameter "
+                     "constructor (whisper's enc-dec model is built by "
+                     "models.whisper.whisper_init)")
 
 
 def production_dtypes(cfg: ModelConfig) -> ModelConfig:
@@ -78,9 +83,12 @@ def smoke_variant(arch: ArchConfig) -> ArchConfig:
         n_experts=min(m.n_experts, 8),
         moe_top_k=min(m.moe_top_k, 2),
         n_shared_experts=min(m.n_shared_experts, 1),
-        attn=dataclasses.replace(m.attn, window=16, k=16, block_q=16),
+        attn=dataclasses.replace(m.attn, window=16, k=16, block_q=16,
+                                 enc_window=16 if m.attn.enc_window else 0),
         param_dtype=torch.float32,
         compute_dtype=torch.float32,
     )
     return dataclasses.replace(arch, model=sm,
-                               n_img_tokens=min(arch.n_img_tokens, 16))
+                               n_img_tokens=min(arch.n_img_tokens, 16),
+                               t_enc=min(arch.t_enc, 64),
+                               dec_len=min(arch.dec_len, 32))

@@ -7,7 +7,8 @@ pools [R + 1, Hkv, d]); bfloat16 arrays (``ml_dtypes``) are reinterpreted
 bit for bit.  Parameter trees of every ported family (the LM's
 ``blocks``, mamba2's ``blocks``, the hybrid's stacked ``supers``) go
 through `params_from_jax`; the recurrent families' slot states through
-`mamba_state_from_jax` and `rg_state_from_jax`.
+`mamba_state_from_jax` and `rg_state_from_jax`; whisper's decoder state
+through `whisper_state_from_jax`.
 """
 
 from __future__ import annotations
@@ -21,6 +22,7 @@ from repro_torch.core.mita_decode import (FullDecodeState, MiTADecodeState,
                                          PagedMiTAState)
 from repro_torch.models.mamba2 import MambaState
 from repro_torch.models.rglru import RGLRUState, RGSuperState
+from repro_torch.models.whisper import WhisperDecState
 
 
 def array_to_torch(a, device="cpu") -> torch.Tensor:
@@ -78,6 +80,18 @@ def rg_state_from_jax(st, device="cpu") -> RGSuperState:
     return RGSuperState(rec1=_state(RGLRUState, st.rec1, device),
                         rec2=_state(RGLRUState, st.rec2, device),
                         attn=_state(attn, st.attn, device))
+
+
+def whisper_state_from_jax(st, device="cpu") -> WhisperDecState:
+    """A JAX ``WhisperDecState``: the layer-stacked self-attention caches
+    (MiTA or full attention) and the cross K/V.  Each layer gets its own
+    storage, where the reference's layers may share one broadcast
+    array."""
+    cls = (MiTADecodeState if hasattr(st.self_state, "lm_q")
+           else FullDecodeState)
+    return WhisperDecState(self_state=_state(cls, st.self_state, device),
+                           xk=array_to_torch(st.xk, device),
+                           xv=array_to_torch(st.xv, device))
 
 
 def to_numpy(tree: Any) -> Any:

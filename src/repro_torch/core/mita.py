@@ -30,6 +30,8 @@ from repro_torch.device import NEG_INF
 class MiTAConfig:
     """MiTA hyper-parameters: m landmarks (= routed experts), expert width
     k, s routed experts per query, causal LM adaptation or bidirectional.
+    ``landmark`` names the extractor (pool1d | pool2d | random); pool2d
+    pools the patch grid ``grid_hw`` to the landmark grid ``m_hw``.
     ``route_only`` drops the shared expert, ``compress_only`` the routed
     experts (the Tab. 6 ablations)."""
 
@@ -38,6 +40,8 @@ class MiTAConfig:
     s: int = 1
     causal: bool = False
     landmark: str = "pool1d"
+    grid_hw: Optional[tuple[int, int]] = None
+    m_hw: Optional[tuple[int, int]] = None
     include_local: bool = True
     route_only: bool = False
     compress_only: bool = False
@@ -68,8 +72,13 @@ def argmax_first(x: torch.Tensor) -> torch.Tensor:
 def extract_landmarks(q: torch.Tensor, cfg: MiTAConfig) -> torch.Tensor:
     if cfg.landmark == "pool1d":
         return lm.pool1d(q, cfg.m)
-    raise NotImplementedError(
-        f"landmark extractor {cfg.landmark!r} is not ported (ROADMAP A.2)")
+    if cfg.landmark == "pool2d":
+        if not (cfg.grid_hw and cfg.m_hw):
+            raise ValueError("pool2d needs MiTAConfig.grid_hw and m_hw")
+        return lm.pool2d(q, cfg.grid_hw, cfg.m_hw)
+    if cfg.landmark == "random":
+        return lm.random_select(q, cfg.m)
+    raise ValueError(f"unknown landmark extractor {cfg.landmark!r}")
 
 
 def landmark_scores(k: torch.Tensor, q_lm: torch.Tensor,
@@ -92,9 +101,16 @@ def landmark_scores(k: torch.Tensor, q_lm: torch.Tensor,
 
 
 def topk_indices(s_kv: torch.Tensor, cfg: MiTAConfig):
-    """(top_idx [..., m, k] int32, valid [..., m, k]) per landmark."""
+    """(top_idx [..., m, k] int32, valid [..., m, k]) per landmark.
+    ``valid`` is written contiguous: the sort of the transposed scores
+    leaves its outputs in the transposed layout, and the expert kernel
+    reads the mask row-major (a strided mask would cost its wrapper a
+    copy on every call)."""
     top_vals, top_idx = topk_first(s_kv.transpose(-1, -2), cfg.k)
-    return top_idx.to(torch.int32), top_vals > NEG_INF / 2
+    valid = torch.empty(top_vals.shape, dtype=torch.bool,
+                        device=top_vals.device)
+    return top_idx.to(torch.int32), torch.gt(top_vals, NEG_INF / 2,
+                                             out=valid)
 
 
 def gather_topk(keys: torch.Tensor, values: torch.Tensor,

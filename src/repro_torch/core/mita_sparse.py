@@ -40,6 +40,32 @@ def _take_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
                                                      + (x.shape[-1],)))
 
 
+def sort_subqueries(q, r, cfg: MiTAConfig):
+    """The expert sort of the routed branch: each query's s sub-queries,
+    sorted (stably) by their expert, an unavailable expert as id m.  q:
+    [..., N, d]; r: routing logits [..., N, m] (broadcast-1 lead dims are
+    expanded to q's lead).  Returns (q_sorted [..., N*s, d], a_sorted
+    [..., N*s] int64, inv [..., N*s]: the sorted position of each
+    sub-query) -- the expert kernel's inputs."""
+    lead = q.shape[:-2]
+    n = q.shape[-2]
+    s, m = cfg.s, cfg.m
+    r = r.expand(lead + r.shape[-2:])
+    if s == 1:
+        e_idx = mref.argmax_first(r)[..., None]
+        e_ok = (r.amax(dim=-1) > NEG_INF / 2)[..., None]
+    else:
+        top_r, e_idx = mref.topk_first(r, s)
+        e_ok = top_r > NEG_INF / 2
+    ns = n * s
+    a_sortkey = torch.where(e_ok.reshape(lead + (ns,)),
+                            e_idx.reshape(lead + (ns,)), m)
+    order = torch.argsort(a_sortkey, dim=-1, stable=True)
+    inv = torch.argsort(order, dim=-1, stable=True)
+    q_sorted = _take_rows(q.repeat_interleave(s, dim=-2), order)
+    return q_sorted, torch.gather(a_sortkey, -1, order), inv
+
+
 def _routed_sorted(q, k_e, v_e, valid, r, cfg: MiTAConfig, block_q: int,
                    expert_span: int) -> Partial:
     """Sorted routed branch.  q: [..., N, d].  ``expert_span > 0``: the
@@ -52,25 +78,8 @@ def _routed_sorted(q, k_e, v_e, valid, r, cfg: MiTAConfig, block_q: int,
     lead = q.shape[:-2]
     n, d = q.shape[-2:]
     s, m, kk = cfg.s, cfg.m, cfg.k
-    r = r.expand(lead + r.shape[-2:])
-
-    if s == 1:
-        e_idx = mref.argmax_first(r)[..., None]
-        e_ok = (r.amax(dim=-1) > NEG_INF / 2)[..., None]
-    else:
-        top_r, e_idx = mref.topk_first(r, s)
-        e_ok = top_r > NEG_INF / 2
-
     ns = n * s
-    a = e_idx.reshape(lead + (ns,))
-    ok = e_ok.reshape(lead + (ns,))
-    a_sortkey = torch.where(ok, a, m)
-    order = torch.argsort(a_sortkey, dim=-1, stable=True)
-    inv = torch.argsort(order, dim=-1, stable=True)
-
-    sub_q = q.repeat_interleave(s, dim=-2)
-    q_sorted = _take_rows(sub_q, order)
-    a_sorted = torch.gather(a_sortkey, -1, order)
+    q_sorted, a_sorted, inv = sort_subqueries(q, r, cfg)
 
     if expert_span == 0:
         o_s, m_s, l_s = ops.routed_expert_partial(

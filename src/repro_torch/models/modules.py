@@ -49,6 +49,7 @@ class AttnConfig:
     # "repeat":  [B, H, N, dh] with K/V repeated per query head.
     gqa_layout: str = "grouped"
     local_window: int = 2048  # for backend == "local" (recurrentgemma)
+    enc_window: int = 0       # enc-dec: encoder-side window (0 = same)
     external_finalize: bool = False
 
     def mita_cfg(self, n: int, bidir: bool = False) -> MiTAConfig:
@@ -113,6 +114,18 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor,
     return ((x * torch.rsqrt(var + eps)) * (1.0 + scale.float())).to(dtype)
 
 
+def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+               eps: float = 1e-5) -> torch.Tensor:
+    """LayerNorm over the last axis, float32 statistics (population
+    variance), the result in x's dtype."""
+    dtype = x.dtype
+    x = x.float()
+    mu = x.mean(dim=-1, keepdim=True)
+    var = x.var(dim=-1, keepdim=True, unbiased=False)
+    y = (x - mu) * torch.rsqrt(var + eps)
+    return (y * scale + bias).to(dtype)
+
+
 def rope(x: torch.Tensor, positions: torch.Tensor,
          theta: float) -> torch.Tensor:
     """Rotary embedding. x: [..., N, dh]; positions: [N] or broadcastable
@@ -164,16 +177,19 @@ def _qkv(params: Params, x: torch.Tensor, cfg: ModelConfig,
 
 
 def attention_apply(params: Params, x: torch.Tensor, cfg: ModelConfig,
-                    positions: Optional[torch.Tensor] = None) -> torch.Tensor:
+                    positions: Optional[torch.Tensor] = None,
+                    bidir: bool = False) -> torch.Tensor:
     """Full-sequence attention (training forward / prefill).  x:
     [B, N, D].  MiTA backends, or one of the paper's baselines (full,
     local, moba, linear: `core.baselines`).  ``impl="pallas"`` runs MiTA's
-    routed branch on the expert kernel (forward only)."""
+    routed branch on the expert kernel (forward only).  ``bidir`` drops
+    causality for every backend (the ViT, whisper's encoder)."""
     b, n, _ = x.shape
     a = cfg.attn
     if positions is None:
         positions = torch.arange(n, device=x.device)
     q, k, v = _qkv(params, x, cfg, positions)
+    causal = a.causal and not bidir
     repeat = a.gqa_layout == "repeat"
     if repeat:
         h, full = cfg.n_heads, (b, cfg.n_kv, cfg.group, n, cfg.dh)
@@ -181,7 +197,7 @@ def attention_apply(params: Params, x: torch.Tensor, cfg: ModelConfig,
         k = k.expand(full).reshape(b, h, n, cfg.dh)
         v = v.expand(full).reshape(b, h, n, cfg.dh)
     if a.backend in ("mita", "mita_ref", "agent", "mita_route"):
-        mcfg = a.mita_cfg(n)
+        mcfg = a.mita_cfg(n, bidir=bidir)
         q_lm = q.mean(dim=2, keepdim=True) if (
             a.landmark_per_group and cfg.group > 1 and not repeat) else None
         if a.backend == "mita_ref" or mcfg.compress_only:
@@ -194,16 +210,15 @@ def attention_apply(params: Params, x: torch.Tensor, cfg: ModelConfig,
                 expert_span=min(a.expert_span, mcfg.m),
                 capacity_factor=a.capacity_factor, q_landmarks=q_lm)
     elif a.backend == "full":
-        o = full_attention(q, k, v, causal=a.causal)
+        o = full_attention(q, k, v, causal=causal)
     elif a.backend == "local":
         o = local_attention(q, k, v, window=min(a.local_window, n),
-                            causal=a.causal)
+                            causal=causal)
     elif a.backend == "moba":
         o = moba_attention(q, k, v, block_size=a.window,
-                           top_blocks=max(1, a.k // a.window),
-                           causal=a.causal)
+                           top_blocks=max(1, a.k // a.window), causal=causal)
     elif a.backend == "linear":
-        o = linear_attention(q, k, v, causal=a.causal)
+        o = linear_attention(q, k, v, causal=causal)
     else:
         raise ValueError(f"unknown attention backend {a.backend!r}")
     o = torch.movedim(o, 2 if repeat else 3, 1)
@@ -226,6 +241,26 @@ def swiglu_apply(params: Params, x: torch.Tensor,
     h = torch.nn.functional.silu(x @ params["wg"].to(ct)) \
         * (x @ params["wi"].to(ct))
     return h @ params["wo"].to(ct)
+
+
+def gelu_mlp_init(gen, cfg: ModelConfig, device,
+                  d_ff: Optional[int] = None) -> Params:
+    pd = cfg.param_dtype
+    d_ff = d_ff or cfg.d_ff
+    return {"wi": dense_init(gen, cfg.d_model, d_ff, pd, device),
+            "bi": torch.zeros((d_ff,), dtype=pd, device=device),
+            "wo": dense_init(gen, d_ff, cfg.d_model, pd, device),
+            "bo": torch.zeros((cfg.d_model,), dtype=pd, device=device)}
+
+
+def gelu_mlp_apply(params: Params, x: torch.Tensor,
+                   cfg: ModelConfig) -> torch.Tensor:
+    """GELU MLP with biases; the GELU is the tanh approximation, which is
+    ``jax.nn.gelu``'s default."""
+    ct = cfg.compute_dtype
+    h = torch.nn.functional.gelu(
+        x @ params["wi"].to(ct) + params["bi"].to(ct), approximate="tanh")
+    return h @ params["wo"].to(ct) + params["bo"].to(ct)
 
 
 # ------------------------------------------------------------- embeddings ---

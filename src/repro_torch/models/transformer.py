@@ -10,7 +10,8 @@ Entry points: ``lm_forward``, ``lm_loss`` and ``lm_prefill`` (full
 sequence; ``AttnConfig.impl`` picks the routed branch: "sorted",
 "capacity", or "pallas" for the expert kernel),
 ``lm_decode_step`` + ``lm_finalize_states`` (the static path's monolithic
-caches), ``lm_paged_decode_step``, ``lm_prefill_chunks`` (batched),
+caches: MiTA caches for ``mita`` / ``mita_ref``, full-attention caches for
+the other backends), ``lm_paged_decode_step``, ``lm_prefill_chunks`` (batched),
 ``lm_prefill_chunk`` (per-job) and ``lm_landmark_draft`` (the serving
 engine's paged pools; `sample_tokens` samples on the device), and
 ``init_slot_attn_state`` / ``block_decode_slots`` (the hybrid model's
@@ -83,11 +84,12 @@ def _ffn(params: Params, xn, cfg: nn.ModelConfig):
     return nn.swiglu_apply(params["ffn"], xn, cfg), 0.0
 
 
-def block_apply(params: Params, x, cfg: nn.ModelConfig, positions):
+def block_apply(params: Params, x, cfg: nn.ModelConfig, positions,
+                bidir: bool = False):
     """x: [B, N, D] -> (x, aux), aux the MoE load-balance loss (0 for a
-    dense FFN)."""
+    dense FFN).  ``bidir``: bidirectional attention (the ViT)."""
     h = nn.attention_apply(params["attn"], nn.rms_norm(x, params["ln1"]),
-                           cfg, positions)
+                           cfg, positions, bidir=bidir)
     x = x + h
     f, aux = _ffn(params, nn.rms_norm(x, params["ln2"]), cfg)
     return x + f, aux
@@ -167,6 +169,13 @@ def lm_loss(params: Params, batch: dict, cfg: nn.ModelConfig,
     return loss + aux_weight * aux / cfg.n_layers
 
 
+def uses_mita_state(cfg: nn.ModelConfig) -> bool:
+    """Whether the attention decodes on a MiTA cache (``mita`` /
+    ``mita_ref``); every other backend keeps the full-attention cache
+    (`core.mita_decode.FullDecodeState`), as the reference does."""
+    return cfg.attn.backend in ("mita", "mita_ref")
+
+
 def _decode_cfg(cfg: nn.ModelConfig) -> mdec.DecodeConfig:
     return mdec.DecodeConfig(window=cfg.attn.window, k=cfg.attn.k,
                              s=cfg.attn.s,
@@ -187,7 +196,10 @@ def lm_prefill(params: Params, tokens, cfg: nn.ModelConfig, capacity: int,
         lp = layer_params(params["blocks"], i)
         q, k, v = nn._qkv(lp["attn"], nn.rms_norm(x, lp["ln1"]), cfg,
                           positions)
-        states.append(mdec.mita_prefill_state(q, k, v, dcfg, capacity))
+        if uses_mita_state(cfg):
+            states.append(mdec.mita_prefill_state(q, k, v, dcfg, capacity))
+        else:
+            states.append(mdec.full_prefill_state(k, v, capacity))
         x, _ = block_apply(lp, x, cfg, positions)
     x = nn.rms_norm(x, params["ln_f"])
     return nn.unembed(params["emb"], x[:, -1], cfg), _stack_states(states)
@@ -197,10 +209,19 @@ def lm_prefill(params: Params, tokens, cfg: nn.ModelConfig, capacity: int,
 
 def init_decode_states(cfg: nn.ModelConfig, batch: int, capacity: int,
                        device="cuda"):
-    one = [mdec.init_decode_state(batch, cfg.n_kv, cfg.dh, capacity,
-                                  _decode_cfg(cfg), dtype=cfg.compute_dtype,
-                                  device=device)
-           for _ in range(cfg.n_layers)]
+    """Stacked per-layer empty decode states, MiTA caches or, for the
+    other backends, full-attention caches; each layer its own storage (the
+    steps write in place)."""
+    dt = cfg.compute_dtype
+    if uses_mita_state(cfg):
+        one = [mdec.init_decode_state(batch, cfg.n_kv, cfg.dh, capacity,
+                                      _decode_cfg(cfg), dtype=dt,
+                                      device=device)
+               for _ in range(cfg.n_layers)]
+    else:
+        one = [mdec.init_full_state(batch, cfg.n_kv, cfg.dh, capacity,
+                                    dtype=dt, device=device)
+               for _ in range(cfg.n_layers)]
     return _stack_states(one)
 
 
@@ -236,9 +257,13 @@ def _project(params: Params, x, cfg: nn.ModelConfig, pos):
 
 
 def attention_decode(params: Params, x, state, cfg: nn.ModelConfig, pos):
-    """One-token attention on a monolithic cache. x: [B, D]; pos scalar."""
+    """One-token attention on a monolithic cache (MiTA, or full attention
+    for the other backends). x: [B, D]; pos scalar."""
     q, k, v = _project(params, x, cfg, pos)
-    o, state = mdec.mita_decode_step(state, q, k, v, _decode_cfg(cfg))
+    if uses_mita_state(cfg):
+        o, state = mdec.mita_decode_step(state, q, k, v, _decode_cfg(cfg))
+    else:
+        o, state = mdec.full_decode_step(state, q, k, v)
     o = o.reshape(x.shape[0], cfg.n_heads * cfg.dh)
     return o @ params["wo"].to(cfg.compute_dtype), state
 
@@ -268,7 +293,7 @@ def init_slot_attn_state(cfg: nn.ModelConfig, n_slots: int, capacity: int,
     The non-MiTA backends keep the full-attention cache, at most
     ``attn.local_window`` rows."""
     dt = cfg.compute_dtype
-    if cfg.attn.backend in ("mita", "mita_ref"):
+    if uses_mita_state(cfg):
         one = mdec.init_decode_state(n_slots, cfg.n_kv, cfg.dh, capacity,
                                      _decode_cfg(cfg), dtype=dt,
                                      device=device)
@@ -292,7 +317,7 @@ def attention_decode_slots(params: Params, x, state, cfg: nn.ModelConfig,
     that no slot closes a window."""
     s = x.shape[0]
     q, k, v = _project(params, x, cfg, pos)
-    if cfg.attn.backend in ("mita", "mita_ref"):
+    if uses_mita_state(cfg):
         o, state = mdec.mita_decode_step_slots(state, q, k, v,
                                                _decode_cfg(cfg), commit,
                                                due_hint)
@@ -328,7 +353,7 @@ def lm_decode_step(params: Params, states, token, pos, cfg: nn.ModelConfig):
 def init_paged_states(cfg: nn.ModelConfig, n_slots: int, n_pages: int,
                       pages_per_slot: int, device="cuda"):
     """Stacked per-layer paged pools (layer axis 0)."""
-    if cfg.attn.backend not in ("mita", "mita_ref"):
+    if not uses_mita_state(cfg):
         raise ValueError("paged decode states require a MiTA attention "
                          "backend (the pool layout is landmark/expert aware)")
     one = [mdec.init_paged_state(cfg.n_kv, cfg.dh, n_pages, n_slots,

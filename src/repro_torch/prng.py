@@ -7,6 +7,8 @@ the partitionable forms:
   * a key is a pair of 32-bit words, here an int64 tensor ``[..., 2]``
     holding values in ``[0, 2**32)``; ``PRNGKey(seed)`` is ``[0, seed]``;
   * ``fold_in(key, d)`` hashes the counter pair ``(0, d)`` under the key;
+  * ``split(key, num)`` hashes the counter pairs of ``0 .. num - 1``, and
+    ``permutation`` sorts by fresh ``random_bits`` once a round;
   * ``random_bits`` hashes, for each element, the pair (high word, low
     word) of its flat index within ``shape`` and returns ``bits1 ^ bits2``,
     truncated to the requested width;
@@ -85,6 +87,15 @@ def fold_in(key: torch.Tensor, data) -> torch.Tensor:
     return torch.stack([y0, y1], dim=-1)
 
 
+def split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
+    """``jax.random.split`` (partitionable form): key ``i`` of ``num`` is
+    the hash of the counter pair (high word, low word) of ``i`` under
+    ``key`` [2].  Returns keys [num, 2]."""
+    idx = torch.arange(num, dtype=torch.int64, device=key.device)
+    y0, y1 = threefry2x32(key[0], key[1], idx >> 32, idx & MASK32)
+    return torch.stack([y0, y1], dim=-1)
+
+
 def random_bits(key: torch.Tensor, bit_width: int,
                 shape: tuple) -> torch.Tensor:
     """Uniform random words of ``bit_width`` (8, 16 or 32) bits, int64
@@ -144,6 +155,21 @@ def gumbel(key: torch.Tensor, shape: tuple,
     return -torch.log(-torch.log(u))
 
 
+def permutation(key: torch.Tensor, n: int) -> torch.Tensor:
+    """``jax.random.permutation(key, n)``: a shuffle of ``arange(n)`` by
+    ``ceil(3 ln n / ln(2**32 - 1))`` rounds (one round for n up to ~1625),
+    each of which splits the key, draws 32-bit sort keys for the n
+    elements with the subkey and sorts by them (``lax.sort_key_val``,
+    stable: equal sort keys keep their order).  Returns int64 [n]."""
+    rounds = math.ceil(3 * math.log(max(1, n)) / math.log(MASK32))
+    x = torch.arange(n, dtype=torch.int64, device=key.device)
+    for _ in range(rounds):
+        key, sub = split(key)
+        order = torch.sort(random_bits(sub, 32, (n,)), stable=True).indices
+        x = x[order]
+    return x
+
+
 def argmax_first(x: torch.Tensor) -> torch.Tensor:
     """First index of the maximum over the last axis, as int32, with NaN
     read as +inf (the first NaN wins, as in ``np.argmax``)."""
@@ -162,5 +188,5 @@ def categorical(key: torch.Tensor, logits: torch.Tensor) -> torch.Tensor:
                         + logits)
 
 
-__all__ = ["PRNGKey", "threefry2x32", "fold_in", "random_bits", "uniform",
-           "gumbel", "categorical", "argmax_first"]
+__all__ = ["PRNGKey", "threefry2x32", "fold_in", "split", "random_bits",
+           "uniform", "gumbel", "categorical", "permutation", "argmax_first"]

@@ -737,6 +737,86 @@ def test_expert_tolerance_detects_a_dropped_tile(cuda_device, dtype):
     assert not torch.allclose(x, y, atol=tol, rtol=tol)
 
 
+def _bidir_expert_inputs(dtype, dev, b, h, ns, m, kw, d=64, seed=9):
+    """Bidirectional routing as the ViT and whisper's encoder give it:
+    every sub-query active (no inactive tail), about NS / m a expert,
+    sorted; lead [B, H, 1] over a KV lead of the same shape (G = 1, no
+    broadcast); every expert row valid (a top-k over N >= K keys)."""
+    rng = np.random.default_rng(seed)
+
+    def rnd(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32)).to(dev, dtype)
+
+    a = np.sort(rng.integers(0, m, (b, h, 1, ns)), -1).astype(np.int32)
+    return (rnd(b, h, 1, ns, d), torch.from_numpy(a).to(dev),
+            rnd(b, h, 1, m, kw, d), rnd(b, h, 1, m, kw, d),
+            torch.ones((b, h, 1, m, kw), dtype=torch.bool, device=dev))
+
+
+# (B, H, NS, m, K): the ViT-B/16 at 224^2 (K 49: no multiple of 16, under
+# one 128-key tile) and at 512^2 (m 64, NS 1024), whisper-tiny's encoder
+# (K 64, NS 1500)
+BIDIR_SHAPES = [(2, 12, 196, 49, 49), (2, 12, 1024, 64, 49),
+                (2, 6, 1500, 25, 64)]
+BIDIR_IDS = ["vit_k49_ns196", "vit512_k49_ns1024", "whisper_k64_ns1500"]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,ns,m,kw", BIDIR_SHAPES, ids=BIDIR_IDS)
+def test_expert_kernel_bidirectional(cuda_device, dtype, b, h, ns, m, kw):
+    """B.4 on bidirectional assignments at the vision shapes: within the
+    tolerance of its plain version (bf16 at d 64 on the tensor cores, P
+    rounded as the kernel rounds it), every row active and finite; with
+    the next expert's values made 1e4 times larger, the rows of every
+    other expert keep their bits (the key rows past K in a tile add
+    nothing)."""
+    args = _bidir_expert_inputs(dtype, cuda_device, b, h, ns, m, kw)
+    tc = mea.expert_path(dtype, 64) == mea.TENSOR_CORES
+    assert tc == (dtype == torch.bfloat16)
+    ref = mea.expert_attention_plain(*args, round_p=tc)
+    ops.reset_launch_counts()
+    got = ops.routed_expert_partial(*args)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["mita_expert_attention"] == 1
+    assert torch.all(got[2] > 0) and torch.isfinite(got[0].float()).all()
+    tol = TOL[dtype]
+    for x, y in zip(_normalised(*got), _normalised(*ref)):
+        torch.testing.assert_close(x.float(), y.float(), atol=tol, rtol=tol)
+    q, a, ke, ve, valid = args
+    loud = ve.clone()
+    loud[..., 3, :, :] *= 1e4
+    got2 = mea.mita_expert_attention(q, a, ke, loud, valid)
+    other = a != 3
+    assert torch.equal(got2[0][other], got[0][other])
+    assert torch.equal(got2[2][other], got[2][other])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,ns,m,kw", BIDIR_SHAPES, ids=BIDIR_IDS)
+def test_expert_tolerance_detects_dropped_keys_bidirectional(
+        cuda_device, dtype, b, h, ns, m, kw):
+    """The control at the vision shapes: keys 32..48 of expert 1 made
+    invalid lie outside the tolerance of the plain version on the rows
+    that use expert 1."""
+    q, a, ke, ve, valid = _bidir_expert_inputs(dtype, cuda_device, b, h, ns,
+                                               m, kw)
+    tc = mea.expert_path(dtype, 64) == mea.TENSOR_CORES
+    ro, _, rl = mea.expert_attention_plain(q, a, ke, ve, valid, round_p=tc)
+    dropped = valid.clone()
+    dropped[..., 1, 32:49] = False
+    o, _, l = mea.mita_expert_attention(q, a, ke, ve, dropped)
+    use = a == 1
+    assert int(use.sum()) > 0
+    x = o.float()[use] / l[use][:, None]
+    y = ro.float()[use] / rl[use][:, None]
+    tol = TOL[dtype]
+    assert (x - y).abs().max().item() > tol
+    assert not torch.allclose(x, y, atol=tol, rtol=tol)
+
+
 @pytest.mark.gpu
 def test_expert_kernel_is_forward_only(cuda_device):
     q, a, ke, ve, valid = _expert_inputs(torch.float32, cuda_device, 128, 16)

@@ -15,11 +15,14 @@ import torch
 
 from repro.configs.registry import get_arch as jget_arch
 from repro.core import mita_decode as jdec
+from repro.launch.serve import static_generate as jstatic_generate
 from repro.models import transformer as jtfm
 from repro_torch import prng
 from repro_torch.configs.registry import get_arch as tget_arch
-from repro_torch.convert import (decode_state_from_jax, params_from_jax,
-                                 paged_state_from_jax, to_numpy)
+from repro_torch.convert import (decode_state_from_jax, full_state_from_jax,
+                                 params_from_jax, paged_state_from_jax,
+                                 to_numpy)
+from repro_torch.launch.serve import static_generate as tstatic_generate
 from repro_torch.models import transformer as ttfm
 
 TOL = dict(atol=1e-5, rtol=1e-5)
@@ -219,3 +222,38 @@ def test_sample_tokens_first_index_and_nan():
                    jax.random.PRNGKey(0))
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
     assert got.numpy()[:2].tolist() == [1, 0]
+
+
+@pytest.mark.parametrize("backend", ["full", "agent"])
+def test_non_mita_backend_decodes_on_full_cache(weights, backend):
+    """ROADMAP C.14: a backend other than mita / mita_ref prefills and
+    decodes on a full-attention cache, as the reference does.  The same
+    weights through both packages: `lm_prefill`'s states leaf by leaf,
+    the prefill and 24 decode steps' logits within 1e-5, and
+    `static_generate`'s greedy tokens equal (before the repair the port
+    decoded with MiTA and emitted the mita stream)."""
+    jp, tp = weights
+    jc, tc = (dataclasses.replace(c, attn=dataclasses.replace(
+        c.attn, backend=backend)) for c in _cfgs())
+    toks = _prompts(2, 16)
+    feed = _prompts(2, 24, seed=1)
+    jl, jst = jtfm.lm_prefill(jp, jnp.asarray(toks), jc, 48)
+    tl, tst = ttfm.lm_prefill(tp, torch.from_numpy(toks), tc, 48)
+    assert isinstance(jst, jdec.FullDecodeState)
+    assert type(tst).__name__ == "FullDecodeState"
+    _assert_tree(tst, jst)
+    _assert_tree(full_state_from_jax(jax.device_get(jst)), jst)
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **TOL)
+    for i in range(feed.shape[1]):
+        jl, jst = jtfm.lm_decode_step(jp, jst, jnp.asarray(feed[:, i]),
+                                      jnp.asarray(16 + i), jc)
+        tl, tst = ttfm.lm_decode_step(tp, tst, torch.from_numpy(feed[:, i]),
+                                      16 + i, tc)
+        np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **TOL)
+    _assert_tree(tst, jst)
+    jt, _ = jstatic_generate(jp, jc, jnp.asarray(toks), 24)
+    tt, _ = tstatic_generate(tp, tc, torch.from_numpy(toks), 24)
+    np.testing.assert_array_equal(tt, np.asarray(jt))
+    empty = ttfm.init_decode_states(tc, 2, 48, device="cpu")
+    assert type(empty).__name__ == "FullDecodeState"
+    assert tuple(empty.k_cache.shape) == (tc.n_layers, 2, tc.n_kv, 48, tc.dh)
