@@ -152,6 +152,18 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      (tok/s, TTFT, peak memory < 80 GB, decode = 28 x steps, chunk = 28 x
      dispatches, finalize > 0) and a ``lm_forward(impl="pallas")`` at
      N = 4096 (tok/s, expert launches = 28 x forwards);
+  then training (``phase_training``, no port kernel on its path), run
+     last: ``python -m repro_torch.launch.train`` as a subprocess (its
+     cuBLAS workspace setting must come before CUDA starts) at
+     qwen3-0.6b's full width and depth in the production dtypes (f32
+     params, bf16 compute, remat), B 4 x 4096, 6 steps, a checkpoint
+     every 3 (step ms, tokens/s, peak memory; every loss finite, the last
+     below the first); the same at 4 layers, 6 uninterrupted steps
+     against a run that fails at step 4 and resumes (final checkpoints
+     equal bit for bit: params, mu, nu, step); one float32 train step of
+     each family's smoke config card vs CPU (loss within 1e-5, every
+     gradient leaf within 1e-4 of its max) and qwen3-0.6b's microbatch 2
+     vs 1; the five kernels' launch counters 0 over the phase;
   5. summary: one JSON line of per-kernel results (launches from each
      kernel's main path: the spec_k = 3 serve for the serving kernels,
      with the plain chunked serve's beside them, the bf16 full-sequence
@@ -160,7 +172,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      dense paths and their head-dim-64 rows, and the MoE paths' launches
      and d-128 shape rows; B.4 its ``vit`` and ``whisper_encoder``
      sub-rows; plus the sampler's, the spec serve's, the chaos gates', the
-     new serves' and the vision phases' numbers), then
+     new serves', the vision phases' and the training phase's numbers),
+     then
      the final line
      ``{"ok": true, "device": {...}}``.
 
@@ -4277,6 +4290,194 @@ def phase_vision_production(card: str):
     return res
 
 
+# ---------------------------------------------------------------- training --
+
+TRAIN_ARCH = "qwen3-0.6b"
+TRAIN_FAMILIES = ("qwen3-0.6b", "deepseek-moe-16b", "internvl2-76b",
+                  "mamba2-370m", "recurrentgemma-9b", "whisper-tiny")
+TRAIN_FULL = ["--arch", TRAIN_ARCH, "--batch", "4", "--seq", "4096"]
+TRAIN_STEPS = 6
+RESUME_LAYERS = 4          # the restart check's depth (from 28)
+TRAIN_LOSS_TOL = 1e-5      # float32 loss, card vs CPU (nats)
+TRAIN_GRAD_TOL = 1e-4      # every gradient leaf, relative to its max |g|
+TRAIN_CKPT = HERE / "build" / "chip_smoke_train"
+
+
+def train_cli(args: list, what: str, expect_failure: str = "") -> dict:
+    """``python -m repro_torch.launch.train`` in a subprocess, so that its
+    cuBLAS workspace setting comes before CUDA starts in that process:
+    its ``summary`` line, or (``expect_failure``) its error message."""
+    import os
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(HERE / "src")] + [x for x in (env.get("PYTHONPATH"),) if x])
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.train", *args],
+        cwd=HERE, env=env, capture_output=True, text=True, timeout=600)
+    if expect_failure:
+        if proc.returncode == 0 or expect_failure not in proc.stderr:
+            fail(f"{what}: expected a failure with {expect_failure!r}, got "
+                 f"rc {proc.returncode}: {proc.stderr[-2000:]}")
+        return {}
+    if proc.returncode != 0:
+        fail(f"{what}: rc {proc.returncode}: {proc.stderr[-4000:]}")
+    lines = proc.stdout.splitlines()
+    for line in lines:
+        if line.startswith("step "):
+            print(f"  [{what}] {line}")
+    summ = [x for x in lines if x.startswith("summary ")]
+    if not summ:
+        fail(f"{what}: no summary line in {proc.stdout[-2000:]}")
+    return json.loads(summ[-1][len("summary "):])
+
+
+def _npz_equal(a: Path, b: Path) -> tuple[int, list]:
+    """(arrays compared, keys whose bits differ) of two checkpoints."""
+    with np.load(a) as x, np.load(b) as y:
+        if sorted(x.files) != sorted(y.files):
+            fail(f"checkpoint keys differ: "
+                 f"{sorted(set(x.files) ^ set(y.files))}")
+        bad = []
+        for k in x.files:
+            u, v = x[k], y[k]              # each access reads the file
+            if u.dtype != v.dtype or u.shape != v.shape \
+                    or not np.array_equal(u.reshape(-1).view(np.uint8),
+                                          v.reshape(-1).view(np.uint8)):
+                bad.append(k)
+        return len(x.files), bad
+
+
+def train_card_vs_cpu(arch_id: str, microbatch: int = 1) -> dict:
+    """One float32 `train_step` of ``arch_id``'s smoke config from the same
+    parameters (drawn on the CPU) and batch on the card and on the CPU:
+    loss within TRAIN_LOSS_TOL, every gradient leaf (the first moment
+    after one step, (1 - b1) x the clipped gradient) within
+    TRAIN_GRAD_TOL of its max.  With ``microbatch`` 2 the card's two-slice
+    step is held to its one-slice step instead."""
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.data import DataConfig
+    from repro_torch.launch.steps import family_fns, train_step
+    from repro_torch.launch.train import train_batch
+    from repro_torch.optim import OptConfig, adamw_init
+    from repro_torch.optim.adamw import tree_leaves, tree_map
+    arch = get_arch(arch_id, smoke=True)
+    fns = family_fns(arch)
+    p0 = fns["init"](torch.Generator().manual_seed(0), "cpu")
+    batch = train_batch(arch, DataConfig(vocab=arch.model.vocab, seq_len=64,
+                                         global_batch=4), 0)
+    opt = OptConfig(lr=1e-3, warmup_steps=2, total_steps=10)
+    runs = {}
+    for key, dev, mb in (("ref", "cpu" if microbatch == 1 else "cuda", 1),
+                         ("card", "cuda", microbatch)):
+        p = tree_map(lambda t: t.to(dev), p0)
+        _, st, m = train_step(p, adamw_init(p), batch, fns["loss"], opt,
+                              microbatch=mb)
+        runs[key] = (float(m["loss"]), [x.cpu() for x in tree_leaves(st.mu)])
+    (l_ref, g_ref), (l_card, g_card) = runs["ref"], runs["card"]
+    loss_err = abs(l_card - l_ref)
+    grad_err = max(float((a - b).abs().max() / b.abs().max().clamp_min(
+        1e-30)) for a, b in zip(g_card, g_ref))
+    what = f"{arch_id} train_step " + ("card vs CPU" if microbatch == 1
+                                       else f"microbatch {microbatch} vs 1")
+    if not (loss_err <= TRAIN_LOSS_TOL and grad_err <= TRAIN_GRAD_TOL
+            and all(float(b.abs().max()) > 0 for b in g_ref)):
+        fail(f"{what}: loss err {loss_err:.3e}, gradient err {grad_err:.3e} "
+             f"of the leaf max (or a leaf without a gradient)")
+    return dict(loss=l_card, loss_err=loss_err, grad_err_rel=grad_err)
+
+
+def phase_training(card: str) -> dict:
+    """Training on the card (no port kernel on this path: the routed branch
+    trains with ``impl="sorted"``, plain PyTorch as the reference's is
+    plain XLA).  The training CLI at qwen3-0.6b's full width and depth in
+    the production dtypes (f32 params, bf16 compute, remat), B 4 x 4096,
+    6 steps, a checkpoint every 3: step ms, tokens/s, peak memory, every
+    loss finite and the last below the first.  The same at 4 layers: 6
+    uninterrupted steps against a run that fails at step 4 and resumes,
+    final checkpoints equal bit for bit (params, mu, nu, step).  One
+    float32 train step of each family's smoke config, card vs CPU, and
+    qwen3-0.6b's microbatch 2 vs 1 on the card.  The five kernels' launch
+    counters read 0 over the phase (the CLI's own counts, and this
+    process's)."""
+    import shutil
+    from repro_torch.kernels import ops
+    ops.reset_launch_counts()
+    shutil.rmtree(TRAIN_CKPT, ignore_errors=True)
+    res = {}
+    try:
+        ck = TRAIN_CKPT / "full"
+        t0 = time.perf_counter()
+        full = train_cli(TRAIN_FULL + [
+            "--steps", str(TRAIN_STEPS), "--ckpt-dir", str(ck),
+            "--ckpt-every", "3", "--log-every", "1"], "full width")
+        wall = time.perf_counter() - t0
+        losses = full["loss"]
+        if not (len(losses) == TRAIN_STEPS and np.isfinite(losses).all()
+                and losses[-1] < losses[0]):
+            fail(f"{TRAIN_ARCH} full-width training: losses {losses}")
+        steady = full["dt"][1:]
+        res["full"] = dict(
+            n_layers=full["n_layers"], batch=4, seq=4096,
+            losses=losses, lr=full["lr"], grad_norm=full["grad_norm"],
+            step_s=full["dt"], step_ms_steady=1e3 * float(np.mean(steady)),
+            tokens_per_s=full["tokens_per_step"] / float(np.mean(steady)),
+            peak_memory_gib=full["peak_memory_bytes"] / 2**30,
+            process_s=wall, seconds=full["seconds"],
+            launches=full["kernel_launches"])
+        if full["peak_memory_bytes"] >= 80e9:
+            fail(f"{TRAIN_ARCH} training: peak {full['peak_memory_bytes']}")
+        shutil.rmtree(ck)
+
+        small = TRAIN_FULL + ["--steps", str(TRAIN_STEPS), "--ckpt-every",
+                              "2", "--n-layers", str(RESUME_LAYERS)]
+        t0 = time.perf_counter()
+        a = train_cli(small + ["--ckpt-dir", str(TRAIN_CKPT / "a")],
+                      "uninterrupted")
+        train_cli(small + ["--ckpt-dir", str(TRAIN_CKPT / "b"),
+                           "--simulate-failure", "4"], "failing",
+                  expect_failure="simulated node failure")
+        b = train_cli(small + ["--ckpt-dir", str(TRAIN_CKPT / "b"),
+                               "--resume"], "resumed")
+        n, bad = _npz_equal(TRAIN_CKPT / "a" / f"step_{TRAIN_STEPS}"
+                            / "arrays.npz",
+                            TRAIN_CKPT / "b" / f"step_{TRAIN_STEPS}"
+                            / "arrays.npz")
+        if bad or b["start"] != 4 or b["loss"] != a["loss"][4:]:
+            fail(f"resume at {RESUME_LAYERS} layers: {len(bad)} of {n} "
+                 f"arrays differ ({bad[:5]}), start {b['start']}, losses "
+                 f"{b['loss']} vs {a['loss'][4:]}")
+        res["resume"] = dict(n_layers=RESUME_LAYERS, arrays_equal=n,
+                             arrays_differ=len(bad), resumed_at=b["start"],
+                             seconds=time.perf_counter() - t0,
+                             process_seconds=[a["seconds"], b["seconds"]],
+                             launches=[a["kernel_launches"],
+                                       b["kernel_launches"]])
+    finally:
+        shutil.rmtree(TRAIN_CKPT, ignore_errors=True)
+
+    res["card_vs_cpu"] = {a_id: train_card_vs_cpu(a_id)
+                          for a_id in TRAIN_FAMILIES}
+    res["microbatch_2_vs_1"] = train_card_vs_cpu(TRAIN_ARCH, microbatch=2)
+    here = ops.launch_counts()
+    launched = [here, res["full"]["launches"], *res["resume"]["launches"]]
+    if any(sum(c.values()) for c in launched):
+        fail(f"training launched a port kernel: {launched}")
+    res["launches"] = here
+    f = res["full"]
+    errs = {k: (v["loss_err"], v["grad_err_rel"])
+            for k, v in res["card_vs_cpu"].items()}
+    print(f"training ({card}): {TRAIN_ARCH} {f['n_layers']} layers, B 4 x "
+          f"4096, {f['step_ms_steady']:.1f} ms a step after the first "
+          f"({f['tokens_per_s']:.1f} tokens/s), first {f['step_s'][0]:.2f} "
+          f"s, peak {f['peak_memory_gib']:.2f} GiB, losses {f['losses']}, "
+          f"grad norm {f['grad_norm']}, lr {f['lr']}, seconds "
+          f"{f['seconds']}; resume at {RESUME_LAYERS} layers: "
+          f"{res['resume']['arrays_equal']} arrays bit-equal; card vs CPU "
+          f"(loss err, gradient err / leaf max) {errs}; microbatch 2 vs 1 "
+          f"{res['microbatch_2_vs_1']['grad_err_rel']:.3e}; launches {here}")
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda is not available; nothing to check",
@@ -4338,6 +4539,7 @@ def main() -> int:
     moe_kern = timed("kernels_moe", phase_kernels_moe)
     moe_parity = timed("moe_parity", phase_moe_parity)
     moe_serve = timed("moe_production", phase_moe_production, card)
+    training = timed("training", phase_training, card)
     launches = dict(launches)
     launches["mita_expert_attention"] = fs_launches["mita_expert_attention"]
     launches["flash_attention"] = fs_launches["flash_attention"]
@@ -4487,7 +4689,7 @@ def main() -> int:
         "supervised_serve": supervised, "dense_serves": dense_serves,
         "moe_parity": moe_parity, "moe_serve": moe_serve,
         "vit_parity": vit_parity, "whisper_parity": whisper_parity,
-        "vision_serve": vision}))
+        "vision_serve": vision, "training": training}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -65,11 +65,12 @@ def arch_params(arch: ArchConfig, gen: torch.Generator, device="cuda"):
 
 def production_dtypes(cfg: ModelConfig) -> ModelConfig:
     return dataclasses.replace(cfg, param_dtype=torch.float32,
-                               compute_dtype=torch.bfloat16)
+                               compute_dtype=torch.bfloat16, remat=True)
 
 
 def smoke_variant(arch: ArchConfig) -> ArchConfig:
-    """Reduced same-family config: small widths/depth/vocab, f32."""
+    """Reduced same-family config: small widths/depth/vocab, f32, no
+    remat."""
     m = arch.model
     sm = dataclasses.replace(
         m,
@@ -87,6 +88,7 @@ def smoke_variant(arch: ArchConfig) -> ArchConfig:
                                  enc_window=16 if m.attn.enc_window else 0),
         param_dtype=torch.float32,
         compute_dtype=torch.float32,
+        remat=False,
     )
     return dataclasses.replace(arch, model=sm,
                                n_img_tokens=min(arch.n_img_tokens, 16),

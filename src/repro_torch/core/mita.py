@@ -113,6 +113,46 @@ def topk_indices(s_kv: torch.Tensor, cfg: MiTAConfig):
                                              out=valid)
 
 
+class _TakeRows(torch.autograd.Function):
+    """``torch.gather`` of whole rows, with a row-wise backward.
+
+    The forward is the element gather (the same bits).  Its own backward
+    would scatter-add element by element: with deterministic algorithms on
+    (the training driver) the card then sorts one key per element (J x w
+    keys), which took most of a train step's device time at qwen3-0.6b's
+    full width.  This backward adds each gathered row back with one
+    ``index_add_`` over flattened rows: one key per row, deterministic on
+    the card under that mode and on the CPU always."""
+
+    @staticmethod
+    def forward(ctx, x, idx):
+        ctx.x_shape = x.shape
+        ctx.save_for_backward(idx)
+        return torch.gather(x, -2, idx[..., None].expand(
+            idx.shape + (x.shape[-1],)))
+
+    @staticmethod
+    def backward(ctx, g):
+        idx, = ctx.saved_tensors
+        shape = ctx.x_shape
+        n, w = shape[-2:]
+        lead = math.prod(shape[:-2])
+        rows = (torch.arange(lead, device=idx.device) * n).reshape(
+            idx.shape[:-1] + (1,)) + idx
+        gx = torch.zeros((lead * n, w), dtype=g.dtype, device=g.device)
+        gx.index_add_(0, rows.reshape(-1), g.reshape(-1, w))
+        return gx.reshape(shape), None
+
+
+def take_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """x [..., n, w] rows at idx [..., j] (int64, the same lead dims; x
+    may be a broadcast view) -> [..., j, w]."""
+    if idx.shape[:-1] != x.shape[:-2]:
+        raise ValueError(f"take_rows: index lead {tuple(idx.shape[:-1])} "
+                         f"!= rows lead {tuple(x.shape[:-2])}")
+    return _TakeRows.apply(x, idx)
+
+
 def gather_topk(keys: torch.Tensor, values: torch.Tensor,
                 s_kv: torch.Tensor, cfg: MiTAConfig):
     """(k_e, v_e [..., m, k, d], valid [..., m, k])."""
@@ -121,10 +161,8 @@ def gather_topk(keys: torch.Tensor, values: torch.Tensor,
     flat = top_idx.reshape(lead + (cfg.m * cfg.k,)).long()
     keys = keys.expand(lead + keys.shape[-2:])
     values = values.expand(lead + values.shape[-2:])
-    k_e = torch.gather(keys, -2, flat[..., None].expand(
-        flat.shape + (keys.shape[-1],)))
-    v_e = torch.gather(values, -2, flat[..., None].expand(
-        flat.shape + (values.shape[-1],)))
+    k_e = take_rows(keys, flat)
+    v_e = take_rows(values, flat)
     return (k_e.reshape(lead + (cfg.m, cfg.k, keys.shape[-1])),
             v_e.reshape(lead + (cfg.m, cfg.k, values.shape[-1])), valid)
 

@@ -34,12 +34,6 @@ from repro_torch.kernels import ops
 IMPLS = ("sorted", "capacity", "pallas")
 
 
-def _take_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """x [..., n, w] rows at idx [..., j] -> [..., j, w]."""
-    return torch.gather(x, -2, idx[..., None].expand(idx.shape
-                                                     + (x.shape[-1],)))
-
-
 def sort_subqueries(q, r, cfg: MiTAConfig):
     """The expert sort of the routed branch: each query's s sub-queries,
     sorted (stably) by their expert, an unavailable expert as id m.  q:
@@ -62,7 +56,7 @@ def sort_subqueries(q, r, cfg: MiTAConfig):
                             e_idx.reshape(lead + (ns,)), m)
     order = torch.argsort(a_sortkey, dim=-1, stable=True)
     inv = torch.argsort(order, dim=-1, stable=True)
-    q_sorted = _take_rows(q.repeat_interleave(s, dim=-2), order)
+    q_sorted = mref.take_rows(q.repeat_interleave(s, dim=-2), order)
     return q_sorted, torch.gather(a_sortkey, -1, order), inv
 
 
@@ -84,7 +78,7 @@ def _routed_sorted(q, k_e, v_e, valid, r, cfg: MiTAConfig, block_q: int,
     if expert_span == 0:
         o_s, m_s, l_s = ops.routed_expert_partial(
             q_sorted, a_sorted, k_e, v_e, valid, block_q=block_q)
-        return _merge_subqueries(_take_rows(o_s, inv),
+        return _merge_subqueries(mref.take_rows(o_s, inv),
                                  torch.gather(m_s, -1, inv),
                                  torch.gather(l_s, -1, inv), lead, n, s,
                                  q.dtype)
@@ -108,7 +102,7 @@ def _routed_sorted(q, k_e, v_e, valid, r, cfg: MiTAConfig, block_q: int,
         """[kv_lead..., m, *trailing] -> [lead..., nb, span, width]."""
         arr = arr.expand(lead + arr.shape[-(trailing + 1):])
         width = math.prod(arr.shape[-trailing:])
-        out = _take_rows(arr.reshape(lead + (m, width)), flat_span)
+        out = mref.take_rows(arr.reshape(lead + (m, width)), flat_span)
         return out.reshape(lead + (nb, expert_span, width))
 
     k_span = take(k_e, 2).reshape(lead + (nb, expert_span, kk, d))
@@ -124,7 +118,7 @@ def _routed_sorted(q, k_e, v_e, valid, r, cfg: MiTAConfig, block_q: int,
         v_span.reshape(lead + (nb, expert_span * kk, d)),
         mask=mask.reshape(lead + (nb, block_q, expert_span * kk)))
 
-    o = _take_rows(p.o.reshape(lead + (ns, d)), inv)
+    o = mref.take_rows(p.o.reshape(lead + (ns, d)), inv)
     mm = torch.gather(p.m.reshape(lead + (ns,)), -1, inv)
     ll = torch.gather(p.l.reshape(lead + (ns,)), -1, inv)
     return _merge_subqueries(o, mm, ll, lead, n, s, q.dtype)
@@ -193,7 +187,7 @@ def _routed_capacity(q, k_e, v_e, valid, r, cfg: MiTAConfig,
                          dtype=flat.dtype, device=flat.device)
         flat = torch.cat([flat, pad], dim=len(lead))
         if flat.ndim == len(lead) + 2:
-            return _take_rows(flat, dst)
+            return mref.take_rows(flat, dst)
         return torch.gather(flat, -1, dst)
 
     o = torch.where(keep[..., None], back(p.o, 0.0), 0.0)

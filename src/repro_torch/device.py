@@ -4,12 +4,16 @@
   caller asks for the CPU explicitly (the tests do).
 * TF32 is switched off when the package is imported, so float32 matrix
   products on the card stay full float32, as the JAX reference computes.
+* `cpu_log_ready` works around a first-call inaccuracy of the CPU's
+  ``torch.log``.
 * ``NEG_INF`` is the masking constant of the reference (``finfo(f32).min``,
   not ``-inf``): every masked logit carries it, and the ``where`` guards in
   `core.combine` turn ``exp(NEG_INF - m)`` into exact zeros.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -29,3 +33,16 @@ def resolve_device(device: str | torch.device | None = None) -> torch.device:
         raise RuntimeError("device 'cuda' requested but torch.cuda is not "
                            "available; pass device='cpu' to run on the CPU")
     return dev
+
+
+@functools.cache
+def cpu_log_ready() -> bool:
+    """On the CPU, torch.log takes float32 and float64 through MKL's vector
+    math.  The first call in a process that splits over threads was seen
+    to compute one thread's share less accurately (errors up to 1e-4), so
+    two runs of the same computation in two processes could differ; a
+    single-element call first avoids it.  Sampling (`prng.gumbel`) and
+    training (`launch.steps.train_step`) call this before their logs."""
+    for dt in (torch.float32, torch.float64):
+        torch.log(torch.ones(1, dtype=dt))
+    return True

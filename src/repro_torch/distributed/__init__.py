@@ -1,6 +1,8 @@
-"""Fault tolerance (port of ``repro.distributed``): the step timer that
-the serving supervisor shares with the training harness."""
+"""Fault tolerance (port of ``repro.distributed``): restart from a
+checkpoint, and the step timer that the serving supervisor shares with the
+training harness."""
 
-from repro_torch.distributed.fault_tolerance import StepTimer
+from repro_torch.distributed.fault_tolerance import (StepTimer,
+                                                     run_with_restarts)
 
-__all__ = ["StepTimer"]
+__all__ = ["StepTimer", "run_with_restarts"]

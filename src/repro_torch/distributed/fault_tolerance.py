@@ -1,19 +1,38 @@
-"""Straggler detection (port of ``repro.distributed.fault_tolerance``).
+"""Restart-from-checkpoint and straggler detection (port of
+``repro.distributed.fault_tolerance``).
 
-Only `StepTimer` is ported: the serving supervisor
-(`repro_torch.serve.supervisor`) times every engine step with it.  The
-reference's checkpoint/restart loop (``run_with_restarts``) needs a
-checkpoint manager and waits for the training slice.
+  1. **Checkpoint/restart** -- `run_with_restarts` wraps the train loop:
+     a step that raises restores the latest checkpoint and replays from
+     there.  The data pipeline is stateless-resumable (`repro_torch.data`)
+     and the training entry point runs deterministic algorithms on the
+     card, so replayed steps are bit-identical.  In-process retry is for
+     failures that leave the process sound.  A CUDA error that poisons
+     the context (an illegal address, a device-side assert) fails every
+     later call in the process, so every retry fails too, as ROADMAP
+     C.12 says for serving: recovery from it is a new process that
+     resumes from the checkpoint (``launch.train --resume``).
+  2. **Straggler detection** -- `StepTimer` keeps an EWMA of step wall
+     time; a step slower than ``threshold`` x the EWMA is a straggler.
+     The serving supervisor (`repro_torch.serve.supervisor`) times every
+     engine step with it, the train driver every train step.
 
-The timer is host code and adds no device sync: on the card an engine
-step already ends in one (its tokens come back as numpy), so its wall
-time is the step's real time.
+The timer is host code and adds no device sync: an engine step already
+ends in one (its tokens come back as numpy), and so does a train step
+that reads its loss.
+
+Elastic retargeting onto another mesh waits for the port's distribution
+(ROADMAP A.14).
 """
 
 from __future__ import annotations
 
+import logging
 import time
-from typing import Optional
+from typing import Any, Callable, Optional
+
+from repro_torch.checkpoint.manager import CheckpointManager
+
+log = logging.getLogger("repro_torch.ft")
 
 
 class StepTimer:
@@ -55,4 +74,48 @@ class StepTimer:
                 and self.last > self.threshold * self._prev_ewma)
 
 
-__all__ = ["StepTimer"]
+def run_with_restarts(step_fn: Callable[[int, Any], Any],
+                      init_state: Any,
+                      ckpt: CheckpointManager,
+                      n_steps: int,
+                      ckpt_every: int = 50,
+                      max_restarts: int = 3) -> Any:
+    """Drive ``step_fn(step, state) -> state`` with restart-on-failure.
+
+    On exception: restore the latest checkpoint and replay from there (or
+    from ``init_state`` at step 0 when there is none).  Determinism of the
+    data pipeline and of the step makes the replay exact.  Past
+    ``max_restarts`` the exception propagates.
+    """
+    state = init_state
+    start = 0
+    latest = ckpt.latest_step()
+    if latest is not None:
+        start, state = ckpt.restore(state)
+        log.info("resumed from step %d", start)
+
+    restarts = 0
+    step = start
+    while step < n_steps:
+        try:
+            state = step_fn(step, state)
+            step += 1
+            if step % ckpt_every == 0:
+                ckpt.save(step, state)
+        except Exception as e:  # noqa: BLE001 -- any step failure
+            restarts += 1
+            if restarts > max_restarts:
+                raise
+            log.warning("step %d failed (%s); restart %d/%d",
+                        step, e, restarts, max_restarts)
+            latest = ckpt.latest_step()
+            if latest is None:
+                state, step = init_state, 0
+            else:
+                ckpt.wait()
+                step, state = ckpt.restore(state)
+    ckpt.wait()
+    return state
+
+
+__all__ = ["StepTimer", "run_with_restarts"]

@@ -5,6 +5,7 @@ forward of the port spends its time.
         [--arch qwen3-0.6b|deepseek-moe-16b|mamba2-370m|recurrentgemma-9b]
         [--compute-dtype bfloat16|float32] [--steps 20] [--window-close]
         [--prefill-chunk 256] [--forward 4096 [--attn-impl ...]]
+        [--train 4096 [--batch 4]]
 
 Fills the engine's slots with one admission group (``--arch``, default
 qwen3-0.6b, served by its backend: `serve.backends.for_arch`; random
@@ -21,7 +22,11 @@ records instead the chunked-prefill dispatches that admit one group of
 With ``--forward N`` it records one full-sequence forward (``lm_forward``,
 ``mamba_forward`` or ``rg_forward``) of a batch of one sequence of N
 tokens after a warm-up forward, with the routed branch of
-``--attn-impl`` (pallas: the expert kernel).
+``--attn-impl`` (pallas: the expert kernel).  With ``--train N`` it
+records one training step (`launch.steps.train_step`: forward, the remat
+forward, backward and AdamW) of ``--batch`` sequences of N tokens after
+a warm-up step, under the training driver's deterministic settings
+(`launch.train.deterministic`; routed branch ``impl="sorted"``).
 Prints the wall time per step, the share of that time the card was busy
 (sum of kernel times / wall time), and the operators with the largest
 CUDA and CPU self times; the last line is a JSON summary, with the device
@@ -108,6 +113,9 @@ def main(argv=None) -> dict:
     ap.add_argument("--attn-impl", default="pallas",
                     choices=("pallas", "sorted", "capacity"),
                     help="--forward: the routed branch's implementation")
+    ap.add_argument("--train", type=int, default=0,
+                    help="profile one train step of --batch sequences of "
+                         "this many tokens")
     args = ap.parse_args(argv)
 
     device = resolve_device(args.device)
@@ -118,6 +126,11 @@ def main(argv=None) -> dict:
         cfg = dataclasses.replace(cfg, attn=dataclasses.replace(
             cfg.attn, impl=args.attn_impl))
     arch = dataclasses.replace(arch, model=cfg)
+    if args.train:
+        return _profile(args, device, _train_runner(args, arch, device),
+                        f"train step of {args.batch} x {args.train} tokens",
+                        {"arch": arch.arch_id, "train": args.train,
+                         "batch": args.batch})
     if args.forward:
         return _profile(args, device, _forward_runner(args, arch, device),
                         f"forward of {args.forward} tokens",
@@ -234,6 +247,32 @@ def _step_breakdown(prof, due_step: str) -> dict:
             "due_step_finalize_share": fin[due_step] / dev[due_step],
             "other_steps_device_ms_mean": sum(others) / len(others),
             "device_ms_by_step": dev}
+
+
+def _train_runner(args, arch, device):
+    """A warm-up train step now; returns the function that runs the
+    profiled one (returning its count, 1)."""
+    from repro_torch.launch.steps import family_fns, train_step
+    from repro_torch.launch.train import deterministic, train_batch
+    from repro_torch.optim import OptConfig, adamw_init
+    fns = family_fns(arch)
+    with deterministic(device):
+        params = fns["init"](torch.Generator(device=device).manual_seed(0),
+                             device)
+    state = [params, adamw_init(params)]
+    batch = train_batch(arch, DataConfig(vocab=arch.model.vocab,
+                                         seq_len=args.train,
+                                         global_batch=args.batch), 0)
+
+    def run():
+        with deterministic(device):
+            state[0], state[1], m = train_step(*state, batch, fns["loss"],
+                                               OptConfig())
+            float(m["loss"])
+        return 1
+
+    run()
+    return run
 
 
 def _profile(args, device, run, what: str, extra: dict,

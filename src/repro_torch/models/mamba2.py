@@ -175,7 +175,8 @@ def mamba_forward(params: Params, tokens, cfg: nn.ModelConfig):
     aux 0)."""
     x = nn.embed(params["emb"], tokens, cfg)
     for i in range(cfg.n_layers):
-        x = mamba_block_apply(layer_params(params["blocks"], i), x, cfg)
+        x = nn.layer_call(cfg, mamba_block_apply,
+                          layer_params(params["blocks"], i), x, cfg)
     x = nn.rms_norm(x, params["ln_f"])
     return nn.unembed(params["emb"], x, cfg), torch.zeros((), device=x.device)
 

@@ -18,6 +18,7 @@ import math
 from typing import Any, Optional
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.core.baselines import (full_attention, linear_attention,
                                         local_attention, moba_attention)
@@ -84,6 +85,7 @@ class ModelConfig:
     moe_capacity_factor: float = 1.25
     param_dtype: Any = torch.float32
     compute_dtype: Any = torch.float32
+    remat: bool = False        # recompute each layer in the backward
 
     @property
     def dh(self) -> int:
@@ -95,6 +97,25 @@ class ModelConfig:
 
 
 # ------------------------------------------------------------ primitives ---
+
+def _records(tree) -> bool:
+    if isinstance(tree, dict):
+        return any(_records(v) for v in tree.values())
+    return isinstance(tree, torch.Tensor) and tree.requires_grad
+
+
+def layer_call(cfg: ModelConfig, fn, *args):
+    """``fn(*args)`` for one layer.  With ``cfg.remat``, and only while
+    autograd records (an argument requires grad), the layer keeps no
+    activations and is recomputed in the backward: the reference's
+    ``jax.checkpoint(body, policy=nothing_saveable)``.  The recomputed
+    forward runs the same ops on the same inputs, so it takes the same
+    top-k and routing decisions and the gradients keep their bits."""
+    if cfg.remat and torch.is_grad_enabled() and any(map(_records, args)):
+        return torch.utils.checkpoint.checkpoint(fn, *args,
+                                                 use_reentrant=False)
+    return fn(*args)
+
 
 def _normal(gen: torch.Generator, shape, scale, dtype, device):
     x = torch.randn(shape, generator=gen, dtype=torch.float32,

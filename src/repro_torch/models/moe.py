@@ -23,6 +23,7 @@ from typing import Any, NamedTuple, Optional
 
 import torch
 
+from repro_torch.core.mita import take_rows
 from repro_torch.models import modules as nn
 
 Params = dict[str, Any]
@@ -154,7 +155,7 @@ def moe_apply(params: Params, x: torch.Tensor, cfg: nn.ModelConfig):
     src = torch.gather(order, 1, torch.clamp(pos, max=tg * kk - 1)
                        .reshape(g, e * cap)) // kk
     src = torch.where(filled.reshape(g, e * cap), src, 0)        # [G, E*C]
-    xe = torch.gather(tokens.to(ct), 1, src[..., None].expand(g, e * cap, d))
+    xe = take_rows(tokens.to(ct), src)
     xe = xe.reshape(g, e, cap, d).transpose(0, 1).reshape(e, g * cap, d)
 
     h = torch.nn.functional.silu(torch.bmm(xe, params["wg"].to(ct)))
@@ -164,7 +165,7 @@ def moe_apply(params: Params, x: torch.Tensor, cfg: nn.ModelConfig):
     ye = ye.reshape(e, g, cap, d).transpose(0, 1).reshape(g, e * cap, d)
     ypad = torch.cat([ye, torch.zeros((g, 1, d), dtype=ct, device=x.device)],
                      dim=1)
-    y_tok = torch.gather(ypad, 1, dst[..., None].expand(g, tg * kk, d))
+    y_tok = take_rows(ypad, dst)
     y_tok = y_tok.reshape(g, tg, kk, d)
     w = torch.where(keep.reshape(g, tg, kk), gate_w, 0.0).to(ct)
     out = torch.einsum("gtkd,gtk->gtd", y_tok, w).reshape(b, n, d)

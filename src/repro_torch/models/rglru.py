@@ -188,8 +188,9 @@ def rg_forward(params: Params, tokens, cfg: nn.ModelConfig):
     x = nn.embed(params["emb"], tokens, cfg)
     positions = torch.arange(tokens.shape[1], device=x.device)
     for i in range(n_super(cfg)):
-        x = super_block_apply(layer_params(params["supers"], i), x, cfg,
-                              positions)
+        x = nn.layer_call(cfg, super_block_apply,
+                          layer_params(params["supers"], i), x, cfg,
+                          positions)
     x = nn.rms_norm(x, params["ln_f"])
     return nn.unembed(params["emb"], x, cfg), torch.zeros((), device=x.device)
 

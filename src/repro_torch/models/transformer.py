@@ -114,13 +114,15 @@ def lm_init(gen: torch.Generator, cfg: nn.ModelConfig,
 
 def lm_backbone(params: Params, x, cfg: nn.ModelConfig, positions=None):
     """Run the layer stack on embeddings x: [B, N, D] -> (x, aux), aux the
-    per-layer MoE losses summed (a float32 scalar; 0.0 for a dense FFN)."""
+    per-layer MoE losses summed (a float32 scalar; 0.0 for a dense FFN).
+    Each layer is rematerialised under ``cfg.remat`` (`nn.layer_call`)."""
     if positions is None:
         positions = torch.arange(x.shape[1], device=x.device)
     aux = 0.0
     for i in range(cfg.n_layers):
-        x, a = block_apply(layer_params(params["blocks"], i), x, cfg,
-                           positions)
+        x, a = nn.layer_call(cfg, block_apply,
+                             layer_params(params["blocks"], i), x, cfg,
+                             positions)
         aux = aux + a
     return nn.rms_norm(x, params["ln_f"]), aux
 

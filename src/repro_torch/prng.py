@@ -30,10 +30,11 @@ reference's ``jax.vmap`` over keys.
 
 from __future__ import annotations
 
-import functools
 import math
 
 import torch
+
+from repro_torch.device import cpu_log_ready
 
 MASK32 = 0xFFFFFFFF
 _PARITY = 0x1BD11BDA
@@ -134,24 +135,13 @@ def uniform(key: torch.Tensor, shape: tuple, dtype=torch.float32,
     return torch.maximum(lo, scaled)
 
 
-@functools.cache
-def _cpu_log_ready() -> bool:
-    """On the CPU, torch.log takes float32 and float64 through MKL's vector
-    math.  The first call in a process that splits over threads was seen
-    to compute one thread's share less accurately (errors up to 1e-4);
-    a single-element call first avoids it."""
-    for dt in (torch.float32, torch.float64):
-        torch.log(torch.ones(1, dtype=dt))
-    return True
-
-
 def gumbel(key: torch.Tensor, shape: tuple,
            dtype=torch.float32) -> torch.Tensor:
     """``jax.random.gumbel`` in mode "low": ``-log(-log(u))`` with ``u``
     uniform in ``[tiny, 1)``."""
     u = uniform(key, shape, dtype, torch.finfo(dtype).tiny, 1.0)
     if u.device.type == "cpu":
-        _cpu_log_ready()
+        cpu_log_ready()
     return -torch.log(-torch.log(u))
 
 

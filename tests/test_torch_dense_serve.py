@@ -3,8 +3,7 @@ the port, and the supervised serving CLI.
 
   * Each port config equals the JAX config field by field, at full size
     and at the smoke size (the JAX fields the port does not carry hold
-    their defaults, so nothing is lost; ``remat``, a training knob, is
-    left out).
+    their defaults, so nothing is lost), ``remat`` included.
   * At the smoke size (float32, the JAX init's weights through
     `repro_torch.convert`), the port's chunked engine gives the JAX
     chunked engine's greedy tokens, prompts of 2 and 3 windows crossing a
@@ -38,8 +37,6 @@ from repro_torch.serve import EngineConfig, Request, ServingEngine
 
 DENSE = ("tinyllama-1.1b", "stablelm-1.6b", "qwen3-32b")
 GEN = 20
-# reference fields the port does not carry, and why
-TRAINING_ONLY = {"remat"}       # activation checkpointing (ROADMAP A.13)
 
 
 @pytest.fixture(autouse=True)
@@ -57,12 +54,10 @@ def _dtype_name(x) -> str:
 def _assert_fields_equal(port, ref, jcls, what):
     """Every field of the port's dataclass equals the reference's field of
     that name (dtypes by name); the reference's other fields hold their
-    defaults, except the training-only ones."""
+    defaults."""
     port_names = {f.name for f in dataclasses.fields(port)}
     for f in dataclasses.fields(ref):
         want = getattr(ref, f.name)
-        if f.name in TRAINING_ONLY:
-            continue
         if f.name not in port_names:
             default = (f.default_factory() if f.default_factory
                        is not dataclasses.MISSING else f.default)

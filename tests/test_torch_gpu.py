@@ -12,7 +12,9 @@ version's bfloat16 products would round scores enough to flip routing and
 top-k decisions (the chunk-prefill and finalize checks also have the plain
 version round its landmark queries to bfloat16, as the kernel does).
 Pools outside the scratch row are exact, and so are the finalize's expert
-rows and validity in both dtypes.
+rows and validity in both dtypes.  Training (no kernel on its path): one
+float32 train step card vs CPU (loss 1e-5, every gradient leaf 1e-4 of
+its max), and three deterministic steps twice on the card, bit for bit.
 """
 
 import numpy as np
@@ -1265,3 +1267,68 @@ def test_supervised_chaos_serve_on_the_card_vs_cpu(cuda_device):
         assert [f.reason for f in done] == ["complete"] * len(prompts)
         out[dev] = {f.rid: f.tokens.tolist() for f in done}
     assert out[cuda_device] == out["cpu"]
+
+
+# ---------------------------------------------------------------- training
+
+def _train_setup(arch_id):
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.data import DataConfig
+    from repro_torch.launch.steps import family_fns
+    from repro_torch.launch.train import train_batch
+    from repro_torch.optim import OptConfig
+    arch = get_arch(arch_id, smoke=True)
+    fns = family_fns(arch)
+    params = fns["init"](torch.Generator().manual_seed(0), "cpu")
+    dcfg = DataConfig(vocab=arch.model.vocab, seq_len=64, global_batch=4)
+    batches = [train_batch(arch, dcfg, i) for i in range(3)]
+    return params, batches, fns["loss"], OptConfig(lr=1e-3, warmup_steps=2,
+                                                   total_steps=10)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch_id", ["qwen3-0.6b", "mamba2-370m"])
+def test_train_step_card_vs_cpu(cuda_device, arch_id):
+    """One float32 train step from the same parameters and batch: the loss
+    within 1e-5, every gradient leaf (read from the first moment after one
+    step, (1 - b1) x the clipped gradient) within 1e-4 of its max, no
+    port kernel launched."""
+    from repro_torch.launch.steps import train_step
+    from repro_torch.optim import adamw_init
+    from repro_torch.optim.adamw import tree_leaves, tree_map
+    params, batches, loss_fn, opt = _train_setup(arch_id)
+    out = {}
+    ops.reset_launch_counts()
+    for dev in ("cpu", cuda_device):
+        p = tree_map(lambda t: t.to(dev), params)
+        _, st, m = train_step(p, adamw_init(p), batches[0], loss_fn, opt)
+        out[str(dev)] = (float(m["loss"]),
+                         [x.cpu() for x in tree_leaves(st.mu)])
+    assert sum(ops.launch_counts().values()) == 0
+    (l_cpu, g_cpu), (l_card, g_card) = out["cpu"], out["cuda"]
+    assert abs(l_card - l_cpu) <= 1e-5
+    for a, b in zip(g_card, g_cpu):
+        scale = float(b.abs().max())
+        assert scale > 0
+        assert float((a - b).abs().max()) <= 1e-4 * scale
+
+
+@pytest.mark.gpu
+def test_train_steps_are_deterministic_on_card(cuda_device):
+    """Two runs of three train steps under the training driver's
+    deterministic settings: parameters and both moments bit for bit."""
+    from repro_torch.launch.steps import train_step
+    from repro_torch.launch.train import deterministic
+    from repro_torch.optim import adamw_init
+    from repro_torch.optim.adamw import tree_leaves, tree_map
+    params, batches, loss_fn, opt = _train_setup("qwen3-0.6b")
+    runs = []
+    with deterministic(cuda_device):
+        for _ in range(2):
+            p = tree_map(lambda t: t.to(cuda_device), params)
+            st = adamw_init(p)
+            for b in batches:
+                p, st, _ = train_step(p, st, b, loss_fn, opt)
+            runs.append([x.cpu() for t in (p, st.mu, st.nu)
+                         for x in tree_leaves(t)])
+    assert all(torch.equal(a, b) for a, b in zip(*runs))

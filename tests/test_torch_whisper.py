@@ -68,13 +68,10 @@ def _audio(b=2, seed=1):
 
 def _fields_equal(port, ref, what):
     """Every field of the port's dataclass equals the reference's (dtypes
-    by name); the reference's other fields hold their defaults, but for
-    the training-only ``remat``."""
+    by name); the reference's other fields hold their defaults."""
     names = {f.name for f in dataclasses.fields(port)}
     for f in dataclasses.fields(ref):
         want = getattr(ref, f.name)
-        if f.name == "remat":
-            continue
         if f.name not in names:
             default = (f.default_factory() if f.default_factory
                        is not dataclasses.MISSING else f.default)
