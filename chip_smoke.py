@@ -153,8 +153,10 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      dispatches, finalize > 0) and a ``lm_forward(impl="pallas")`` at
      N = 4096 (tok/s, expert launches = 28 x forwards);
   then training (``phase_training``, no port kernel on its path), run
-     last: ``python -m repro_torch.launch.train`` as a subprocess (its
-     cuBLAS workspace setting must come before CUDA starts) at
+     last: ``python -m repro_torch.launch.train --data-parallel 1
+     --model-parallel 1`` as a subprocess (its cuBLAS workspace setting
+     must come before CUDA starts; a 1 x 1 mesh over a one-rank ``nccl``
+     group, DTensor parameters and moments) at
      qwen3-0.6b's full width and depth in the production dtypes (f32
      params, bf16 compute, remat), B 4 x 4096, 6 steps, a checkpoint
      every 3 (step ms, tokens/s, peak memory; every loss finite, the last
@@ -164,6 +166,21 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      each family's smoke config card vs CPU (loss within 1e-5, every
      gradient leaf within 1e-4 of its max) and qwen3-0.6b's microbatch 2
      vs 1; the five kernels' launch counters 0 over the phase;
+  then vision training (``phase_vision_training``, no port kernel on its
+     path): ViT-B/16 (12 layers, d 768, m = k = 49) in f32 params / bf16
+     compute on ``synthetic_vision_batch`` B 64 x 224^2 drawn on the
+     card, 12 AdamW steps (step ms, images/s, peak memory, losses
+     finite), and ``benchmarks/tables.py``'s ``_train_vit`` recipe (tiny
+     ViT, 60 steps, float32) on the card and the CPU from the same
+     parameters (first 10 losses within 1e-4, both eval accuracies);
+  then distribution (``phase_distributed``, one rank: NCCL runs no two
+     ranks on one device): the training phase's full-width CLI run (the
+     1 x 1 mesh path) against ``train_step`` on plain tensors in this
+     process (3 steps from the same seed and batches, losses within 1e-5
+     relative, step ms and peak memory beside it), the CLI at 4 layers
+     under ``torch.distributed.run`` against its lone start, and
+     ``compressed_grad_mean`` over ``nccl`` on a full-size qwen3-0.6b
+     gradient tree (bit for bit one quantization and its residual);
   5. summary: one JSON line of per-kernel results (launches from each
      kernel's main path: the spec_k = 3 serve for the serving kernels,
      with the plain chunked serve's beside them, the bf16 full-sequence
@@ -4295,7 +4312,8 @@ def phase_vision_production(card: str):
 TRAIN_ARCH = "qwen3-0.6b"
 TRAIN_FAMILIES = ("qwen3-0.6b", "deepseek-moe-16b", "internvl2-76b",
                   "mamba2-370m", "recurrentgemma-9b", "whisper-tiny")
-TRAIN_FULL = ["--arch", TRAIN_ARCH, "--batch", "4", "--seq", "4096"]
+TRAIN_FULL = ["--arch", TRAIN_ARCH, "--batch", "4", "--seq", "4096",
+              "--data-parallel", "1", "--model-parallel", "1"]
 TRAIN_STEPS = 6
 RESUME_LAYERS = 4          # the restart check's depth (from 28)
 TRAIN_LOSS_TOL = 1e-5      # float32 loss, card vs CPU (nats)
@@ -4303,16 +4321,20 @@ TRAIN_GRAD_TOL = 1e-4      # every gradient leaf, relative to its max |g|
 TRAIN_CKPT = HERE / "build" / "chip_smoke_train"
 
 
-def train_cli(args: list, what: str, expect_failure: str = "") -> dict:
+def train_cli(args: list, what: str, expect_failure: str = "",
+              launcher: tuple = ()) -> dict:
     """``python -m repro_torch.launch.train`` in a subprocess, so that its
     cuBLAS workspace setting comes before CUDA starts in that process:
-    its ``summary`` line, or (``expect_failure``) its error message."""
+    its ``summary`` line, or (``expect_failure``) its error message.
+    ``launcher``: a module that starts it (``torch.distributed.run`` and
+    its flags)."""
     import os
     env = dict(os.environ)
     env["PYTHONPATH"] = os.pathsep.join(
         [str(HERE / "src")] + [x for x in (env.get("PYTHONPATH"),) if x])
+    start = ["-m", *launcher] if launcher else []
     proc = subprocess.run(
-        [sys.executable, "-m", "repro_torch.launch.train", *args],
+        [sys.executable, *start, "-m", "repro_torch.launch.train", *args],
         cwd=HERE, env=env, capture_output=True, text=True, timeout=600)
     if expect_failure:
         if proc.returncode == 0 or expect_failure not in proc.stderr:
@@ -4389,8 +4411,8 @@ def train_card_vs_cpu(arch_id: str, microbatch: int = 1) -> dict:
 def phase_training(card: str) -> dict:
     """Training on the card (no port kernel on this path: the routed branch
     trains with ``impl="sorted"``, plain PyTorch as the reference's is
-    plain XLA).  The training CLI at qwen3-0.6b's full width and depth in
-    the production dtypes (f32 params, bf16 compute, remat), B 4 x 4096,
+    plain XLA).  The training CLI (a 1 x 1 mesh over a one-rank ``nccl``
+    group) at qwen3-0.6b's full width and depth in the production dtypes (f32 params, bf16 compute, remat), B 4 x 4096,
     6 steps, a checkpoint every 3: step ms, tokens/s, peak memory, every
     loss finite and the last below the first.  The same at 4 layers: 6
     uninterrupted steps against a run that fails at step 4 and resumes,
@@ -4417,7 +4439,7 @@ def phase_training(card: str) -> dict:
             fail(f"{TRAIN_ARCH} full-width training: losses {losses}")
         steady = full["dt"][1:]
         res["full"] = dict(
-            n_layers=full["n_layers"], batch=4, seq=4096,
+            n_layers=full["n_layers"], mesh=full["mesh"], batch=4, seq=4096,
             losses=losses, lr=full["lr"], grad_norm=full["grad_norm"],
             step_s=full["dt"], step_ms_steady=1e3 * float(np.mean(steady)),
             tokens_per_s=full["tokens_per_step"] / float(np.mean(steady)),
@@ -4446,7 +4468,8 @@ def phase_training(card: str) -> dict:
             fail(f"resume at {RESUME_LAYERS} layers: {len(bad)} of {n} "
                  f"arrays differ ({bad[:5]}), start {b['start']}, losses "
                  f"{b['loss']} vs {a['loss'][4:]}")
-        res["resume"] = dict(n_layers=RESUME_LAYERS, arrays_equal=n,
+        res["resume"] = dict(n_layers=RESUME_LAYERS, losses=a["loss"],
+                             arrays_equal=n,
                              arrays_differ=len(bad), resumed_at=b["start"],
                              seconds=time.perf_counter() - t0,
                              process_seconds=[a["seconds"], b["seconds"]],
@@ -4475,6 +4498,300 @@ def phase_training(card: str) -> dict:
           f"{res['resume']['arrays_equal']} arrays bit-equal; card vs CPU "
           f"(loss err, gradient err / leaf max) {errs}; microbatch 2 vs 1 "
           f"{res['microbatch_2_vs_1']['grad_err_rel']:.3e}; launches {here}")
+    return res
+
+
+# --------------------------------------------------- vision training (A.13) --
+
+VIT_TRAIN_B, VIT_TRAIN_STEPS = 64, 12   # ViT-B/16 at 224^2, the recipe's 10
+VIT_TRAIN_CLASSES = 10                 # classes and optimizer
+RECIPE_N, RECIPE_B, RECIPE_PATCH, RECIPE_STEPS = 128, 32, 48, 60
+RECIPE_LOSS_TOL = 1e-4     # float32 loss, card vs CPU, first 10 steps
+
+
+def vision_batch(seed: int, b: int, n: int, patch: int, device) -> dict:
+    """`benchmarks/tables.py`'s ``_train_vit`` batch: ``synthetic_vision_
+    batch(PRNGKey(seed), b, n, patch, 10, n_signal=3, noise=1.2)`` drawn
+    on ``device``."""
+    from repro_torch import prng
+    from repro_torch.models.vit import synthetic_vision_batch
+    return synthetic_vision_batch(prng.PRNGKey(seed, device), b, n, patch,
+                                  VIT_TRAIN_CLASSES, n_signal=3, noise=1.2)
+
+
+def recipe_cfg():
+    """``tiny_vit_cfg("mita", 128, m=16, k=16)``: 2 layers, d 64, 4 heads,
+    window 8, k 16, bidirectional, float32."""
+    from repro_torch.models.modules import AttnConfig, ModelConfig
+    return ModelConfig(n_layers=2, d_model=64, n_heads=4, n_kv=4, d_ff=128,
+                       vocab=11, attn=AttnConfig(
+                           backend="mita", window=RECIPE_N // 16, k=16, s=1,
+                           causal=False, block_q=32, landmark="pool1d"))
+
+
+def recipe_run(params0, device) -> dict:
+    """``_train_vit``'s 60 steps on ``device`` from ``params0``: the
+    losses, the eval accuracy on ``PRNGKey(9)``'s 256 images, the first
+    batch (to compare the draws across devices)."""
+    from repro_torch.launch.steps import train_step
+    from repro_torch.models.vit import vit_accuracy, vit_loss
+    from repro_torch.optim import OptConfig, adamw_init
+    from repro_torch.optim.adamw import tree_map
+    cfg = recipe_cfg()
+    opt = OptConfig(lr=2e-3, warmup_steps=5, total_steps=RECIPE_STEPS,
+                    weight_decay=0.01)
+    p = tree_map(lambda t: t.to(device), params0)
+    st = adamw_init(p)
+    losses = []
+    first = None
+    for i in range(RECIPE_STEPS):
+        batch = vision_batch(1000 + i, RECIPE_B, RECIPE_N, RECIPE_PATCH,
+                             device)
+        if first is None:
+            first = {k: v.cpu() for k, v in batch.items()}
+        p, st, m = train_step(p, st, batch,
+                              lambda q, b: vit_loss(q, b, cfg), opt)
+        losses.append(float(m["loss"]))
+    acc = float(vit_accuracy(p, vision_batch(9, 256, RECIPE_N, RECIPE_PATCH,
+                                             device), cfg))
+    return dict(losses=losses, eval_acc=acc, first_batch=first)
+
+
+def phase_vision_training(card: str) -> dict:
+    """ViT training on the card (A.13's vision half; no port kernel on its
+    path: the routed branch trains with ``impl="sorted"``, and B.4 has no
+    backward).  ViT-B/16 (`vit_cfg` at N 196: 12 layers, d 768, m = k =
+    49) with float32 parameters and bf16 compute, B 64 x 224^2 images of
+    16 x 16 x 3 patches, 10 classes, AdamW lr 2e-3, warmup 5, weight
+    decay 0.01, 12 steps on ``synthetic_vision_batch(PRNGKey(1000 + i),
+    ...)`` drawn on the card: step ms after the first, images/s, peak
+    memory, every loss finite.  Then ``_train_vit``'s recipe (tiny ViT, N
+    128, B 32, 60 steps, float32) on the card and on the CPU from the
+    same parameters: the first 10 losses within 1e-4, both eval
+    accuracies recorded.  The five kernels' launch counters read 0."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch.steps import train_step
+    from repro_torch.models.vit import vit_init, vit_loss
+    from repro_torch.optim import OptConfig, adamw_init
+    ops.reset_launch_counts()
+    cfg = vit_cfg(196, torch.bfloat16)
+    params = vit_init(torch.Generator(device="cuda").manual_seed(0), cfg,
+                      VIT_PATCH, VIT_TRAIN_CLASSES, "cuda")
+    st = adamw_init(params)
+    opt = OptConfig(lr=2e-3, warmup_steps=5, total_steps=VIT_TRAIN_STEPS,
+                    weight_decay=0.01)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, step_s = [], []
+    for i in range(VIT_TRAIN_STEPS):
+        batch = vision_batch(1000 + i, VIT_TRAIN_B, 196, VIT_PATCH, "cuda")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, st, m = train_step(params, st, batch,
+                                   lambda p, b: vit_loss(p, b, cfg), opt)
+        losses.append(float(m["loss"]))       # synchronises
+        step_s.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    if not np.isfinite(losses).all():
+        fail(f"ViT-B/16 training: losses {losses}")
+    steady = float(np.mean(step_s[1:]))
+    res = {"vit_b16": dict(batch=VIT_TRAIN_B, n=196, steps=VIT_TRAIN_STEPS,
+                           losses=losses, step_s=step_s,
+                           step_ms_steady=steady * 1e3,
+                           images_per_s=VIT_TRAIN_B / steady,
+                           peak_memory_gib=peak)}
+    del params, st, batch
+    torch.cuda.empty_cache()
+
+    p0 = vit_init(torch.Generator().manual_seed(0), recipe_cfg(),
+                  RECIPE_PATCH, VIT_TRAIN_CLASSES, "cpu")
+    card_run = recipe_run(p0, "cuda")
+    cpu_run = recipe_run(p0, "cpu")
+    errs = [abs(a - b) for a, b in zip(card_run["losses"][:10],
+                                       cpu_run["losses"][:10])]
+    same_batch = all(torch.equal(card_run["first_batch"][k],
+                                 cpu_run["first_batch"][k])
+                     for k in ("patches", "label"))
+    if max(errs) > RECIPE_LOSS_TOL:
+        fail(f"ViT recipe card vs CPU: first 10 losses differ by {errs}")
+    res["recipe"] = dict(
+        losses_card=card_run["losses"], losses_cpu=cpu_run["losses"],
+        loss_err_first_10=max(errs), eval_acc_card=card_run["eval_acc"],
+        eval_acc_cpu=cpu_run["eval_acc"], batch_bit_equal=same_batch)
+    launches = ops.launch_counts()
+    if sum(launches.values()):
+        fail(f"vision training launched a port kernel: {launches}")
+    res["launches"] = launches
+    v, r = res["vit_b16"], res["recipe"]
+    print(f"vision training ({card}): ViT-B/16 bf16 B {VIT_TRAIN_B} x 196 "
+          f"patches, {v['step_ms_steady']:.1f} ms a step after the first "
+          f"({v['images_per_s']:.1f} images/s), first {step_s[0]:.2f} s, "
+          f"peak {peak:.2f} GiB, losses {losses}; recipe (tiny ViT, 60 "
+          f"steps) card vs CPU: first 10 losses within {max(errs):.3e}, "
+          f"eval accuracy card {r['eval_acc_card']:.4f} / CPU "
+          f"{r['eval_acc_cpu']:.4f}, first batch bit-equal {same_batch}; "
+          f"launches {launches}")
+    return res
+
+
+# ------------------------------------------------------ distribution (A.14) --
+
+MESH_LOSS_TOL = 1e-5       # relative, the mesh path against the plain path
+DIST_STEPS = 3
+
+
+def _losses_rel(a: list, b: list) -> float:
+    return max(abs(x - y) / abs(y) for x, y in zip(a, b))
+
+
+def plain_train(arch, steps: int, total_steps: int) -> dict:
+    """``train_step`` on plain tensors in this process: the training CLI's
+    first ``steps`` steps of a ``total_steps``-step run (its seed, its
+    schedule, its batches, deterministic algorithms), without a mesh.
+    The losses, each step's seconds and the peak memory it added."""
+    from repro_torch.data import DataConfig
+    from repro_torch.launch.steps import family_fns, train_step
+    from repro_torch.launch.train import deterministic, schedule, train_batch
+    from repro_torch.optim import adamw_init
+    fns = family_fns(arch)
+    opt = schedule(total_steps, 3e-4)                  # the CLI's --lr
+    dcfg = DataConfig(vocab=arch.model.vocab, seq_len=4096, global_batch=4)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    losses, step_s = [], []
+    with deterministic(torch.device("cuda")):
+        params = fns["init"](torch.Generator(device="cuda").manual_seed(0),
+                             "cuda")
+        st = adamw_init(params)
+        for step in range(steps):
+            batch = train_batch(arch, dcfg, step)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            params, st, m = train_step(params, st, batch, fns["loss"], opt)
+            losses.append(float(m["loss"]))       # synchronises
+            step_s.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated() - base
+    del params, st
+    torch.cuda.empty_cache()
+    return dict(losses=losses, step_s=step_s, peak_memory_bytes=peak)
+
+
+def phase_distributed(card: str, training: dict) -> dict:
+    """The distribution path on one card (a world of one rank: NCCL runs
+    no two ranks on one device, so multi-rank runs are the CPU tests').
+    `phase_training`'s full-width CLI run went through ``--data-parallel
+    1 --model-parallel 1``: a 1 x 1 mesh over a one-rank ``nccl`` group,
+    parameters and moments as DTensors, the train cell's sharded step.
+    Its first 3 losses are held to `train_step` on plain tensors in this
+    process (`plain_train`, same seed, schedule and batches) within 1e-5
+    relative, step ms (steps 1 to 2, before the CLI run's first checkpoint
+    write) and peak memory beside each other.  The CLI at 4
+    layers started by ``torch.distributed.run --nproc-per-node 1``
+    against the training phase's lone start at that depth.
+    ``compressed_grad_mean`` over ``nccl`` on a qwen3-0.6b gradient tree
+    (one backward of B 1 x 512 at full width and depth): on one rank the
+    result is ``dequantize(quantize(g))`` and the residual ``g - q s``
+    rounded once, bit for bit, every leaf; timed.  The five kernels'
+    launch counters read 0."""
+    import torch.distributed as dist
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.data import DataConfig
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.steps import family_fns
+    from repro_torch.launch.train import train_batch
+    from repro_torch.optim.compression import (compressed_grad_mean,
+                                               dequantize_int8, quantize_int8)
+    from repro_torch.optim.adamw import tree_leaves
+    from repro_torch.optim.grads import value_and_grads
+    ops.reset_launch_counts()
+    res = {}
+    arch = get_arch(TRAIN_ARCH)
+    meshed = training["full"]
+    plain = plain_train(arch, DIST_STEPS, TRAIN_STEPS)
+    rel = _losses_rel(meshed["losses"][:DIST_STEPS], plain["losses"])
+    if meshed["mesh"] != {"data": 1, "model": 1} or rel > MESH_LOSS_TOL:
+        fail(f"mesh path: mesh {meshed['mesh']}, losses "
+             f"{meshed['losses'][:DIST_STEPS]} vs the plain path's "
+             f"{plain['losses']} ({rel:.3e})")
+    res["full"] = dict(
+        n_layers=meshed["n_layers"], losses=meshed["losses"][:DIST_STEPS],
+        plain_losses=plain["losses"], loss_rel=rel,
+        bit_equal=meshed["losses"][:DIST_STEPS] == plain["losses"],
+        # steps 1 to 2 of both: the CLI run writes its first checkpoint
+        # after step 2, and the write overlaps the steps after it
+        step_ms_steady=1e3 * float(np.mean(
+            meshed["step_s"][1:DIST_STEPS])),
+        plain_step_s=plain["step_s"],
+        plain_step_ms_steady=1e3 * float(np.mean(plain["step_s"][1:])),
+        peak_memory_gib=meshed["peak_memory_gib"],
+        plain_peak_memory_gib=plain["peak_memory_bytes"] / 2 ** 30)
+
+    small = TRAIN_FULL + ["--steps", str(TRAIN_STEPS), "--n-layers",
+                          str(RESUME_LAYERS), "--log-every", "1"]
+    run = train_cli(small, "torchrun 1 rank", launcher=(
+        "torch.distributed.run", "--standalone", "--nproc-per-node", "1"))
+    lone = training["resume"]["losses"]
+    rel4 = _losses_rel(run["loss"], lone)
+    if run["mesh"] != {"data": 1, "model": 1} or rel4 > MESH_LOSS_TOL:
+        fail(f"torchrun start: mesh {run['mesh']}, losses {run['loss']} vs "
+             f"{lone}")
+    res["torchrun"] = dict(n_layers=RESUME_LAYERS, losses=run["loss"],
+                           lone_losses=lone, loss_rel=rel4,
+                           bit_equal=run["loss"] == lone,
+                           launches=run["kernel_launches"])
+
+    fns = family_fns(arch)
+    params = fns["init"](torch.Generator(device="cuda").manual_seed(0),
+                         "cuda")
+    batch = train_batch(arch, DataConfig(vocab=arch.model.vocab, seq_len=512,
+                                         global_batch=1), 0)
+    _, grads = value_and_grads(fns["loss"], params, batch)
+    del params
+    make_host_mesh(1, 1)
+    try:
+        if dist.get_backend() != "nccl":
+            fail(f"one-rank mesh on the card: backend {dist.get_backend()}")
+        red, err = compressed_grad_mean(grads)       # warm-up and checked
+        n_bad = 0
+        for g, r, e in zip(tree_leaves(grads), tree_leaves(red),
+                           tree_leaves(err)):
+            q, s = quantize_int8(g)
+            n_bad += not torch.equal(r, dequantize_int8(q, s))
+            n_bad += not torch.equal(
+                e, (g.double() - q.double() * s.double()).float())
+        if n_bad:
+            fail(f"compressed_grad_mean over nccl: {n_bad} leaves differ")
+        del red, err
+        ms = cuda_ms(lambda: compressed_grad_mean(grads), iters=3, warmup=1)
+    finally:
+        dist.destroy_process_group()
+    n_el = sum(g.numel() for g in tree_leaves(grads))
+    res["compressed"] = dict(leaves=len(tree_leaves(grads)), elements=n_el,
+                             ms=ms, leaves_differ=0,
+                             wire_bytes_per_rank_ideal=2 * n_el)
+    del grads
+    torch.cuda.empty_cache()
+    launches = ops.launch_counts()
+    launched = [launches, res["torchrun"]["launches"]]
+    if any(sum(c.values()) for c in launched):
+        fail(f"the distribution phase launched a port kernel: {launched}")
+    res["launches"] = launches
+    f = res["full"]
+    print(f"distribution ({card}): mesh 1 x 1 over nccl, {TRAIN_ARCH} "
+          f"{f['n_layers']} layers, B 4 x 4096: {f['step_ms_steady']:.1f} ms "
+          f"a step, steps 1-2 (plain train_step "
+          f"{f['plain_step_ms_steady']:.1f}), peak {f['peak_memory_gib']:.2f}"
+          f" GiB (plain "
+          f"{f['plain_peak_memory_gib']:.2f}), losses {f['losses']} vs plain "
+          f"{f['plain_losses']} (rel {f['loss_rel']:.3e}, bit-equal "
+          f"{f['bit_equal']}); torchrun 1 rank at {RESUME_LAYERS} layers: "
+          f"losses rel {rel4:.3e} to the lone start (bit-equal "
+          f"{res['torchrun']['bit_equal']})"
+          f"; compressed_grad_mean over nccl on {n_el} gradient elements "
+          f"({res['compressed']['leaves']} leaves): {ms:.2f} ms, bit-equal "
+          f"to one quantization; launches {launches}")
     return res
 
 
@@ -4540,6 +4857,8 @@ def main() -> int:
     moe_parity = timed("moe_parity", phase_moe_parity)
     moe_serve = timed("moe_production", phase_moe_production, card)
     training = timed("training", phase_training, card)
+    vision_training = timed("vision_training", phase_vision_training, card)
+    distributed = timed("distributed", phase_distributed, card, training)
     launches = dict(launches)
     launches["mita_expert_attention"] = fs_launches["mita_expert_attention"]
     launches["flash_attention"] = fs_launches["flash_attention"]
@@ -4689,7 +5008,8 @@ def main() -> int:
         "supervised_serve": supervised, "dense_serves": dense_serves,
         "moe_parity": moe_parity, "moe_serve": moe_serve,
         "vit_parity": vit_parity, "whisper_parity": whisper_parity,
-        "vision_serve": vision, "training": training}))
+        "vision_serve": vision, "training": training,
+        "vision_training": vision_training, "distributed": distributed}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -14,6 +14,15 @@
     an in-place step would change the arrays under the writer), then
     hands the file I/O to a background thread, which does no CUDA work.
   * **Retention** -- `CheckpointManager(keep=k)` prunes old steps.
+  * **Sharded trees** -- a DTensor leaf is gathered to its full value
+    (every rank of its mesh takes part); only rank 0 of the process group
+    copies it to host memory, writes and prunes.  Restore reads the full
+    arrays on every rank, cuts each to the rank's part of its target
+    leaf's placement on the host and moves only that part to the device
+    (for a tree placed by ``param_specs``, the placement
+    `distributed.fault_tolerance.elastic_retarget` gives), so a
+    checkpoint written on one mesh restores on any other, or in one
+    process.
 """
 
 from __future__ import annotations
@@ -26,6 +35,8 @@ from typing import Any, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor
 
 
 def _leaves_with_path(tree, path=()):
@@ -58,6 +69,17 @@ def _unflatten(tree, leaves):
     return next(leaves)
 
 
+def full_value(x):
+    """A leaf's whole value as a plain tensor: a DTensor is gathered (a
+    collective: every rank of its mesh calls it)."""
+    return x.full_tensor() if isinstance(x, DTensor) else x
+
+
+def _writer() -> bool:
+    """Whether this process writes checkpoints: rank 0, or no group."""
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
 def _host_copy(leaf) -> np.ndarray:
     """A numpy copy that owns its memory; bf16 widened to float32."""
     if isinstance(leaf, torch.Tensor):
@@ -72,19 +94,45 @@ def _host_copy(leaf) -> np.ndarray:
     return arr
 
 
-def _flatten(tree) -> dict[str, np.ndarray]:
-    return {"/".join(path): _host_copy(leaf)
-            for path, leaf in _leaves_with_path(tree)}
+def _flatten(tree) -> Optional[dict[str, np.ndarray]]:
+    """The writer's host copy of every leaf by path; None on the other
+    ranks, which take part in each DTensor leaf's gather and copy
+    nothing."""
+    writer = _writer()
+    flat = {}
+    for path, leaf in _leaves_with_path(tree):
+        leaf = full_value(leaf)
+        if writer:
+            flat["/".join(path)] = _host_copy(leaf)
+    return flat if writer else None
 
+
+def _local_part(full: torch.Tensor, like: DTensor) -> torch.Tensor:
+    """This rank's part of ``full`` as ``like`` is placed: cut along each
+    sharded mesh dim in turn, as ``distribute_tensor`` cuts
+    (``torch.chunk``; a rank past the last chunk holds an empty one)."""
+    mesh = like.device_mesh
+    coord = mesh.get_coordinate()
+    for i, pl in enumerate(like.placements):
+        if pl.is_shard():
+            chunks = torch.chunk(full, mesh.size(i), dim=pl.dim)
+            full = (chunks[coord[i]] if coord[i] < len(chunks)
+                    else full.narrow(pl.dim, 0, 0))
+        elif not pl.is_replicate():
+            raise ValueError(f"cannot restore into a {pl} placement")
+    return full
 
 def save_checkpoint(directory: str, step: int, tree: Any,
                     extra: Optional[dict] = None,
                     async_: bool = False) -> threading.Thread | None:
     """Save a tree of tensors.  Returns the writer thread if ``async_``;
     either way the tree has been copied to host memory when this
-    returns."""
-    os.makedirs(directory, exist_ok=True)
+    returns.  Every rank calls it (DTensor leaves are gathered); only
+    rank 0 writes."""
     flat = _flatten(tree)
+    if flat is None:
+        return None
+    os.makedirs(directory, exist_ok=True)
     tmp = os.path.join(directory, f"step_{step}.tmp")
     final = os.path.join(directory, f"step_{step}")
 
@@ -117,7 +165,7 @@ def latest_step(directory: str) -> Optional[int]:
 def restore_checkpoint(directory: str, target_tree: Any,
                        step: Optional[int] = None) -> tuple[int, Any]:
     """Restore into the structure of ``target_tree``: each leaf takes the
-    target leaf's dtype and device."""
+    target leaf's dtype, device and (for a DTensor) placement."""
     step = step if step is not None else latest_step(directory)
     if step is None:
         raise FileNotFoundError(f"no checkpoint in {directory}")
@@ -130,10 +178,19 @@ def restore_checkpoint(directory: str, target_tree: Any,
             if arr.shape != tuple(leaf.shape):
                 raise ValueError(f"shape mismatch for {key}: "
                                  f"{arr.shape} vs {tuple(leaf.shape)}")
-            # a fresh torch allocation (copy=True): the loaded array's
-            # alignment could change how CPU kernels block their sums
-            new_leaves.append(torch.from_numpy(arr).to(
-                device=leaf.device, dtype=leaf.dtype, copy=True))
+            t = torch.from_numpy(arr)
+            if isinstance(leaf, DTensor):
+                # only this rank's part leaves the host
+                t = DTensor.from_local(
+                    _local_part(t, leaf).to(device=leaf.device,
+                                            dtype=leaf.dtype, copy=True),
+                    leaf.device_mesh, leaf.placements, run_check=False,
+                    shape=leaf.shape, stride=leaf.stride())
+            else:
+                # a fresh torch allocation (copy=True): the loaded array's
+                # alignment could change how CPU kernels block their sums
+                t = t.to(device=leaf.device, dtype=leaf.dtype, copy=True)
+            new_leaves.append(t)
     return step, _unflatten(target_tree, iter(new_leaves))
 
 
@@ -149,7 +206,8 @@ class CheckpointManager:
         self.wait()
         # prune BEFORE the async write starts: keep (keep-1) existing steps,
         # the in-flight step becomes the keep-th.
-        self._prune(margin=1)
+        if _writer():
+            self._prune(margin=1)
         self._pending = save_checkpoint(self.directory, step, tree,
                                         extra=extra, async_=True)
 

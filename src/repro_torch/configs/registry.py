@@ -11,7 +11,9 @@ hybrid recurrentgemma-9b and the encdec whisper-tiny (driven through
 module (``repro_torch.configs.<id>``, dashes -> underscores) exporting
 ``ARCH``.
 `arch_params` builds any of them, ``smoke_variant`` is the reduced
-same-family config the CPU tests use.
+same-family config the CPU tests use.  ``SHAPES`` is the reference's grid
+of input shapes (the cells of `launch.steps.build_cell`), and
+`ArchConfig.shape_supported` its applicability policy.
 """
 
 from __future__ import annotations
@@ -25,6 +27,22 @@ from repro_torch.models.modules import ModelConfig
 
 
 @dataclasses.dataclass(frozen=True)
+class ShapeSpec:
+    name: str
+    kind: str        # train | prefill | decode
+    seq: int
+    batch: int
+
+
+SHAPES = {
+    "train_4k": ShapeSpec("train_4k", "train", 4_096, 256),
+    "prefill_32k": ShapeSpec("prefill_32k", "prefill", 32_768, 32),
+    "decode_32k": ShapeSpec("decode_32k", "decode", 32_768, 128),
+    "long_500k": ShapeSpec("long_500k", "decode", 524_288, 1),
+}
+
+
+@dataclasses.dataclass(frozen=True)
 class ArchConfig:
     arch_id: str
     family: str                     # dense | moe | vlm | ssm | hybrid | encdec
@@ -33,6 +51,21 @@ class ArchConfig:
     t_enc: int = 0                  # encdec: encoder frames (whisper: 1500)
     dec_len: int = 0                # encdec: decoder length (whisper: 448)
     notes: str = ""
+
+    def shape_supported(self, shape: ShapeSpec) -> tuple[bool, str]:
+        """(supported, note) of the reference's shape policy: whisper has
+        no 500k decode, and decodes at its native 448 where a decode
+        shape asks for more."""
+        if self.family == "encdec":
+            if shape.name == "long_500k":
+                return False, ("whisper decoder max context is 448 by "
+                               "construction; 500k decode is not defined "
+                               "for this family (DESIGN.md)")
+            if shape.kind == "decode":
+                return True, ("substituted: decoder-native decode (cap 448) "
+                              "with a 32k-scale encoder memory is not "
+                              "defined either; we lower native decode")
+        return True, ""
 
 
 def get_arch(arch_id: str, *, smoke: bool = False) -> ArchConfig:

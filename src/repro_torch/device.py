@@ -6,6 +6,8 @@
   products on the card stay full float32, as the JAX reference computes.
 * `cpu_log_ready` works around a first-call inaccuracy of the CPU's
   ``torch.log``.
+* `fma32` is a float32 fused multiply-add, for arithmetic that must round
+  as the reference's fused code does.
 * ``NEG_INF`` is the masking constant of the reference (``finfo(f32).min``,
   not ``-inf``): every masked logit carries it, and the ``where`` guards in
   `core.combine` turn ``exp(NEG_INF - m)`` into exact zeros.
@@ -46,3 +48,20 @@ def cpu_log_ready() -> bool:
     for dt in (torch.float32, torch.float64):
         torch.log(torch.ones(1, dtype=dt))
     return True
+
+
+def fma32(a: torch.Tensor, b, c) -> torch.Tensor:
+    """float32 ``a * b + c`` rounded once, as a fused multiply-add (XLA's
+    CPU code fuses a multiply into the add that consumes it; PyTorch
+    rounds twice).  The product of two float32 is exact in float64, the
+    float64 sum is rounded to odd (its last bit set where the sum was
+    inexact), and round-to-odd at 53 bits followed by rounding to 24 bits
+    is the correctly rounded result."""
+    s = a.double() * torch.as_tensor(b, device=a.device).double()
+    c = torch.as_tensor(c, device=a.device).double().expand_as(s)
+    t = s + c
+    bp = t - s
+    err = (s - (t - bp)) + (c - bp)          # t + err == s + c exactly
+    even = (t.view(torch.int64) & 1) == 0
+    toward = torch.nextafter(t, torch.where(err > 0, torch.inf, -torch.inf))
+    return torch.where((err != 0) & even, toward, t).float()

@@ -20,8 +20,11 @@ The timer is host code and adds no device sync: an engine step already
 ends in one (its tokens come back as numpy), and so does a train step
 that reads its loss.
 
-Elastic retargeting onto another mesh waits for the port's distribution
-(ROADMAP A.14).
+  3. **Elastic re-placement** -- `elastic_retarget` re-places a tree
+     onto another mesh (fewer ranks after a failure, say).  It works
+     because checkpoints hold full arrays and placements are derived from
+     the tree's paths and shapes (`distributed.sharding.param_specs`),
+     not stored with it.
 """
 
 from __future__ import annotations
@@ -30,7 +33,11 @@ import logging
 import time
 from typing import Any, Callable, Optional
 
-from repro_torch.checkpoint.manager import CheckpointManager
+from torch.distributed.tensor import distribute_tensor
+
+from repro_torch.checkpoint.manager import CheckpointManager, full_value
+from repro_torch.distributed.sharding import (axis_sizes, map_with_path,
+                                              placements, spec_for_param)
 
 log = logging.getLogger("repro_torch.ft")
 
@@ -118,4 +125,21 @@ def run_with_restarts(step_fn: Callable[[int, Any], Any],
     return state
 
 
-__all__ = ["StepTimer", "run_with_restarts"]
+def elastic_retarget(tree: Any, new_mesh) -> Any:
+    """Re-place a tree onto ``new_mesh`` by the standard parameter rules:
+    each leaf (a DTensor on any mesh, or a plain tensor holding the whole
+    value) is gathered to its full value and every rank keeps its shard
+    of it as ``param_specs(tree, new_mesh)`` places it.  Values stay
+    bit-equal; nothing is sent but the gathers of DTensor leaves."""
+    msize = axis_sizes(new_mesh).get("model", 1)
+
+    def place(path, x):
+        spec = spec_for_param(path, x.dim(), tuple(x.shape), msize)
+        return distribute_tensor(full_value(x), new_mesh,
+                                 placements(spec, new_mesh),
+                                 src_data_rank=None)
+
+    return map_with_path(place, tree)
+
+
+__all__ = ["StepTimer", "run_with_restarts", "elastic_retarget"]

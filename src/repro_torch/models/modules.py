@@ -118,6 +118,11 @@ def layer_call(cfg: ModelConfig, fn, *args):
 
 
 def _normal(gen: torch.Generator, shape, scale, dtype, device):
+    """``scale`` x standard normal draws from ``gen`` on its own device,
+    moved to ``device``; on the meta device only the shape and dtype (the
+    abstract parameters of `launch.steps.abstract_params`)."""
+    if torch.device(device).type == "meta":
+        return torch.empty(shape, dtype=dtype, device="meta")
     x = torch.randn(shape, generator=gen, dtype=torch.float32,
                     device=gen.device)
     return (x * scale).to(device=device, dtype=dtype)

@@ -11,9 +11,14 @@ reference's [B, N, D] shape at that call (inactive rows and padding
 included).
 
 The reference's ``_ep_constraint`` / ``_group_constraint`` are GSPMD
-sharding hints, identities on one device; they are left out here (ROADMAP
-A.14 maps sharding).  So is its ``moe_groups`` knob, which always resolves
-to 16.
+sharding hints (experts over "model" and capacity slots over the data
+axes inside the layer, identities on one device).  They have no
+counterpart here: the port's sharded train step
+(`launch.steps.sharded_train_step`) keeps the expert leaves sharded over
+"model" in storage only, gathers the full parameters before the forward,
+and runs this layer whole on each rank's data share, so no layout inside
+the layer is distributed (ROADMAP C.16).  The ``moe_groups`` knob is left
+out too: it always resolves to 16.
 """
 
 from __future__ import annotations

@@ -13,6 +13,11 @@ forward convolves in the compute dtype; decode and chunk prefill convolve
 the float32 history in float32, then cast to the compute dtype.  The gates
 and the recurrence are float32.
 
+The reference's batch form (`rg_init_decode_states`, `rg_decode_step`:
+one position for the whole batch, the attention layer's monolithic cache,
+or for the non-MiTA backends a full cache of at most ``local_window``
+rows) is the decode cell of `launch.steps.build_cell`.
+
 Serving entry points (`serve.backends.recurrent`): per-super-block slot
 states (`rg_slot_states`: RG-LRU leaves [NS, S, ...], attention caches in
 slot form [NS, S, 1, ...] with a ``t`` per slot); `rg_slot_decode_step`
@@ -31,6 +36,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core import mita_decode as mdec
 from repro_torch.core import slotted
 from repro_torch.models import modules as nn
 from repro_torch.models import transformer as tfm
@@ -224,6 +230,50 @@ def rg_slot_states(cfg: nn.ModelConfig, n_slots: int, capacity: int,
         attn=tfm.init_slot_attn_state(cfg, n_slots, capacity, device))
     return slotted.tree_map(
         lambda a: a[None].expand((ns,) + a.shape).contiguous(), one)
+
+
+def rg_init_decode_states(cfg: nn.ModelConfig, batch: int, capacity: int,
+                          device="cuda") -> RGSuperState:
+    """Stacked per-super-block batch-form decode states: RG-LRU leaves
+    [NS, B, ...]; the attention layer's monolithic cache (MiTA for
+    ``mita`` / ``mita_ref``, else a full cache of ``min(capacity,
+    local_window)`` rows) with leaves [NS, B, ...] and ``t`` [NS]."""
+    def attn():
+        if tfm.uses_mita_state(cfg):
+            return mdec.init_decode_state(
+                batch, cfg.n_kv, cfg.dh, capacity, tfm._decode_cfg(cfg),
+                dtype=cfg.compute_dtype, device=device)
+        return mdec.init_full_state(
+            batch, cfg.n_kv, cfg.dh, min(capacity, cfg.attn.local_window),
+            dtype=cfg.compute_dtype, device=device)
+
+    rec = [rglru_init_state(batch, cfg.d_model, device)
+           for _ in range(2 * n_super(cfg))]
+    return RGSuperState(rec1=tfm._stack_states(rec[0::2]),
+                        rec2=tfm._stack_states(rec[1::2]),
+                        attn=tfm._stack_states([attn()
+                                                for _ in range(n_super(cfg))]))
+
+
+def rg_decode_step(params: Params, states: RGSuperState, token, pos,
+                   cfg: nn.ModelConfig):
+    """One token for the whole batch at one position.  token: [B]; pos: a
+    scalar.  Returns (logits [B, V], states with the attention ``t`` + 1);
+    every leaf is written in place."""
+    pos = torch.as_tensor(pos, device=token.device)
+    x = nn.embed(params["emb"], token, cfg)
+    for i in range(n_super(cfg)):
+        sp = layer_params(params["supers"], i)
+        st = _super_state(states, i)
+        h, r1 = rglru_block_decode(sp["rec1"], x, st.rec1, cfg)
+        h = _ffn1(sp, h, cfg)
+        h, r2 = rglru_block_decode(sp["rec2"], h, st.rec2, cfg)
+        x, _ = tfm.block_decode(sp["attn_blk"], h, st.attn, cfg, pos)
+        slotted.write_slots(st.rec1, r1)
+        slotted.write_slots(st.rec2, r2)
+    logits = nn.unembed(params["emb"], nn.rms_norm(x, params["ln_f"]), cfg)
+    return logits, states._replace(
+        attn=states.attn._replace(t=states.attn.t + 1))
 
 
 def _super_state(states, i: int):

@@ -9,6 +9,10 @@ embeddings, and RoPE on the patch index inside attention, as in the
 reference.  The landmark extractor is whatever ``cfg.attn.landmark`` names
 (pool1d by default; ``vit_forward`` passes no patch grid, as the
 reference's does not).
+
+`synthetic_vision_batch` is the reference's training data, bit for bit:
+the same threefry draws (`prng.normal`, `randint`, `uniform`) on the
+key's device.
 """
 
 from __future__ import annotations
@@ -17,7 +21,8 @@ from typing import Any
 
 import torch
 
-from repro_torch.core.mita import argmax_first
+from repro_torch import prng
+from repro_torch.core.mita import argmax_first, topk_first
 from repro_torch.models import modules as nn
 from repro_torch.models import transformer as tfm
 
@@ -77,3 +82,30 @@ def vit_accuracy(params: Params, batch: dict, cfg: nn.ModelConfig):
     patches, label = _batch(params, batch)
     pred = argmax_first(vit_forward(params, patches, cfg))
     return (pred == label.long()).float().mean()
+
+
+def synthetic_vision_batch(key: torch.Tensor, b: int, n_patches: int,
+                           patch_dim: int, n_classes: int,
+                           n_signal: int = 6, noise: float = 1.0) -> dict:
+    """Sparse-signal synthetic images from the threefry ``key`` [2] (on
+    the device the batch is made on): ``n_signal`` patches at random
+    positions of each sample carry its class prototype (drawn from
+    ``PRNGKey(17)``) plus noise, the rest is noise.  Returns {"patches":
+    float32 [b, n_patches, patch_dim], "label": int32 [b]}, equal bit for
+    bit to the reference's.  The positions are the ``n_signal`` largest
+    uniform scores of each row, ties to the lower index, as ``lax.top_k``
+    picks them."""
+    dev = key.device
+    kp, kn, kl = prng.split(key, 3)
+    f32 = lambda v: torch.tensor(v, dtype=torch.float32,  # noqa: E731
+                                 device=dev)
+    protos = prng.normal(prng.PRNGKey(17, dev),
+                         (n_classes, patch_dim)) * f32(1.2)
+    labels = prng.randint(kl, (b,), 0, n_classes)
+    x = prng.normal(kn, (b, n_patches, patch_dim)) * f32(noise)
+    scores = prng.uniform(kp, (b, n_patches))
+    _, pos = topk_first(scores, n_signal)                 # [b, n_signal]
+    sig = protos[labels.long()][:, None, :] + f32(0.3) * prng.normal(
+        prng.fold_in(kn, 1), (b, n_signal, patch_dim))
+    x.scatter_(1, pos[..., None].expand(-1, -1, patch_dim), sig)
+    return {"patches": x, "label": labels}

@@ -15,6 +15,9 @@ Pools outside the scratch row are exact, and so are the finalize's expert
 rows and validity in both dtypes.  Training (no kernel on its path): one
 float32 train step card vs CPU (loss 1e-5, every gradient leaf 1e-4 of
 its max), and three deterministic steps twice on the card, bit for bit.
+Distribution: a 1 x 1 mesh over a one-rank ``nccl`` group, its sharded
+train step against `train_step` on the card, and ``compressed_grad_mean``
+over ``nccl``, both bit for bit.
 """
 
 import numpy as np
@@ -1332,3 +1335,60 @@ def test_train_steps_are_deterministic_on_card(cuda_device):
             runs.append([x.cpu() for t in (p, st.mu, st.nu)
                          for x in tree_leaves(t)])
     assert all(torch.equal(a, b) for a, b in zip(*runs))
+
+
+@pytest.mark.gpu
+def test_one_rank_nccl_mesh_on_card(cuda_device):
+    """The training CLI's mesh path on one card: a 1 x 1 mesh over a
+    one-rank ``nccl`` group.  Two sharded train steps (parameters and
+    moments as DTensors) equal `train_step` on plain tensors bit for bit;
+    ``compressed_grad_mean`` over ``nccl`` returns, on one rank, the
+    gradient quantized once, ``dequantize(quantize(g))``, and the residual
+    ``g - q s`` rounded once (the reference's fused form), bit for bit."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import distribute_tensor
+    from repro_torch.configs.registry import ShapeSpec, get_arch
+    from repro_torch.distributed.sharding import map_with_path
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.steps import build_cell, train_step
+    from repro_torch.launch.train import deterministic
+    from repro_torch.optim import adamw_init
+    from repro_torch.optim.adamw import AdamWState, tree_leaves, tree_map
+    from repro_torch.optim.compression import (compressed_grad_mean,
+                                               dequantize_int8, quantize_int8)
+    params, batches, loss_fn, opt = _train_setup("qwen3-0.6b")
+    assert not dist.is_initialized()
+    mesh = make_host_mesh(1, 1)
+    try:
+        assert dist.get_backend() == "nccl"
+        cell = build_cell(get_arch("qwen3-0.6b", smoke=True),
+                          ShapeSpec("t", "train", 64, 4), mesh, opt_cfg=opt)
+        psh, osh, _ = cell.in_shardings
+
+        def place(t, pl):
+            return distribute_tensor(t, mesh, pl, src_data_rank=None)
+
+        with deterministic(cuda_device):
+            p = tree_map(lambda t: t.to(cuda_device), params)
+            st = adamw_init(p)
+            dp = tree_map(place, p, psh)
+            dst = AdamWState(mu=tree_map(place, st.mu, osh.mu),
+                             nu=tree_map(place, st.nu, osh.nu),
+                             step=place(st.step, osh.step))
+            for b in batches[:2]:
+                p, st, m = train_step(p, st, b, loss_fn, opt)
+                dp, dst, dm = cell.fn(dp, dst, b)
+                assert torch.equal(m["loss"], dm["loss"])
+        for a, b in zip(tree_leaves(p), tree_leaves(dp)):
+            assert torch.equal(a, b.full_tensor())
+
+        g = {}
+        map_with_path(lambda path, x: g.setdefault(path, x), st.mu)
+        red, err = compressed_grad_mean(g)
+        for k, x in g.items():
+            q, s = quantize_int8(x)
+            assert torch.equal(red[k], dequantize_int8(q, s))
+            assert torch.equal(err[k], (x.double() - q.double() * s.double())
+                               .float())
+    finally:
+        dist.destroy_process_group()

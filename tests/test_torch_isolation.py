@@ -86,3 +86,31 @@ def test_recurrent_entry_points_default_to_cuda():
         for arch in ("mamba2-370m", "recurrentgemma-9b"):
             with pytest.raises(RuntimeError, match="cuda"):
                 serve.main(["--arch", arch, "--smoke"])
+
+
+def test_distribution_entry_points_default_to_cuda():
+    """The meshes and the training CLI's mesh path run on the card over
+    ``nccl`` unless asked for the CPU (``gloo``); a mesh whose size is not
+    the world's raises before any group starts; importing the modules
+    starts none."""
+    import torch.distributed as dist
+    from repro_torch.launch import mesh, train
+    from repro_torch.models import rglru
+    assert mesh.BACKEND == {"cuda": "nccl", "cpu": "gloo"}
+    for fn in (mesh.make_host_mesh, mesh.make_production_mesh,
+               mesh.init_process_group):
+        assert inspect.signature(fn).parameters["device_type"].default \
+            is None                   # None: device.DEFAULT_DEVICE, cuda
+    assert inspect.signature(rglru.rg_init_decode_states).parameters[
+        "device"].default == "cuda"
+    assert not dist.is_initialized()
+    with pytest.raises(ValueError, match="mesh 2x1 needs 2 devices, have 1"):
+        mesh.make_host_mesh(2, 1, device_type="cpu")
+    assert not dist.is_initialized()
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="cuda"):
+            mesh.make_host_mesh()
+        with pytest.raises(RuntimeError, match="cuda"):
+            train.main(["--smoke", "--data-parallel", "1",
+                        "--model-parallel", "1"])
+        assert not dist.is_initialized()

@@ -13,11 +13,13 @@ Exact where the text says bit for bit; AdamW against its numpy formula
 
 import dataclasses
 import inspect
+import json
 import os
 
 import numpy as np
 import pytest
 import torch
+import torch.distributed as dist
 from _hypothesis_compat import given, settings, st
 
 from repro_torch.checkpoint import (CheckpointManager, restore_checkpoint,
@@ -374,6 +376,24 @@ def test_train_resume_after_failure(tmp_path):
                 a[k].tobytes() == b[k].tobytes(), k
 
 
+def test_train_cli_alone_runs_a_one_rank_mesh(capsys):
+    """With no mesh flags and no ``torchrun`` environment the CLI runs its
+    one path, the reference's 1 x 1 mesh, over a one-rank ``gloo`` group
+    of its own, and takes the group down whether it returns or raises."""
+    args = ["--arch", "qwen3-0.6b", "--smoke", "--device", "cpu",
+            "--steps", "2", "--batch", "2", "--seq", "32"]
+    assert "WORLD_SIZE" not in os.environ and not dist.is_initialized()
+    assert tr.main(args) == 0
+    summ = [x for x in capsys.readouterr().out.splitlines()
+            if x.startswith("summary ")]
+    assert json.loads(summ[0][len("summary "):])["mesh"] == {"data": 1,
+                                                           "model": 1}
+    assert not dist.is_initialized()
+    with pytest.raises(RuntimeError, match="simulated node failure"):
+        tr.main(args + ["--simulate-failure", "1"])
+    assert not dist.is_initialized()
+
+
 @pytest.mark.parametrize("arch_id", ["deepseek-moe-16b", "internvl2-76b",
                                      "mamba2-370m", "recurrentgemma-9b",
                                      "whisper-tiny"])
@@ -415,10 +435,10 @@ def test_train_entry_point_defaults_to_cuda():
 
 
 def test_family_fns_serving_entries():
-    """``family_fns`` gives the reference's serving entries where the port
-    has them in batch form: a dense prefill then decode steps, a mamba2
-    decode from empty states; none for the hybrid's batch form (A.14) or
-    whisper's states (they need the encoder's output)."""
+    """``family_fns`` gives the reference's serving entries in batch form:
+    a dense prefill then decode steps, mamba2 and hybrid decodes from
+    empty states; no prefill for the two recurrent families (a forward)
+    and no states for whisper (they need the encoder's output)."""
     arch, fns, params, dcfg = _smoke("qwen3-0.6b")
     toks = torch.as_tensor(synthetic_batch(dcfg, 0)["tokens"][:2, :32])
     with torch.no_grad():
@@ -428,14 +448,15 @@ def test_family_fns_serving_entries():
                                            logits.argmax(-1), pos)
     assert logits.shape == (2, arch.model.vocab)
     assert torch.isfinite(logits).all()
-    arch, fns, params, dcfg = _smoke("mamba2-370m")
-    with torch.no_grad():
-        logits, _ = fns["decode"](params, fns["init_states"](2, 0, "cpu"),
-                                  torch.zeros(2, dtype=torch.long), 0)
-    assert logits.shape == (2, arch.model.vocab)
-    assert torch.isfinite(logits).all()
-    for arch_id, none in (("recurrentgemma-9b", ("prefill", "decode",
-                                                 "init_states")),
+    for arch_id in ("mamba2-370m", "recurrentgemma-9b"):
+        arch, fns, params, dcfg = _smoke(arch_id)
+        with torch.no_grad():
+            logits, _ = fns["decode"](params,
+                                      fns["init_states"](2, 32, "cpu"),
+                                      torch.zeros(2, dtype=torch.long), 0)
+        assert logits.shape == (2, arch.model.vocab)
+        assert torch.isfinite(logits).all()
+    for arch_id, none in (("recurrentgemma-9b", ("prefill",)),
                           ("whisper-tiny", ("prefill", "init_states"))):
         fns = family_fns(get_arch(arch_id, smoke=True))
         assert all(fns[k] is None for k in none)
