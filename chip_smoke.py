@@ -181,6 +181,15 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      under ``torch.distributed.run`` against its lone start, and
      ``compressed_grad_mean`` over ``nccl`` on a full-size qwen3-0.6b
      gradient tree (bit for bit one quantization and its residual);
+  then the dry run (``phase_dryrun``, no port kernel on its path): the
+     fake process group imports; the dry-run CLI in three subprocesses at
+     once (qwen3-0.6b ``train_4k`` on 16 x 16 and 2 x 16 x 16 fake ranks,
+     deepseek-moe-16b ``decode_32k`` on 16 x 16; traced on fake ``cuda``
+     tensors; each record ``ok``); and a 1 x 1 calibration on the card:
+     the dry run of qwen3-0.6b at B 4 x 4096 against ``FlopCounterMode``
+     over one real ``train_step`` (FLOPs equal) and the training phase's
+     peak memory (within 10%) and step ms (MFU printed beside the card's
+     name and power limit);
   5. summary: one JSON line of per-kernel results (launches from each
      kernel's main path: the spec_k = 3 serve for the serving kernels,
      with the plain chunked serve's beside them, the bf16 full-sequence
@@ -4795,6 +4804,183 @@ def phase_distributed(card: str, training: dict) -> dict:
     return res
 
 
+# ------------------------------------------------------------- dry run --
+
+DRYRUN_CELLS = (("qwen3-0.6b", "train_4k", False),
+                ("qwen3-0.6b", "train_4k", True),
+                ("deepseek-moe-16b", "decode_32k", False))
+DRYRUN_OUT = HERE / "build" / "chip_smoke_dryrun"
+DRYRUN_PEAK_TOL = 0.10     # predicted peak vs max_memory_allocated
+
+
+def dryrun_clis() -> list:
+    """The dry-run CLI on each of ``DRYRUN_CELLS``, one subprocess a cell,
+    all started together; returns the Popen handles and record paths."""
+    import os
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(HERE / "src")] + [x for x in (env.get("PYTHONPATH"),) if x])
+    DRYRUN_OUT.mkdir(parents=True, exist_ok=True)
+    runs = []
+    for arch_id, shape, multi_pod in DRYRUN_CELLS:
+        name = f"{arch_id}_{shape}_{'2x16x16' if multi_pod else '16x16'}"
+        args = [sys.executable, "-m", "repro_torch.launch.dryrun",
+                "--arch", arch_id, "--shape", shape, "--force",
+                "--out", str(DRYRUN_OUT)] + (["--multi-pod"] if multi_pod
+                                              else [])
+        with open(DRYRUN_OUT / f"{name}.log", "w") as log:
+            proc = subprocess.Popen(args, cwd=HERE, env=env, stdout=log,
+                                    stderr=subprocess.STDOUT)
+        runs.append((proc, DRYRUN_OUT / f"{name}.json"))
+    return runs
+
+
+def phase_dryrun(card: str, training: dict) -> dict:
+    """The dry run (`launch.dryrun`, no port kernel on its path).
+    a. The fake process group that it traces on must import.
+    b. Its CLI in three subprocesses at once: qwen3-0.6b ``train_4k`` on
+       16 x 16 and 2 x 16 x 16 fake ranks and deepseek-moe-16b
+       ``decode_32k`` on 16 x 16, traced on fake ``cuda`` tensors: each
+       record ``ok`` (status, bottleneck, the three time terms, peak per
+       rank, useful FLOP fraction, trace seconds printed).
+    c. A 1 x 1 calibration on the card: the dry run of qwen3-0.6b at
+       `phase_training`'s shape (B 4 x 4096, production dtypes, remat)
+       against ``FlopCounterMode`` over one real `train_step` here (FLOPs
+       equal), against the training CLI's ``max_memory_allocated`` (peak
+       within ``DRYRUN_PEAK_TOL``; this process's step's peak beside it)
+       and its steady step ms (MFU = ``model_flops_for`` / 989.4e12 /
+       step seconds).  The five kernels' launch counters read 0."""
+    import shutil
+    import torch.distributed as dist
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch.analysis import roofline as rl
+    from repro_torch.configs.registry import ShapeSpec, get_arch
+    from repro_torch.data import DataConfig
+    from repro_torch.kernels import ops
+    from repro_torch.launch import dryrun as dr
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.steps import family_fns, train_step
+    from repro_torch.launch.train import train_batch
+    from repro_torch.optim import OptConfig, adamw_init
+    try:
+        from torch.testing._internal.distributed.fake_pg import FakeStore
+    except ImportError as e:
+        fail(f"dry run: the fake process group does not import: {e}")
+    del FakeStore
+    ops.reset_launch_counts()
+    shutil.rmtree(DRYRUN_OUT, ignore_errors=True)
+    res = {"cells": {}}
+    runs = dryrun_clis()
+    try:
+        arch = get_arch(TRAIN_ARCH)
+        shape = ShapeSpec("train_b4", "train", 4096, 4)
+        t0 = time.perf_counter()
+        dr.join_fake_group(1)
+        try:
+            mesh = make_host_mesh(1, 1)
+            if mesh.device_type != "cuda":
+                fail(f"dry run: traced on {mesh.device_type}, not cuda")
+            counts = dr._measure(arch, shape, mesh)
+        finally:
+            dist.destroy_process_group()
+        trace_s = time.perf_counter() - t0
+        model_flops = rl.model_flops_for(arch, shape)
+        roof = rl.from_counts(f"{TRAIN_ARCH}:train_b4", "1x1", 1, counts,
+                              model_flops=model_flops)
+
+        fns = family_fns(arch)
+        params = fns["init"](torch.Generator(device="cuda").manual_seed(0),
+                             "cuda")
+        batch = train_batch(arch, DataConfig(vocab=arch.model.vocab,
+                                             seq_len=4096, global_batch=4),
+                            0)
+        opt = adamw_init(params)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        with FlopCounterMode(display=False) as fc:
+            out = train_step(params, opt, batch, fns["loss"], OptConfig())
+        torch.cuda.synchronize()
+        here_peak = torch.cuda.max_memory_allocated()
+        del out, params, opt
+        torch.cuda.empty_cache()
+    finally:
+        for proc, _ in runs:
+            try:
+                proc.wait(timeout=300)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait()
+    for (proc, path), (arch_id, shape_name, mp) in zip(runs, DRYRUN_CELLS):
+        key = f"{arch_id}:{shape_name}:{'2x16x16' if mp else '16x16'}"
+        if proc.returncode != 0 or not path.exists():
+            log = path.with_suffix(".log").read_text()
+            fail(f"dry run {key}: rc {proc.returncode} {log[-2000:]}")
+        rec = json.loads(path.read_text())
+        if rec.get("status") != "ok":
+            fail(f"dry run {key}: {rec.get('status')} "
+                 f"{rec.get('error', '')[:500]}")
+        r = rec["roofline"]
+        res["cells"][key] = dict(
+            status=rec["status"], bottleneck=r["bottleneck"],
+            t_compute=r["t_compute"], t_memory=r["t_memory"],
+            t_collective=r["t_collective"],
+            flops_per_rank=r["flops_per_chip"],
+            bytes_per_rank=r["bytes_per_chip"],
+            coll_bytes_per_rank=r["coll_bytes_per_chip"],
+            peak_gib_per_rank=rec["memory"]["peak_per_device"] / 2**30,
+            useful_flops_fraction=r["useful_flops_fraction"],
+            trace_s=rec["trace_s"])
+    shutil.rmtree(DRYRUN_OUT, ignore_errors=True)
+
+    measured = fc.get_total_flops()
+    full = training["full"]
+    card_peak = full["peak_memory_gib"] * 2**30
+    step_s = full["step_ms_steady"] / 1e3
+    peak_err = abs(counts.peak_bytes - card_peak) / card_peak
+    res["calibration"] = dict(
+        shape="B 4 x 4096", predicted_flops=counts.flops,
+        measured_flops=measured, predicted_peak_gib=counts.peak_bytes / 2**30,
+        card_peak_gib=full["peak_memory_gib"],
+        this_step_peak_gib=here_peak / 2**30, peak_rel_err=peak_err,
+        bytes=counts.bytes, t_compute=roof.t_compute,
+        t_memory=roof.t_memory, t_bound=roof.t_bound,
+        bottleneck=roof.bottleneck, model_flops=model_flops,
+        step_ms=full["step_ms_steady"],
+        mfu=model_flops / rl.PEAK_FLOPS / step_s,
+        hfu=counts.flops / rl.PEAK_FLOPS / step_s,
+        trace_s=trace_s, card=card)
+    launches = ops.launch_counts()
+    res["launches"] = launches
+    if sum(launches.values()):
+        fail(f"the dry run launched a port kernel: {launches}")
+    if counts.flops != measured:
+        fail(f"dry run 1 x 1: {counts.flops:.6e} FLOPs predicted, "
+             f"{measured:.6e} counted over a card step")
+    if peak_err > DRYRUN_PEAK_TOL:
+        fail(f"dry run 1 x 1: peak {counts.peak_bytes / 2**30:.2f} GiB "
+             f"predicted, {full['peak_memory_gib']:.2f} GiB on the card")
+    for key, c in res["cells"].items():
+        print(f"  [dryrun] {key}: {c['status']} bottleneck {c['bottleneck']}"
+              f", t_compute {c['t_compute']:.4e} s, t_memory "
+              f"{c['t_memory']:.4e} s, t_collective {c['t_collective']:.4e}"
+              f" s, peak {c['peak_gib_per_rank']:.2f} GiB a rank, useful "
+              f"FLOP fraction {c['useful_flops_fraction']:.4f}, trace "
+              f"{c['trace_s']} s")
+    c = res["calibration"]
+    print(f"dry run ({card}): 1 x 1 {TRAIN_ARCH} B 4 x 4096: FLOPs "
+          f"predicted {c['predicted_flops']:.6e} / measured "
+          f"{c['measured_flops']:.6e}; peak predicted "
+          f"{c['predicted_peak_gib']:.2f} GiB / card "
+          f"{c['card_peak_gib']:.2f} GiB ({100 * peak_err:.2f}%; this "
+          f"process's step {c['this_step_peak_gib']:.2f} GiB); t_compute "
+          f"{c['t_compute']:.4f} s, t_memory {c['t_memory']:.4f} s, t_bound "
+          f"{c['t_bound']:.4f} s ({c['bottleneck']}); step "
+          f"{c['step_ms']:.1f} ms, MFU {100 * c['mfu']:.2f}% (counted "
+          f"FLOPs {100 * c['hfu']:.2f}%); trace "
+          f"{trace_s:.1f} s; launches {launches}")
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda is not available; nothing to check",
@@ -4859,6 +5045,7 @@ def main() -> int:
     training = timed("training", phase_training, card)
     vision_training = timed("vision_training", phase_vision_training, card)
     distributed = timed("distributed", phase_distributed, card, training)
+    dryrun = timed("dryrun", phase_dryrun, card, training)
     launches = dict(launches)
     launches["mita_expert_attention"] = fs_launches["mita_expert_attention"]
     launches["flash_attention"] = fs_launches["flash_attention"]
@@ -5009,7 +5196,8 @@ def main() -> int:
         "moe_parity": moe_parity, "moe_serve": moe_serve,
         "vit_parity": vit_parity, "whisper_parity": whisper_parity,
         "vision_serve": vision, "training": training,
-        "vision_training": vision_training, "distributed": distributed}))
+        "vision_training": vision_training, "distributed": distributed,
+        "dryrun": dryrun}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

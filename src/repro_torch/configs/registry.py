@@ -10,6 +10,8 @@ hybrid recurrentgemma-9b and the encdec whisper-tiny (driven through
 `models.whisper`; it has no serving backend).  Each lives in its own
 module (``repro_torch.configs.<id>``, dashes -> underscores) exporting
 ``ARCH``.
+``ARCHS`` lists the ten in the reference's order, `get_arch` loads one
+(``backend=`` overrides its attention backend, as the reference's does),
 `arch_params` builds any of them, ``smoke_variant`` is the reduced
 same-family config the CPU tests use.  ``SHAPES`` is the reference's grid
 of input shapes (the cells of `launch.steps.build_cell`), and
@@ -24,6 +26,12 @@ import importlib
 import torch
 
 from repro_torch.models.modules import ModelConfig
+
+ARCHS = [
+    "internvl2-76b", "deepseek-moe-16b", "dbrx-132b", "tinyllama-1.1b",
+    "qwen3-0.6b", "qwen3-32b", "stablelm-1.6b", "recurrentgemma-9b",
+    "mamba2-370m", "whisper-tiny",
+]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -68,7 +76,8 @@ class ArchConfig:
         return True, ""
 
 
-def get_arch(arch_id: str, *, smoke: bool = False) -> ArchConfig:
+def get_arch(arch_id: str, *, smoke: bool = False,
+             backend: str | None = None) -> ArchConfig:
     try:
         mod = importlib.import_module(
             "repro_torch.configs."
@@ -76,7 +85,14 @@ def get_arch(arch_id: str, *, smoke: bool = False) -> ArchConfig:
     except ModuleNotFoundError as e:
         raise ValueError(f"architecture {arch_id!r} is not ported") from e
     arch: ArchConfig = mod.ARCH
-    return smoke_variant(arch) if smoke else arch
+    if smoke:
+        arch = smoke_variant(arch)
+    if backend is not None:
+        arch = dataclasses.replace(
+            arch, model=dataclasses.replace(
+                arch.model,
+                attn=dataclasses.replace(arch.model.attn, backend=backend)))
+    return arch
 
 
 def arch_params(arch: ArchConfig, gen: torch.Generator, device="cuda"):

@@ -8,7 +8,8 @@ kernel, which no model path calls.  The tensors decide where it runs:
 
 * all on the CPU  -> the plain PyTorch version beside the kernel;
 * all on CUDA     -> the hand-written CUDA kernel, or an error is raised;
-* mixed devices   -> an error.
+* mixed devices   -> an error;
+* fake tensors (a dry run's trace) -> an error.
 
 Nothing on a CUDA tensor ever falls back to the plain version, so there
 is no fallback counter to keep: the backend's ``*_kernel_fallbacks`` stats
@@ -25,6 +26,7 @@ from __future__ import annotations
 import os
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensor
 
 DEFAULT_BLOCK_Q = 128
 DEFAULT_BLOCK_K = 128
@@ -70,6 +72,12 @@ def scatter_pool_rows(pool: torch.Tensor, rows: torch.Tensor,
 
 
 def _device_of(*tensors: torch.Tensor) -> str:
+    if any(isinstance(x, FakeTensor) for x in tensors):
+        # a dry run's trace (`launch.dryrun`): the kernels have no fake
+        # implementation, and a trace does not take the plain version
+        raise NotImplementedError(
+            "a port kernel reached on fake tensors: kernels have no fake "
+            "implementation")
     kinds = {x.device.type for x in tensors}
     if len(kinds) != 1:
         raise ValueError(f"tensors on mixed devices: {sorted(kinds)}")

@@ -6,7 +6,8 @@ device and no process group.  Both return a
 or ("pod", "data", "model") for two pods, over the ranks of the default
 process group.  The device is ``cuda`` (backend ``nccl``) unless the
 caller asks for ``cpu`` (``gloo``); nothing falls back from one to the
-other.
+other.  Over a dry run's ``fake`` group the mesh is only described: it
+needs no device.
 """
 
 from __future__ import annotations
@@ -18,7 +19,7 @@ import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import init_device_mesh
 
-from repro_torch.device import resolve_device
+from repro_torch.device import DEFAULT_DEVICE, resolve_device
 
 BACKEND = {"cuda": "nccl", "cpu": "gloo"}
 
@@ -51,12 +52,17 @@ def init_process_group(device_type: str | None = None) -> int:
 
 
 def _mesh(shape: tuple, names: tuple, device_type: str | None):
-    dev = resolve_device(device_type)
     n = world_size()
     if math.prod(shape) != n:
         raise ValueError(f"mesh {'x'.join(map(str, shape))} needs "
                          f"{math.prod(shape)} devices, have {n}")
-    init_process_group(dev.type)
+    if dist.is_initialized() and dist.get_backend() == "fake":
+        # a dry run's group of fake ranks (`launch.dryrun`): its tensors
+        # are fake, so no device is touched and none need be present
+        dev = torch.device(device_type or DEFAULT_DEVICE)
+    else:
+        dev = resolve_device(device_type)
+        init_process_group(dev.type)
     return init_device_mesh(dev.type, shape, mesh_dim_names=names)
 
 

@@ -11,12 +11,15 @@ AdamW update.
 `build_cell(arch, shape, mesh)` returns what a trainer, server or dry run
 needs: the step function, its arguments as meta tensors (shapes and
 dtypes, no memory) and the DTensor placements of its inputs and outputs
-(`distributed.sharding`).  A train cell's function is
-`sharded_train_step`: parameters and AdamW moments are DTensors sharded
-as ``param_specs`` says; each rank gathers the full parameters once a
-step, computes the gradients of its "data" share of the batch with the
-model code as it is, and reduces them into the parameters' placement.
-The "model" axis therefore partitions memory, not compute (ROADMAP C.16).
+(`distributed.sharding`).  Every cell computes the same way (ROADMAP
+C.16): each rank gathers the full parameters once a call, takes its
+"data" share of the batch (and of the decode states, gathered over the
+other axes), runs the model code as it is, and places what it returns.
+A train cell's function is `sharded_train_step`, which reduces the
+gradients into the parameters' placement; a prefill or decode cell's
+outputs are local slices of what the rank computed.  The "model" axis
+therefore partitions memory, not compute.  Given plain tensors instead
+of DTensors, a prefill or decode cell is the plain function.
 """
 
 from __future__ import annotations
@@ -25,7 +28,7 @@ import dataclasses
 from typing import Any, Callable, Optional
 
 import torch
-from torch.distributed.tensor import DTensor, Partial, Replicate
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from repro_torch.configs.registry import ArchConfig, ShapeSpec
 from repro_torch.distributed import sharding as shd
@@ -34,7 +37,7 @@ from repro_torch.models import rglru as rg
 from repro_torch.models import transformer as tfm
 from repro_torch.models import whisper as wh
 from repro_torch.optim.adamw import (AdamWState, OptConfig, adamw_init,
-                                     adamw_update, tree_map)
+                                     adamw_update, tree_leaves, tree_map)
 from repro_torch.optim.grads import accumulate_grads, batch_share
 
 
@@ -116,8 +119,86 @@ def data_index(mesh) -> int:
 
 def data_rows(batch: dict, mesh) -> dict:
     """This rank's share of the global batch, as ``batch_spec`` shards a
-    batch whose size the data axes divide."""
-    return batch_share(batch, shd.data_size(mesh), data_index(mesh))
+    batch whose size the data axes divide: a slice of a plain entry (the
+    same on every rank), the local rows of a DTensor one."""
+    out = batch_share({k: v for k, v in batch.items()
+                       if not isinstance(v, DTensor)},
+                      shd.data_size(mesh), data_index(mesh))
+    for k, v in batch.items():
+        if isinstance(v, DTensor):
+            if v.shape[0] % shd.data_size(mesh):
+                raise ValueError(f"batch {k!r} of {v.shape[0]} rows does "
+                                 f"not split into {shd.data_size(mesh)} "
+                                 "shares")
+            out[k] = rank_rows(v, mesh, 0, True)
+    return {k: out[k] for k in batch}
+
+
+def rank_rows(x, mesh, dim: int, by_rows: bool) -> torch.Tensor:
+    """A DTensor as this rank's plain tensor: gathered over every mesh
+    axis but, with ``by_rows``, the batch axes, whose shards of dimension
+    ``dim`` (the rows) it keeps.  A plain tensor comes back as it is."""
+    if not isinstance(x, DTensor):
+        return x
+    return x.redistribute(mesh, rows_placements(mesh, dim, by_rows)) \
+        .to_local()
+
+
+def place_rows(x: torch.Tensor, mesh, placements, dim: int, by_rows: bool,
+               shape) -> DTensor:
+    """The inverse of `rank_rows`: ``x`` is this rank's part of a tensor
+    of global ``shape``, its data rows of dimension ``dim`` (``by_rows``)
+    or all of it, every other dimension whole.  Returns the DTensor of
+    ``placements``; every shard is a local slice (no collective)."""
+    coord = mesh.get_coordinate()
+    for i, (n, pl) in enumerate(zip(mesh.mesh_dim_names, placements)):
+        if not isinstance(pl, Shard):
+            continue
+        if by_rows and n in shd.batch_axes(mesh) and pl.dim == dim:
+            continue                      # x holds only this rank's rows
+        x = x.chunk(mesh.size(i), dim=pl.dim)[coord[i]]
+    stride = torch.empty(shape, device="meta").stride()
+    return DTensor.from_local(x.contiguous(), mesh, placements,
+                              run_check=False, shape=torch.Size(shape),
+                              stride=stride)
+
+
+def rows_placements(mesh, dim: int, by_rows: bool) -> list:
+    """Placements of a tensor whose dimension ``dim`` is the batch: split
+    over the batch axes (``by_rows``), replicated elsewhere."""
+    return [Shard(dim) if by_rows and n in shd.batch_axes(mesh)
+            else Replicate() for n in mesh.mesh_dim_names]
+
+
+def zip_map(fn: Callable, tree: Any, *rest: Any) -> Any:
+    """``fn`` leaf by leaf over trees of ``tree``'s structure (dicts,
+    NamedTuples, lists and tuples: decode states; a placement list of a
+    `distributed.sharding.tree_shardings` tree is one leaf)."""
+    if isinstance(tree, dict):
+        return {k: zip_map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(zip_map(fn, getattr(tree, f),
+                                    *(getattr(r, f) for r in rest))
+                            for f in tree._fields))
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(zip_map(fn, x, *(r[i] for r in rest))
+                          for i, x in enumerate(tree))
+    return fn(tree, *rest)
+
+
+def _is_sharded(params) -> bool:
+    return any(isinstance(x, DTensor) for x in tree_leaves(params))
+
+
+def _full(params):
+    return tree_map(lambda t: t.full_tensor(), params)
+
+
+def _state_rows(x) -> bool:
+    """Whether a decode-state leaf has the batch at dimension 1 (every
+    leaf of rank 3 or more; ``state_specs`` replicates the rest)."""
+    return x.dim() >= 3
 
 
 def _per_data_rank(x: torch.Tensor, mesh) -> DTensor:
@@ -147,7 +228,7 @@ def sharded_train_step(params, opt_state: AdamWState, batch: dict,
     counted labels, so that the result is the whole batch's masked mean
     (a whole batch with none counts one, as `cross_entropy` does: loss
     and gradients 0, as in `train_step`).  AdamW then runs on the DTensors (its global norm sums over shards)."""
-    full = tree_map(lambda t: t.full_tensor(), params)
+    full = _full(params)
     local = data_rows(batch, mesh)
     loss, grads = accumulate_grads(full, local, loss_fn, microbatch)
     del full
@@ -221,7 +302,10 @@ def build_cell(arch: ArchConfig, shape: ShapeSpec, mesh,
     batch) -> (last logits, decode states), for the ssm and hybrid
     families the last position's logits of a forward, for the encdec
     family the encoder's output; decode (params, states, token [B], pos)
-    -> (logits, states), whisper at its native decoder length."""
+    -> (logits, states), whisper at its native decoder length.  A prefill
+    or decode cell's outputs split the batch over the data axes where it
+    divides (its logits' and encoder output's rows; decode states as
+    ``state_specs`` places them)."""
     fns = family_fns(arch)
     cfg = arch.model
     params = abstract_params(arch)
@@ -246,40 +330,73 @@ def build_cell(arch: ArchConfig, shape: ShapeSpec, mesh,
                     out_shardings=(psh, opt_sh, None),
                     donate_argnums=(0, 1))
 
+    b = shape.batch
+    by_rows = b % shd.data_size(mesh) == 0     # the batch splits over data
+    rows_sh = rows_placements(mesh, 0, by_rows)
+
+    def rows(x):
+        return rank_rows(x, mesh, 0, by_rows)
+
+    def placed(x, shape_):
+        return place_rows(x, mesh, rows_sh, 0, by_rows, shape_)
+
+    def placed_states(new, pls, like):
+        """``new`` (this rank's rows of decode states shaped as ``like``,
+        global meta or DTensor leaves) placed as ``pls``."""
+        return zip_map(lambda x, pl, g: place_rows(
+            x, mesh, pl, 1, by_rows and _state_rows(x), g.shape),
+            new, pls, like)
+
     if shape.kind == "prefill":
         if arch.family == "encdec":
             # encoder prefill over the (stub) audio memory
-            audio = _meta((shape.batch, arch.t_enc, cfg.d_model),
-                          cfg.compute_dtype)
-            ash = shd.placements(shd.batch_spec(mesh, shape.batch, 3), mesh)
-            return Cell(name=name,
-                        fn=lambda p, a: wh.whisper_encode(p, a, cfg),
-                        args=(params, audio), in_shardings=(psh, ash),
-                        out_shardings=None)
+            audio = _meta((b, arch.t_enc, cfg.d_model), cfg.compute_dtype)
+            ash = shd.placements(shd.batch_spec(mesh, b, 3), mesh)
+
+            def encode(p, a):
+                if not _is_sharded(p):
+                    return wh.whisper_encode(p, a, cfg)
+                return placed(wh.whisper_encode(_full(p), rows(a), cfg),
+                              audio.shape)
+
+            return Cell(name=name, fn=encode, args=(params, audio),
+                        in_shardings=(psh, ash), out_shardings=rows_sh)
         if fns["prefill"] is None:
             # ssm / hybrid prefill == a forward pass at that length
-            batch = {"tokens": _meta((shape.batch, shape.seq), torch.int32)}
+            batch = {"tokens": _meta((b, shape.seq), torch.int32)}
             forward = (mb.mamba_forward if arch.family == "ssm"
                        else rg.rg_forward)
-            return Cell(name=name,
-                        fn=lambda p, b: forward(p, b["tokens"], cfg)[0][:, -1],
-                        args=(params, batch),
-                        in_shardings=(psh, _batch_shardings(batch, mesh,
-                                                            shape.batch)),
-                        out_shardings=None)
+
+            def last_logits(p, bt):
+                if not _is_sharded(p):
+                    return forward(p, bt["tokens"], cfg)[0][:, -1]
+                out = forward(_full(p), rows(bt["tokens"]), cfg)[0][:, -1]
+                return placed(out, (b, cfg.vocab))
+
+            return Cell(name=name, fn=last_logits, args=(params, batch),
+                        in_shardings=(psh, _batch_shardings(batch, mesh, b)),
+                        out_shardings=rows_sh)
         batch = _train_batch_shapes(arch, dataclasses.replace(shape,
                                                               kind="train"))
         batch.pop("labels")
         prefill = fns["prefill"]
-        return Cell(name=name,
-                    fn=lambda p, b: prefill(p, b, shape.seq),
-                    args=(params, batch),
-                    in_shardings=(psh, _batch_shardings(batch, mesh,
-                                                        shape.batch)),
-                    out_shardings=None)
+        states = fns["init_states"](b, shape.seq, "meta")
+        st_sh = shd.tree_shardings(
+            shd.state_specs(states, mesh, b, policy=state_policy), mesh)
+
+        def prefill_fn(p, bt):
+            if not _is_sharded(p):
+                return prefill(p, bt, shape.seq)
+            logits, st = prefill(_full(p), {k: rows(v) for k, v in
+                                            bt.items()}, shape.seq)
+            return (placed(logits, (b, cfg.vocab)),
+                    placed_states(st, st_sh, states))
+
+        return Cell(name=name, fn=prefill_fn, args=(params, batch),
+                    in_shardings=(psh, _batch_shardings(batch, mesh, b)),
+                    out_shardings=(rows_sh, st_sh))
 
     # ---- decode ----
-    b = shape.batch
     cap = shape.seq
     if arch.family == "encdec":
         cap = arch.dec_len     # the native decoder capacity
@@ -292,8 +409,20 @@ def build_cell(arch: ArchConfig, shape: ShapeSpec, mesh,
         shd.state_specs(states, mesh, b, policy=state_policy), mesh)
     tok_sh = shd.placements(shd.batch_spec(mesh, b, rank=1,
                                            shard_seq_if_small=False), mesh)
-    return Cell(name=name, fn=fns["decode"],
+    decode = fns["decode"]
+
+    def decode_fn(p, st, tok, pos):
+        if not _is_sharded(p):
+            return decode(p, st, tok, pos)
+        local = zip_map(lambda x: rank_rows(x, mesh, 1, by_rows
+                                            and _state_rows(x)), st)
+        pos = pos.to_local() if isinstance(pos, DTensor) else pos
+        logits, new = decode(_full(p), local, rows(tok), pos)
+        return (placed(logits, (b, logits.shape[-1])),
+                placed_states(new, st_sh, st))
+
+    return Cell(name=name, fn=decode_fn,
                 args=(params, states, _meta((b,), torch.int32),
                       _meta((), torch.int32)),
                 in_shardings=(psh, st_sh, tok_sh, replicated),
-                out_shardings=(None, st_sh), donate_argnums=(1,))
+                out_shardings=(rows_sh, st_sh), donate_argnums=(1,))

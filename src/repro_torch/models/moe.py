@@ -178,8 +178,10 @@ def moe_apply(params: Params, x: torch.Tensor, cfg: nn.ModelConfig):
     if cfg.n_shared_experts:
         out = out + nn.swiglu_apply(params["shared"], x, cfg)
 
-    frac = torch.bincount(gate_idx[..., 0].reshape(-1), minlength=e) \
-        .float() / t
+    # the reference's mean of one-hot rows: static shape [E] (a bincount's
+    # length depends on the data, which a fake-tensor trace cannot size)
+    first = gate_idx[..., 0].reshape(-1, 1)
+    frac = (first == torch.arange(e, device=x.device)).sum(0).float() / t
     imp = gates.mean(dim=(0, 1))
     aux = e * torch.sum(frac * imp)
     return out, aux

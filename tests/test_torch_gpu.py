@@ -17,7 +17,8 @@ float32 train step card vs CPU (loss 1e-5, every gradient leaf 1e-4 of
 its max), and three deterministic steps twice on the card, bit for bit.
 Distribution: a 1 x 1 mesh over a one-rank ``nccl`` group, its sharded
 train step against `train_step` on the card, and ``compressed_grad_mean``
-over ``nccl``, both bit for bit.
+over ``nccl``, both bit for bit.  The dry run: its FLOPs of a smoke train
+cell traced on fake ``cuda`` tensors equal a real card step's.
 """
 
 import numpy as np
@@ -1392,3 +1393,35 @@ def test_one_rank_nccl_mesh_on_card(cuda_device):
                                .float())
     finally:
         dist.destroy_process_group()
+
+
+@pytest.mark.gpu
+def test_dryrun_flops_equal_a_card_step(cuda_device):
+    """The dry run on the card (fake ``cuda`` tensors over a fake one-rank
+    group): the smoke qwen3-0.6b train cell's FLOPs at 1 x 1 equal
+    ``FlopCounterMode`` over one real `train_step` on the card at the same
+    batch shape, and the trace launches no port kernel."""
+    import torch.distributed as dist
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch.configs.registry import ShapeSpec, get_arch
+    from repro_torch.launch import dryrun as dr
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.steps import train_step
+    from repro_torch.optim import adamw_init
+    from repro_torch.optim.adamw import tree_map
+    params, batches, loss_fn, opt = _train_setup("qwen3-0.6b")
+    p = tree_map(lambda t: t.to(cuda_device), params)
+    with FlopCounterMode(display=False) as fc:
+        train_step(p, adamw_init(p), batches[0], loss_fn, opt)
+    assert not dist.is_initialized()
+    ops.reset_launch_counts()
+    dr.join_fake_group(1)
+    try:
+        mesh = make_host_mesh(1, 1)
+        assert dr.trace_device() == mesh.device_type == "cuda"
+        counts = dr._measure(get_arch("qwen3-0.6b", smoke=True),
+                             ShapeSpec("t", "train", 64, 4), mesh)
+    finally:
+        dist.destroy_process_group()
+    assert counts.flops == fc.get_total_flops() > 0
+    assert sum(ops.launch_counts().values()) == 0
