@@ -190,6 +190,16 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      over one real ``train_step`` (FLOPs equal) and the training phase's
      peak memory (within 10%) and step ms (MFU printed beside the card's
      name and power limit);
+  then tensor parallel (``phase_tensor_parallel``, no port kernel on its
+     path): qwen3-0.6b ``train_4k`` and ``prefill_32k`` traced on 16 x
+     16 fake ``cuda`` ranks with the dense cells split over "model"
+     (per-rank FLOPs, peak, collectives by kind and the time terms beside
+     the gather-once numbers; ``train_4k`` at most 0.25 of the FLOPs and
+     half the peak); one train step and one prefill of qwen3-0.6b at full
+     width and depth (float32 compute) on a 1 x 2 ``gloo`` group of two
+     processes on the card against the 1 x 1 path here, with full
+     attention under every tolerance and with MiTA up to the first layer
+     whose top-K picks part, those picks proven near ties;
   5. summary: one JSON line of per-kernel results (launches from each
      kernel's main path: the spec_k = 3 serve for the serving kernels,
      with the plain chunked serve's beside them, the bf16 full-sequence
@@ -4981,6 +4991,513 @@ def phase_dryrun(card: str, training: dict) -> dict:
     return res
 
 
+# ------------------------------------------------------ tensor parallel --
+
+TP_CELLS = ("train_4k", "prefill_32k")
+# qwen3-0.6b a rank of 16 x 16 on the gather-once cells, the same
+# counter's numbers (PERF.md): train_4k as the dry run first counted it,
+# prefill_32k from scripts/dryrun_cell_detail.py on that code
+TP_GATHER_ONCE = {
+    "train_4k": dict(flops_per_rank=3.218992e14, peak_gib=192.52,
+                     t_compute=0.32535, t_memory=3.7383,
+                     t_collective=0.13411),
+    "prefill_32k": dict(flops_per_rank=9.043545e13, peak_gib=119.48,
+                        t_compute=0.091404, t_memory=1.5602,
+                        t_collective=0.044699)}
+TP_FLOPS_GATE = 0.25       # train_4k FLOPs a rank, of the gather-once count
+TP_PEAK_GATE = 0.5         # train_4k predicted peak, of the gather-once
+TP_BATCH, TP_SEQ = 2, 4096
+TP_LOSS_TOL = 1e-6         # relative, the 1 x 2 step against the 1 x 1
+# every gradient leaf, relative to its max: the training phase's tolerance
+# for float32 gradients whose sums the card orders another way
+# (TRAIN_GRAD_TOL).  The CPU tests hold the smoke size to 1e-5; at 28
+# layers and B 2 x 4096 the full-attention step measured 1.623e-05 on an
+# H100 (PERF.md)
+TP_GRAD_TOL = TRAIN_GRAD_TOL
+TP_FLOAT_TOL = 1e-5        # prefill float leaves, relative to their max
+TP_OUT = HERE / "build" / "chip_smoke_tp"
+TP_BACKENDS = ("full", "mita")
+
+
+def tp_arch(backend: str = "mita"):
+    """qwen3-0.6b at full width and depth, float32 compute (remat on):
+    the row-parallel sums then differ from one product's only by float32
+    rounding, which the CPU tests' tolerances bound.  ``backend``
+    ``full`` is the same model with full attention, which takes no
+    discrete decision (the port's ``--backend full``)."""
+    import dataclasses
+    from repro_torch.configs.registry import get_arch
+    arch = get_arch(TRAIN_ARCH, backend=backend)
+    return dataclasses.replace(arch, model=dataclasses.replace(
+        arch.model, compute_dtype=torch.float32))
+
+
+def tp_detail_clis() -> list:
+    """`scripts/dryrun_cell_detail.py` on each of ``TP_CELLS`` (16 x 16
+    fake ranks, fake ``cuda``), one subprocess a cell, all started
+    together; returns the Popen handles and output paths."""
+    import os
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(HERE / "src")] + [x for x in (env.get("PYTHONPATH"),) if x])
+    TP_OUT.mkdir(parents=True, exist_ok=True)
+    runs = []
+    for shape in TP_CELLS:
+        out = TP_OUT / f"detail_{shape}.json"
+        with open(out, "w") as f, open(out.with_suffix(".log"), "w") as log:
+            proc = subprocess.Popen(
+                [sys.executable, str(HERE / "scripts" /
+                                     "dryrun_cell_detail.py"),
+                 "--arch", TRAIN_ARCH, "--shape", shape], cwd=HERE, env=env,
+                stdout=f, stderr=log)
+        runs.append((proc, out))
+    return runs
+
+
+def _tp_local(tree):
+    from repro_torch.launch.steps import zip_map
+    return zip_map(lambda t: t.to_local().cpu() if hasattr(t, "to_local")
+                   else t.cpu(), tree)
+
+
+def _tp_rank(proc: int, ports: list, out_dir: str) -> None:
+    """Process ``proc`` of the ``TP_BACKENDS`` groups, all on this card at
+    once: rank ``proc % 2`` of backend ``proc // 2``'s 1 x 2 group, which
+    runs the train cell's first step and the prefill cell on this rank's
+    shards; local results to ``<out_dir>/<backend><r>.pt``.  No
+    all-gather runs: the groups are ``gloo`` on cuda tensors, which cannot
+    all-gather them (this phase's docstring)."""
+    import torch.distributed as dist
+    sys.path.insert(0, str(HERE / "src"))
+    import repro_torch  # noqa: F401  (TF32 off)
+    from torch.distributed.tensor import distribute_tensor
+    from repro_torch.configs.registry import ShapeSpec
+    from repro_torch.data import DataConfig
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.steps import build_cell, family_fns
+    from repro_torch.launch.train import train_batch
+    from repro_torch.optim import OptConfig, adamw_init
+    from repro_torch.optim.adamw import AdamWState, tree_map
+    backend, rank = TP_BACKENDS[proc // 2], proc % 2
+    torch.cuda.set_device(0)
+    dist.init_process_group(
+        "gloo", init_method=f"tcp://localhost:{ports[proc // 2]}",
+        rank=rank, world_size=2)
+    try:
+        ops.reset_launch_counts()
+        mesh = make_host_mesh(1, 2, device_type="cuda")
+        arch = tp_arch(backend)
+        fns = family_fns(arch)
+        res = {}
+
+        def placed(tree, shardings):
+            return tree_map(lambda t, pl: distribute_tensor(
+                t, mesh, pl, src_data_rank=None), tree, shardings)
+
+        def weights():
+            return fns["init"](torch.Generator(device="cuda").manual_seed(0),
+                               "cuda")
+
+        cell = build_cell(arch, ShapeSpec("tp", "train", TP_SEQ, TP_BATCH),
+                          mesh, opt_cfg=OptConfig())
+        psh, osh, _ = cell.in_shardings
+        params = weights()
+        opt = adamw_init(params)
+        p = placed(params, psh)
+        o = AdamWState(mu=placed(opt.mu, osh.mu), nu=placed(opt.nu, osh.nu),
+                       step=placed(opt.step, osh.step))
+        del params, opt
+        torch.cuda.empty_cache()
+        dcfg = DataConfig(vocab=arch.model.vocab, seq_len=TP_SEQ,
+                          global_batch=TP_BATCH)
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        p, o, met = cell.fn(p, o, train_batch(arch, dcfg, 0))
+        loss = float(met["loss"])                   # synchronises
+        res.update(loss=loss, step_s=time.perf_counter() - t0,
+                   train_peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+                   params=_tp_local(p), mu=_tp_local(o.mu))
+        del p, o, met
+        torch.cuda.empty_cache()
+
+        pcell = build_cell(arch, ShapeSpec("tp", "prefill", TP_SEQ,
+                                           TP_BATCH), mesh)
+        ppsh, bsh = pcell.in_shardings
+        pp = placed(weights(), ppsh)
+        tokens = torch.as_tensor(train_batch(arch, dcfg, 0)["tokens"],
+                                 device="cuda")
+        pb = placed({"tokens": tokens}, bsh)
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            logits, states = pcell.fn(pp, pb)
+        torch.cuda.synchronize()
+        res.update(prefill_s=time.perf_counter() - t0,
+                   prefill_peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+                   logits=_tp_local(logits), states=_tp_local(states),
+                   launches=ops.launch_counts())
+        torch.save(res, f"{out_dir}/{backend}{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def tp_reference(backend: str) -> dict:
+    """The 1 x 1 path in this process on the ranks' inputs: `train_step`
+    (step 0's batch) and the plain prefill, results on the host, with the
+    step's seconds and peak."""
+    from repro_torch.data import DataConfig
+    from repro_torch.launch.steps import family_fns, train_step
+    from repro_torch.launch.train import train_batch
+    from repro_torch.optim import OptConfig, adamw_init
+    arch = tp_arch(backend)
+    fns = family_fns(arch)
+    dcfg = DataConfig(vocab=arch.model.vocab, seq_len=TP_SEQ,
+                      global_batch=TP_BATCH)
+
+    def weights():
+        return fns["init"](torch.Generator(device="cuda").manual_seed(0),
+                           "cuda")
+
+    params = weights()
+    opt = adamw_init(params)
+    batch = train_batch(arch, dcfg, 0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    new_p, new_o, met = train_step(params, opt, batch, fns["loss"],
+                                   OptConfig())
+    loss = float(met["loss"])
+    res = dict(loss=loss, step_s=time.perf_counter() - t0,
+               peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+               params=_tp_local(new_p), mu=_tp_local(new_o.mu))
+    del params, opt, new_p, new_o, met
+    torch.cuda.empty_cache()
+    params = weights()
+    tokens = torch.as_tensor(batch["tokens"], device="cuda")
+    with torch.no_grad():
+        logits, states = fns["prefill"](params, {"tokens": tokens}, TP_SEQ)
+    res.update(logits=logits.cpu(), states=_tp_local(states),
+               opt_lr=OptConfig().lr)
+    del params, logits, states
+    torch.cuda.empty_cache()
+    return res
+
+
+def _tp_compare(ref: dict, ranks: list) -> dict:
+    """The ranks' local results against the 1 x 1 path's, each held to
+    its own part of the reference (the parameters' and states' placements
+    on a 1 x 2 mesh): float leaves by their largest error, relative to
+    the reference leaf's largest magnitude and absolute; integer and
+    boolean leaves by their unequal elements."""
+    from torch.distributed.tensor import Shard
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch.steps import zip_map
+    mesh = types.SimpleNamespace(mesh_dim_names=("data", "model"),
+                                 shape=(1, 2))
+    shardings = {
+        "params": shd.tree_shardings(shd.param_specs(ref["params"], mesh),
+                                     mesh),
+        "states": shd.tree_shardings(shd.state_specs(ref["states"], mesh,
+                                                     TP_BATCH), mesh)}
+    shardings["mu"] = shardings["params"]
+
+    def errors(key):
+        rel, ab, bad, where = 0.0, 0.0, {}, ""
+        paths = []
+        shd.map_with_path(lambda path, _: paths.append(path), ref[key])
+        for r, got in enumerate(ranks):
+            leaves = []
+            zip_map(lambda a, g, pl: leaves.append((a, g, pl)), ref[key],
+                    got[key], shardings[key])
+            for i, (whole, g, pl) in enumerate(leaves):
+                want = (whole.chunk(2, dim=pl[1].dim)[r]
+                        if isinstance(pl[1], Shard) else whole).cuda()
+                g = g.cuda()
+                if g.dtype.is_floating_point:
+                    d = (g.double() - want.double()).abs().max().item()
+                    top = whole.cuda().double().abs().max().item()
+                    ab = max(ab, d)
+                    if d / max(top, 1e-30) > rel:
+                        rel, where = d / max(top, 1e-30), paths[i]
+                else:
+                    bad[i] = bad.get(i, 0) + int((g != want).sum())
+        return rel, ab, bad, where
+
+    grad_rel, _, _, grad_leaf = errors("mu")
+    _, param_abs, _, _ = errors("params")
+    states_rel, _, bad, _ = errors("states")
+    fields = ref["states"]._fields
+    layers = None
+    if "expert_idx" in fields:
+        whole = zip_map(lambda a, pl, b: torch.cat([a, b], dim=pl[1].dim)
+                        if isinstance(pl[1], Shard) else a,
+                        ranks[0]["states"], shardings["states"],
+                        ranks[1]["states"])
+        layers = tp_layers(zip_map(torch.Tensor.cuda, ref["states"]),
+                           zip_map(torch.Tensor.cuda, whole))
+    return dict(layers=layers, grad_worst_leaf=grad_leaf,
+        loss_rel=max(abs(g["loss"] - ref["loss"]) / abs(ref["loss"])
+                     for g in ranks),
+        grad_rel=grad_rel, param_abs=param_abs,
+        param_bound=2 * ref["opt_lr"],
+        logits_rel=max(((g["logits"].double() - ref["logits"].double())
+                        .abs().max() / ref["logits"].double().abs().max())
+                       .item() for g in ranks),
+        states_float_rel=states_rel,
+        states_int_mismatches={fields[i]: n for i, n in bad.items()})
+
+
+def _tp_near_tie(ref, got, layer: int) -> dict:
+    """Layer ``layer``'s landmark top-K picks where the two sides' pick
+    sets differ: for every pick x that one side took and y that the
+    other took instead, the float64 gap of their scores (key . landmark
+    query, the reference side's) within what float32 rounding of the four
+    scores and the two sides' own score differences allow (`_tp_layers`'
+    proof).  Returns the landmarks and pairs seen and the largest
+    gap / bound."""
+    d = ref.k_cache.shape[-1]
+    eps = (d + 1) * 2.0 ** -24
+    a, b = ref.expert_idx[layer].long(), got.expert_idx[layer].long()
+    differ = (a.sort(-1).values != b.sort(-1).values).any(-1).nonzero()
+    worst, pairs = 0.0, 0
+    for bb, h, j in differ.tolist():
+        sa, sb = set(a[bb, h, j].tolist()), set(b[bb, h, j].tolist())
+        xs = torch.tensor(sorted(sa - sb))
+        ys = torch.tensor(sorted(sb - sa))
+
+        def scores(st, idx):
+            k = st.k_cache[layer, bb, h, idx].double()
+            q = st.lm_q[layer, bb, h, j].double()
+            return (k * q).sum(-1), eps * (k * q).abs().sum(-1)
+
+        (rx, ex), (ry, ey) = scores(ref, xs), scores(ref, ys)
+        (tx, fx), (ty, fy) = scores(got, xs), scores(got, ys)
+        gap = (rx[:, None] - ry[None, :]).abs()
+        bound = (ex[:, None] + ey[None, :] + fx[:, None] + fy[None, :]
+                 + (tx - rx).abs()[:, None] + (ty - ry).abs()[None, :])
+        worst = max(worst, (gap / bound).max().item())
+        pairs += gap.numel()
+    return dict(landmarks=len(differ), pairs=pairs, worst_gap_over_bound=worst)
+
+
+def tp_layers(ref, got) -> dict:
+    """The two prefills' MiTA states layer by layer: landmarks whose top-K
+    pick sets differ, landmarks whose picks differ in order only (a near
+    tie between two picks, harmless: an expert is a set), and each float
+    leaf's largest error relative to its largest magnitude at that layer.
+    At the first layer whose pick sets differ (where the two runs part:
+    every later layer sees other inputs), `_tp_near_tie`'s proof."""
+    rows, first = [], None
+    for layer in range(ref.k_cache.shape[0]):
+        a, b = ref.expert_idx[layer], got.expert_idx[layer]
+        same_set = (a.sort(-1).values == b.sort(-1).values).all(-1)
+        row = {"sets_differ": int((~same_set).sum()),
+               "order_only": int(((a != b).any(-1) & same_set).sum())}
+        for f in ("k_cache", "v_cache", "lm_q", "lm_v", "q_sum"):
+            x = getattr(ref, f)[layer].double()
+            y = getattr(got, f)[layer].double()
+            row[f] = ((x - y).abs().max()
+                      / x.abs().max().clamp_min(1e-30)).item()
+        rows.append(row)
+        if row["sets_differ"] and first is None:
+            first = layer
+    return dict(rows=rows, first_parting=first,
+                proof=None if first is None else _tp_near_tie(ref, got,
+                                                              first))
+
+
+def tp_two_ranks() -> dict:
+    """Step b of `phase_tensor_parallel`: the 1 x 1 references here, one
+    backend after the other, then both backends' two ranks at once (four
+    processes on the card, two groups), then each backend's comparison
+    and its ranks' times and peaks."""
+    import shutil
+    import socket
+    import torch.multiprocessing as mp
+    refs = {b: tp_reference(b) for b in TP_BACKENDS}
+    out = TP_OUT / "ranks"
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    ports = []
+    for _ in TP_BACKENDS:
+        with socket.socket() as s:
+            s.bind(("localhost", 0))
+            ports.append(s.getsockname()[1])
+    t0 = time.perf_counter()
+    mp.start_processes(_tp_rank, args=(ports, str(out)),
+                       nprocs=2 * len(TP_BACKENDS), start_method="spawn")
+    ranks_s = time.perf_counter() - t0
+    res = {}
+    for backend, ref in refs.items():
+        ranks = [torch.load(out / f"{backend}{r}.pt", weights_only=False)
+                 for r in range(2)]
+        two = _tp_compare(ref, ranks)
+        two.update(
+            ref_step_ms=1e3 * ref["step_s"], ref_peak_gib=ref["peak_gib"],
+            step_ms=[1e3 * g["step_s"] for g in ranks],
+            train_peak_gib=[g["train_peak_gib"] for g in ranks],
+            prefill_ms=[1e3 * g["prefill_s"] for g in ranks],
+            prefill_peak_gib=[g["prefill_peak_gib"] for g in ranks],
+            launches=[g["launches"] for g in ranks], ranks_s=ranks_s,
+            loss=ref["loss"], rank_losses=[g["loss"] for g in ranks])
+        res[backend] = two
+        del ranks
+        torch.cuda.empty_cache()
+    shutil.rmtree(out, ignore_errors=True)
+    return res
+
+
+def tp_gate(backend: str, two: dict) -> None:
+    """Step b's gates.  ``full``: every stated tolerance.  ``mita``: the
+    prefill's layers before the first whose top-K pick sets differ hold
+    the float tolerance, and that layer's differing picks are near ties
+    (`_tp_near_tie`: gap within its bound); where no layer parts, every
+    stated tolerance.  After a parting the two runs legitimately differ
+    (each later layer sees other inputs), so the whole step's and the
+    logits' errors are recorded, not gated."""
+    tol = {k: two[k] for k in ("loss_rel", "grad_rel", "param_abs",
+                               "logits_rel", "states_float_rel",
+                               "states_int_mismatches")}
+    whole = (two["loss_rel"] <= TP_LOSS_TOL and two["grad_rel"] <= TP_GRAD_TOL
+             and two["param_abs"] <= two["param_bound"]
+             and two["logits_rel"] <= TP_FLOAT_TOL
+             and two["states_float_rel"] <= TP_FLOAT_TOL
+             and not any(two["states_int_mismatches"].values()))
+    layers = two["layers"]
+    if backend == "full" or layers["first_parting"] is None:
+        if not whole:
+            fail(f"tensor-parallel 1 x 2 ({backend}) against the 1 x 1 "
+                 f"path: {tol}")
+        return
+    first = layers["first_parting"]
+    for i, row in enumerate(layers["rows"][:first]):
+        worst = max(row[f] for f in ("k_cache", "v_cache", "lm_q", "lm_v",
+                                     "q_sum"))
+        if worst > TP_FLOAT_TOL:
+            fail(f"tensor-parallel 1 x 2 ({backend}): prefill layer {i}, "
+                 f"before the first parting ({first}), float error "
+                 f"{worst:.3e}: {row}")
+    if layers["proof"]["worst_gap_over_bound"] > 1.0:
+        fail(f"tensor-parallel 1 x 2 ({backend}): layer {first}'s differing "
+             f"top-K picks are not near ties: {layers['proof']}")
+
+
+def phase_tensor_parallel(card: str) -> dict:
+    """Tensor-parallel compute on the "model" axis for the dense family's
+    train and prefill cells (`distributed.tensor_parallel`; no port
+    kernel on its path).
+    a. The dry run of qwen3-0.6b ``train_4k`` and ``prefill_32k`` on 16 x
+       16 fake ``cuda`` ranks (`scripts/dryrun_cell_detail.py`, one
+       subprocess a cell, started first): per-rank FLOPs, peak,
+       collectives by kind and bytes, the three time terms, beside the
+       gather-once numbers (``TP_GATHER_ONCE``).  Gates: ``train_4k``'s
+       FLOPs a rank at most ``TP_FLOPS_GATE`` and its peak at most
+       ``TP_PEAK_GATE`` of the gather-once ones.
+    b. qwen3-0.6b at full width and depth (float32 compute, remat), B 2
+       x 4096, on a 1 x 2 group: two spawned processes over ``gloo``
+       (NCCL runs no two ranks on one device), both backends' pairs at
+       once on this card.  One train
+       step and one prefill held to the 1 x 1 path in this process
+       (`tp_reference`): loss within ``TP_LOSS_TOL``, every gradient leaf
+       (AdamW's first moment) within ``TP_GRAD_TOL`` of its max,
+       parameters within 2 lr of it, the prefill's logits and float state
+       leaves within ``TP_FLOAT_TOL`` of their max, integer state leaves
+       exact.  Twice (``TP_BACKENDS``): with full attention, which takes
+       no discrete decision, under every tolerance; with MiTA, whose
+       top-K and routing decisions part at near ties at this depth, up to
+       the first layer where the prefills' pick sets part and that
+       layer's picks proven near ties (`tp_gate`).  Step ms (the first
+       step, as the 1 x 1 step's) and peak per rank printed.  ``gloo`` cannot all-gather cuda tensors (a segfault
+       on the H100 machine's PyTorch 2.11): the 1 x 2 path needs none
+       (all-reduces, the prefill's all-to-alls), and the ranks gather
+       nothing to compare.
+    c. The five kernels' launch counters read 0, here and in the ranks."""
+    import shutil
+    from repro_torch.kernels import ops
+    ops.reset_launch_counts()
+    shutil.rmtree(TP_OUT, ignore_errors=True)
+    runs = tp_detail_clis()
+    res = {"cells": {}}
+    try:
+        res["two_ranks"] = tp_two_ranks()
+    finally:
+        for proc, _ in runs:
+            try:
+                proc.wait(timeout=600)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait()
+    for (proc, path), shape in zip(runs, TP_CELLS):
+        if proc.returncode != 0:
+            log = path.with_suffix(".log").read_text()
+            fail(f"tensor-parallel dry run {shape}: rc {proc.returncode} "
+                 f"{log[-2000:]}")
+        d = json.loads(path.read_text().strip().splitlines()[-1])
+        d["gather_once"] = TP_GATHER_ONCE[shape]
+        res["cells"][shape] = d
+        kinds = ", ".join(f"{k} {v['issues']} x (payload "
+                          f"{v['payload_bytes']:.4e} B, ring "
+                          f"{v['ring_bytes']:.4e} B, groups {v['groups']})"
+                          for k, v in d["by_kind"].items())
+        g = d["gather_once"]
+        print(f"  [tensor-parallel] {TRAIN_ARCH} {shape} 16 x 16 a rank: "
+              f"FLOPs {d['flops_per_rank']:.6e} (gather-once "
+              f"{g['flops_per_rank']:.6e}), peak {d['peak_gib']:.2f} GiB "
+              f"({g['peak_gib']}), t_compute {d['t_compute']:.5g} s "
+              f"({g['t_compute']}), t_memory {d['t_memory']:.5g} s "
+              f"({g['t_memory']}), t_collective {d['t_collective']:.5g} s "
+              f"({g['t_collective']}), {d['bottleneck']}-bound; "
+              f"collectives: {kinds}")
+    shutil.rmtree(TP_OUT, ignore_errors=True)
+    for backend, two in res["two_ranks"].items():
+        layers = two["layers"]
+        parted = "" if layers is None else (
+            f"; prefill pick sets first part at layer "
+            f"{layers['first_parting']} ({layers['proof']}); the layers "
+            f"before it (order-only swaps, largest float error): " + ", ".join(
+                f"{i} ({r['order_only']}, {max(r[f] for f in ('k_cache', 'v_cache', 'lm_q', 'lm_v', 'q_sum')):.2e})"
+                for i, r in enumerate(
+                    layers["rows"][:layers["first_parting"]])))
+        print(f"  [tensor-parallel] 1 x 2 over gloo, {TRAIN_ARCH} "
+              f"{tp_arch(backend).model.n_layers} layers, {backend}, B "
+              f"{TP_BATCH} x {TP_SEQ} f32: loss {two['rank_losses']} vs "
+              f"1 x 1 {two['loss']} (rel {two['loss_rel']:.3e}), gradients "
+              f"rel {two['grad_rel']:.3e} ({two['grad_worst_leaf']}), "
+              f"parameters {two['param_abs']:.3e}"
+              f" (bound {two['param_bound']:.1e}); prefill logits rel "
+              f"{two['logits_rel']:.3e}, float states rel "
+              f"{two['states_float_rel']:.3e}, integer states unequal "
+              f"{two['states_int_mismatches']}{parted}; step ms per rank "
+              f"{two['step_ms']} (1 x 1 {two['ref_step_ms']:.1f}), peak GiB "
+              f"{two['train_peak_gib']} (1 x 1 {two['ref_peak_gib']:.2f}); "
+              f"prefill ms {two['prefill_ms']}, peak GiB "
+              f"{two['prefill_peak_gib']}")
+    train = res["cells"]["train_4k"]
+    once = TP_GATHER_ONCE["train_4k"]
+    if train["flops_per_rank"] > TP_FLOPS_GATE * once["flops_per_rank"]:
+        fail(f"tensor-parallel train_4k: {train['flops_per_rank']:.6e} "
+             f"FLOPs a rank, over {TP_FLOPS_GATE} x {once['flops_per_rank']}")
+    if train["peak_gib"] > TP_PEAK_GATE * once["peak_gib"]:
+        fail(f"tensor-parallel train_4k: peak {train['peak_gib']:.2f} GiB "
+             f"a rank, over {TP_PEAK_GATE} x {once['peak_gib']}")
+    for backend, two in res["two_ranks"].items():
+        tp_gate(backend, two)
+    launches = ops.launch_counts()
+    res["launches"] = launches
+    ranks = [c for two in res["two_ranks"].values() for c in two["launches"]]
+    if sum(launches.values()) or any(sum(c.values()) for c in ranks):
+        fail(f"the tensor-parallel phase launched a port kernel: "
+             f"{launches}, ranks {ranks}")
+    print(f"tensor parallel ({card}): train_4k 16 x 16 "
+          f"{train['flops_per_rank'] / once['flops_per_rank']:.4f} of the "
+          f"gather-once FLOPs, peak {train['peak_gib']:.2f} GiB; 1 x 2 "
+          f"steps held to 1 x 1; launches {launches}")
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda is not available; nothing to check",
@@ -5046,6 +5563,7 @@ def main() -> int:
     vision_training = timed("vision_training", phase_vision_training, card)
     distributed = timed("distributed", phase_distributed, card, training)
     dryrun = timed("dryrun", phase_dryrun, card, training)
+    tensor_parallel = timed("tensor_parallel", phase_tensor_parallel, card)
     launches = dict(launches)
     launches["mita_expert_attention"] = fs_launches["mita_expert_attention"]
     launches["flash_attention"] = fs_launches["flash_attention"]
@@ -5197,7 +5715,7 @@ def main() -> int:
         "vit_parity": vit_parity, "whisper_parity": whisper_parity,
         "vision_serve": vision, "training": training,
         "vision_training": vision_training, "distributed": distributed,
-        "dryrun": dryrun}))
+        "dryrun": dryrun, "tensor_parallel": tensor_parallel}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -231,8 +231,8 @@ class _Counter(TorchDispatchMode):
 
     def _collective(self, func, args, outs) -> None:
         name = func._schema.name.split("::")[-1].rstrip("_")
-        if name == "wait_tensor":
-            return
+        if name == "wait_tensor" or not isinstance(args[-1], str):
+            return      # a wait, or (real tensors) a result's wrapping
         group = args[-1]
         size = dist.distributed_c10d._resolve_process_group(group).size()
         where = _source_frame()

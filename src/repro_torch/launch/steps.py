@@ -11,15 +11,35 @@ AdamW update.
 `build_cell(arch, shape, mesh)` returns what a trainer, server or dry run
 needs: the step function, its arguments as meta tensors (shapes and
 dtypes, no memory) and the DTensor placements of its inputs and outputs
-(`distributed.sharding`).  Every cell computes the same way (ROADMAP
-C.16): each rank gathers the full parameters once a call, takes its
-"data" share of the batch (and of the decode states, gathered over the
-other axes), runs the model code as it is, and places what it returns.
+(`distributed.sharding`).  Each rank takes its "data" share of the batch
+and computes in one of two ways (ROADMAP C.16):
+
+* Tensor-parallel: the dense family's train and prefill cells on a mesh
+  whose "model" axis has M > 1 ranks (`distributed.tensor_parallel`).
+  Each rank runs the model code on its own parameter shards with a local
+  config (heads, FFN width and, where the specs split it, the
+  vocabulary divided by M) and never gathers a whole weight over
+  "model": one all-reduce a block after ``attn/wo`` and one after
+  ``ffn/wo`` each pass, a vocabulary-parallel embedding and loss, and
+  the KV-group rule where M exceeds ``n_kv`` (a group's columns of wq,
+  wk and wv gathered among the ranks that share it).  Its gradients are
+  already the rank's shards; they are summed over the data ranks (and
+  over "model" for the replicated ``q_norm`` / ``k_norm``).  The prefill
+  cell assembles its logits (split over the vocabulary) and decode
+  states (split over KV heads) into their placements with one all-to-all
+  a leaf.
+* Gather-once, every other cell: the decode cells, the ``moe``,
+  ``vlm``, ``ssm``, ``hybrid`` and ``encdec`` families, any cell at M = 1
+  and a dense split that ``tensor_parallel.model_split`` does not plan.
+  Each rank gathers the full parameters once a call (and the decode
+  states over the other axes), runs the model code as it is, and places
+  what it returns; there "model" partitions memory, not compute.
+
 A train cell's function is `sharded_train_step`, which reduces the
 gradients into the parameters' placement; a prefill or decode cell's
-outputs are local slices of what the rank computed.  The "model" axis
-therefore partitions memory, not compute.  Given plain tensors instead
-of DTensors, a prefill or decode cell is the plain function.
+outputs are local slices of what the rank computed (or assembled).
+Given plain tensors instead of DTensors, a prefill or decode cell is the
+plain function.
 """
 
 from __future__ import annotations
@@ -32,6 +52,7 @@ from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from repro_torch.configs.registry import ArchConfig, ShapeSpec
 from repro_torch.distributed import sharding as shd
+from repro_torch.distributed import tensor_parallel as tpar
 from repro_torch.models import mamba2 as mb
 from repro_torch.models import rglru as rg
 from repro_torch.models import transformer as tfm
@@ -145,22 +166,38 @@ def rank_rows(x, mesh, dim: int, by_rows: bool) -> torch.Tensor:
 
 
 def place_rows(x: torch.Tensor, mesh, placements, dim: int, by_rows: bool,
-               shape) -> DTensor:
+               shape, model_part: Optional[Callable] = None) -> DTensor:
     """The inverse of `rank_rows`: ``x`` is this rank's part of a tensor
     of global ``shape``, its data rows of dimension ``dim`` (``by_rows``)
     or all of it, every other dimension whole.  Returns the DTensor of
-    ``placements``; every shard is a local slice (no collective)."""
+    ``placements``; every shard is a local slice (no collective).  With
+    ``model_part``, ``x`` is instead split over the "model" ranks, and
+    ``model_part(x, placement)`` gives this rank's part under its
+    placement on that axis (`tensor_parallel.ModelSplit.assemble`)."""
     coord = mesh.get_coordinate()
     for i, (n, pl) in enumerate(zip(mesh.mesh_dim_names, placements)):
+        if model_part is not None and n == "model":
+            x = model_part(x, pl)
+            continue
         if not isinstance(pl, Shard):
             continue
         if by_rows and n in shd.batch_axes(mesh) and pl.dim == dim:
             continue                      # x holds only this rank's rows
         x = x.chunk(mesh.size(i), dim=pl.dim)[coord[i]]
-    stride = torch.empty(shape, device="meta").stride()
     return DTensor.from_local(x.contiguous(), mesh, placements,
                               run_check=False, shape=torch.Size(shape),
-                              stride=stride)
+                              stride=contiguous_stride(shape))
+
+
+def contiguous_stride(shape) -> tuple:
+    """The strides of a contiguous tensor of ``shape``, as ``torch.empty(
+    shape).stride()`` gives them, without making one: inside a dry run's
+    fake mode an empty tensor of a global shape counts as live memory."""
+    stride, acc = [], 1
+    for n in reversed(tuple(shape)):
+        stride.append(acc)
+        acc *= max(n, 1)
+    return tuple(reversed(stride))
 
 
 def rows_placements(mesh, dim: int, by_rows: bool) -> list:
@@ -209,9 +246,23 @@ def _per_data_rank(x: torch.Tensor, mesh) -> DTensor:
     return DTensor.from_local(x, mesh, pl, run_check=False)
 
 
+def _split_grad(g: torch.Tensor, p: DTensor, mesh,
+                split: tpar.ModelSplit, over_model: bool) -> DTensor:
+    """A tensor-parallel rank's gradient of its shard of ``p`` as one
+    term of a sum over the data ranks, first summed over "model" where
+    ``over_model`` (a replicated leaf of the split region)."""
+    if over_model:
+        g = split.sum(g)
+    pl = [Partial() if n in shd.batch_axes(mesh) else pp
+          for n, pp in zip(mesh.mesh_dim_names, p.placements)]
+    return DTensor.from_local(g, mesh, pl, run_check=False, shape=p.shape,
+                              stride=p.stride())
+
+
 def sharded_train_step(params, opt_state: AdamWState, batch: dict,
                        loss_fn: Callable, opt_cfg: OptConfig, mesh,
-                       microbatch: int = 1):
+                       microbatch: int = 1,
+                       split: Optional[tpar.ModelSplit] = None):
     """One training step on ``mesh``: the result of `train_step` on the
     whole batch with one microbatch per data rank (``microbatch`` x the
     data ranks in all), each rank holding only its shard of every
@@ -223,15 +274,25 @@ def sharded_train_step(params, opt_state: AdamWState, batch: dict,
     the batch (`data_rows`), computes the loss and gradients with
     `accumulate_grads` (split into ``microbatch`` slices), and turns every
     gradient into its parameter's placement: a sum over the data ranks,
-    divided by their count.  Where the batch has a "loss_mask", each
-    rank's loss and gradients are first weighted by its share of the
+    divided by their count.  With ``split`` (the dense family with the
+    "model" axis split, `tensor_parallel.model_split`), it gathers
+    nothing: ``loss_fn`` runs on the rank's local shards, whose gradients
+    are already its shards' (summed over "model" too for the leaves
+    ``split.sum_over_model`` marks).  Where the batch has a "loss_mask",
+    each rank's loss and gradients are first weighted by its share of the
     counted labels, so that the result is the whole batch's masked mean
     (a whole batch with none counts one, as `cross_entropy` does: loss
-    and gradients 0, as in `train_step`).  AdamW then runs on the DTensors (its global norm sums over shards)."""
-    full = _full(params)
+    and gradients 0, as in `train_step`).  AdamW then runs on the
+    DTensors (its global norm sums over shards)."""
     local = data_rows(batch, mesh)
-    loss, grads = accumulate_grads(full, local, loss_fn, microbatch)
-    del full
+    if split is None:
+        full = _full(params)
+        loss, grads = accumulate_grads(full, local, loss_fn, microbatch)
+        del full
+    else:
+        loss, grads = accumulate_grads(
+            tree_map(lambda t: t.to_local(), params), local, loss_fn,
+            microbatch)
     dev = loss.device
     dp = torch.tensor(float(shd.data_size(mesh)), dtype=torch.float32,
                       device=dev)
@@ -241,8 +302,13 @@ def sharded_train_step(params, opt_state: AdamWState, batch: dict,
         w = count * dp / torch.clamp(total, min=1.0)
         loss = loss * w
         grads = tree_map(lambda g: g * w, grads)
-    grads = tree_map(lambda g, p: _per_data_rank(g, mesh).redistribute(
-        mesh, p.placements) / dp, grads, params)
+    if split is None:
+        grads = tree_map(lambda g, p: _per_data_rank(g, mesh).redistribute(
+            mesh, p.placements) / dp, grads, params)
+    else:
+        grads = tree_map(lambda g, p, s: _split_grad(g, p, mesh, split, s)
+                         .redistribute(mesh, p.placements) / dp, grads,
+                         params, split.sum_over_model)
     new_p, new_opt, metrics = adamw_update(grads, opt_state, params, opt_cfg)
     metrics = {k: v.full_tensor() if isinstance(v, DTensor) else v
                for k, v in metrics.items()}
@@ -312,16 +378,21 @@ def build_cell(arch: ArchConfig, shape: ShapeSpec, mesh,
     psh = shd.tree_shardings(shd.param_specs(params, mesh), mesh)
     replicated = [Replicate()] * mesh.ndim
     name = f"{arch.arch_id}:{shape.name}"
+    split = tpar.model_split(arch.family, cfg, mesh, psh) \
+        if shape.kind in ("train", "prefill") else None
 
     if shape.kind == "train":
         opt_cfg = opt_cfg or OptConfig()
         opt_sh = AdamWState(mu=psh, nu=psh, step=replicated)
         batch = _train_batch_shapes(arch, shape)
         loss_fn = fns["loss"]
+        if split is not None:
+            def loss_fn(p, b):
+                return tfm.lm_loss(p, b, split.cfg, tp=split)
 
         def step(p, opt, b):
             return sharded_train_step(p, opt, b, loss_fn, opt_cfg, mesh,
-                                      microbatch)
+                                      microbatch, split)
 
         return Cell(name=name, fn=step,
                     args=(params, adamw_init(params), batch),
@@ -387,10 +458,33 @@ def build_cell(arch: ArchConfig, shape: ShapeSpec, mesh,
         def prefill_fn(p, bt):
             if not _is_sharded(p):
                 return prefill(p, bt, shape.seq)
+            if split is not None:
+                return split_prefill(p, bt)
             logits, st = prefill(_full(p), {k: rows(v) for k, v in
                                             bt.items()}, shape.seq)
             return (placed(logits, (b, cfg.vocab)),
                     placed_states(st, st_sh, states))
+
+        def split_prefill(p, bt):
+            """The dense prefill on this rank's shards; its logits (the
+            rank's classes where the vocabulary is split) and states (its
+            KV heads, dimension 2 of every leaf but the counters)
+            assembled into the cell's placements."""
+            logits, st = tfm.lm_prefill(
+                tree_map(lambda t: t.to_local(), p), rows(bt["tokens"]),
+                split.cfg, shape.seq, tp=split)
+            by_vocab = None if split.vocab is None else (
+                lambda x, pl: split.assemble(x, -1, pl))
+
+            def heads(x, pl):
+                return split.assemble(x, 2, pl, dup=split.share)
+
+            return (place_rows(logits, mesh, rows_sh, 0, by_rows,
+                               (b, cfg.vocab), by_vocab),
+                    zip_map(lambda x, pl, g: place_rows(
+                        x, mesh, pl, 1, by_rows and _state_rows(x), g.shape,
+                        heads if _state_rows(x) else None),
+                        st, st_sh, states))
 
         return Cell(name=name, fn=prefill_fn, args=(params, batch),
                     in_shardings=(psh, _batch_shardings(batch, mesh, b)),

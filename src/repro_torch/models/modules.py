@@ -204,28 +204,58 @@ def _qkv(params: Params, x: torch.Tensor, cfg: ModelConfig,
 
 def attention_apply(params: Params, x: torch.Tensor, cfg: ModelConfig,
                     positions: Optional[torch.Tensor] = None,
-                    bidir: bool = False) -> torch.Tensor:
+                    bidir: bool = False, tp=None) -> torch.Tensor:
     """Full-sequence attention (training forward / prefill).  x:
     [B, N, D].  MiTA backends, or one of the paper's baselines (full,
     local, moba, linear: `core.baselines`).  ``impl="pallas"`` runs MiTA's
     routed branch on the expert kernel (forward only).  ``bidir`` drops
-    causality for every backend (the ViT, whisper's encoder)."""
+    causality for every backend (the ViT, whisper's encoder).  ``tp``: a
+    `distributed.tensor_parallel.ModelSplit`; ``params`` and ``cfg`` are
+    then this rank's shards and local config, and the output is summed
+    over the "model" ranks."""
     b, n, _ = x.shape
-    a = cfg.attn
     if positions is None:
         positions = torch.arange(n, device=x.device)
-    q, k, v = _qkv(params, x, cfg, positions)
+    if tp is not None:
+        x = tp.enter(x)
+    q, k, v = _qkv(attention_weights(params, tp), x, cfg, positions)
+    o = attention_core(q, k, v, cfg, bidir=bidir,
+                       own=None if tp is None else tp.own)
+    o = o @ params["wo"].to(cfg.compute_dtype)
+    return o if tp is None else tp.leave(o)
+
+
+def attention_weights(params: Params, tp=None) -> Params:
+    """The projections that `_qkv` takes: ``params``, or under a model
+    split whose KV groups span several ranks, this rank's group's columns
+    of wq, wk and wv (`ModelSplit.group_weights`)."""
+    return params if tp is None else tp.group_weights(params)
+
+
+def attention_core(q, k, v, cfg: ModelConfig, bidir: bool = False,
+                   own: Optional[slice] = None) -> torch.Tensor:
+    """The attention of `attention_apply` on projected q [B, Hkv, G, N,
+    dh] and k / v [B, Hkv, 1, N, dh]: o [B, N, heads x dh].  ``own``
+    keeps only those of each group's G query heads (a model split's
+    rank); the group landmark query still pools all G."""
+    b, _, _, n, dh = q.shape
+    a = cfg.attn
     causal = a.causal and not bidir
     repeat = a.gqa_layout == "repeat"
+    mita = a.backend in ("mita", "mita_ref", "agent", "mita_route")
+    q_lm = q.mean(dim=2, keepdim=True) if (
+        mita and a.landmark_per_group and q.shape[2] > 1 and not repeat) \
+        else None
+    if own is not None:
+        q = q[:, :, own]
     if repeat:
-        h, full = cfg.n_heads, (b, cfg.n_kv, cfg.group, n, cfg.dh)
-        q = q.reshape(b, h, n, cfg.dh)
-        k = k.expand(full).reshape(b, h, n, cfg.dh)
-        v = v.expand(full).reshape(b, h, n, cfg.dh)
-    if a.backend in ("mita", "mita_ref", "agent", "mita_route"):
+        full = q.shape
+        h = full[1] * full[2]
+        q = q.reshape(b, h, n, dh)
+        k = k.expand(full).reshape(b, h, n, dh)
+        v = v.expand(full).reshape(b, h, n, dh)
+    if mita:
         mcfg = a.mita_cfg(n, bidir=bidir)
-        q_lm = q.mean(dim=2, keepdim=True) if (
-            a.landmark_per_group and cfg.group > 1 and not repeat) else None
         if a.backend == "mita_ref" or mcfg.compress_only:
             o = mita_attention(q, k, v, mcfg, q_landmarks=q_lm)
         else:
@@ -248,8 +278,7 @@ def attention_apply(params: Params, x: torch.Tensor, cfg: ModelConfig,
     else:
         raise ValueError(f"unknown attention backend {a.backend!r}")
     o = torch.movedim(o, 2 if repeat else 3, 1)
-    return o.reshape(b, n, cfg.n_heads * cfg.dh) \
-        @ params["wo"].to(cfg.compute_dtype)
+    return o.reshape(b, n, -1)
 
 
 # -------------------------------------------------------------------- ffn ---
@@ -262,11 +291,16 @@ def swiglu_init(gen, cfg: ModelConfig, device) -> Params:
 
 
 def swiglu_apply(params: Params, x: torch.Tensor,
-                 cfg: ModelConfig) -> torch.Tensor:
+                 cfg: ModelConfig, tp=None) -> torch.Tensor:
+    """SwiGLU FFN; under a model split (``tp``) on this rank's columns of
+    wi / wg and rows of wo, the output summed over the "model" ranks."""
     ct = cfg.compute_dtype
+    if tp is not None:
+        x = tp.enter(x)
     h = torch.nn.functional.silu(x @ params["wg"].to(ct)) \
         * (x @ params["wi"].to(ct))
-    return h @ params["wo"].to(ct)
+    out = h @ params["wo"].to(ct)
+    return out if tp is None else tp.leave(out)
 
 
 def gelu_mlp_init(gen, cfg: ModelConfig, device,
@@ -301,12 +335,21 @@ def embedding_init(gen, cfg: ModelConfig, device) -> Params:
 
 
 def embed(params: Params, tokens: torch.Tensor,
-          cfg: ModelConfig) -> torch.Tensor:
+          cfg: ModelConfig, tp=None) -> torch.Tensor:
+    """Token embeddings; under a model split (``tp``) vocabulary-parallel
+    where the table is split (`ModelSplit.embed`)."""
+    if tp is not None:
+        return tp.embed(params["tok"], tokens, cfg.compute_dtype)
     return params["tok"][tokens.long()].to(cfg.compute_dtype)
 
 
-def unembed(params: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+def unembed(params: Params, x: torch.Tensor, cfg: ModelConfig,
+            tp=None) -> torch.Tensor:
+    """Logits; under a model split whose vocabulary is split, this rank's
+    classes only (``cfg.vocab`` of them)."""
     ct = cfg.compute_dtype
+    if tp is not None and tp.vocab is not None:
+        x = tp.enter(x)
     if cfg.tie_embeddings:
         return x @ params["tok"].to(ct).T
     return x @ params["head"].to(ct)
@@ -324,11 +367,17 @@ def last_logits(params: Params, x: torch.Tensor, n_valid: torch.Tensor,
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
-                  mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Mean token cross-entropy, float32 accumulation.  logits: [..., V]."""
+                  mask: Optional[torch.Tensor] = None,
+                  tp=None) -> torch.Tensor:
+    """Mean token cross-entropy, float32 accumulation.  logits: [..., V],
+    or under a model split whose vocabulary is split this rank's classes
+    (``tp``, vocabulary-parallel: `ModelSplit.nll`)."""
     logits = logits.float()
-    nll = torch.logsumexp(logits, dim=-1) \
-        - torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    if tp is not None and tp.vocab is not None:
+        nll = tp.nll(logits, labels)
+    else:
+        nll = torch.logsumexp(logits, dim=-1) \
+            - torch.gather(logits, -1, labels.long()[..., None])[..., 0]
     if mask is not None:
         mask = mask.float()
         return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)

@@ -77,21 +77,24 @@ def block_init(gen, cfg: nn.ModelConfig, device, ffn: bool = True) -> Params:
     return p
 
 
-def _ffn(params: Params, xn, cfg: nn.ModelConfig):
+def _ffn(params: Params, xn, cfg: nn.ModelConfig, tp=None):
     """The block's FFN on normed activations xn [B, N, D]: (out, aux)."""
     if cfg.n_experts:
         return moe_apply(params["moe"], xn, cfg)
-    return nn.swiglu_apply(params["ffn"], xn, cfg), 0.0
+    return nn.swiglu_apply(params["ffn"], xn, cfg, tp), 0.0
 
 
 def block_apply(params: Params, x, cfg: nn.ModelConfig, positions,
-                bidir: bool = False):
+                bidir: bool = False, tp=None):
     """x: [B, N, D] -> (x, aux), aux the MoE load-balance loss (0 for a
-    dense FFN).  ``bidir``: bidirectional attention (the ViT)."""
+    dense FFN).  ``bidir``: bidirectional attention (the ViT).  ``tp``: a
+    `distributed.tensor_parallel.ModelSplit` (``params`` this rank's
+    shards, ``cfg`` its local config): one all-reduce over "model" after
+    the attention and one after the FFN."""
     h = nn.attention_apply(params["attn"], nn.rms_norm(x, params["ln1"]),
-                           cfg, positions, bidir=bidir)
+                           cfg, positions, bidir=bidir, tp=tp)
     x = x + h
-    f, aux = _ffn(params, nn.rms_norm(x, params["ln2"]), cfg)
+    f, aux = _ffn(params, nn.rms_norm(x, params["ln2"]), cfg, tp)
     return x + f, aux
 
 
@@ -112,25 +115,28 @@ def lm_init(gen: torch.Generator, cfg: nn.ModelConfig,
                                 device=device)}
 
 
-def lm_backbone(params: Params, x, cfg: nn.ModelConfig, positions=None):
+def lm_backbone(params: Params, x, cfg: nn.ModelConfig, positions=None,
+                tp=None):
     """Run the layer stack on embeddings x: [B, N, D] -> (x, aux), aux the
     per-layer MoE losses summed (a float32 scalar; 0.0 for a dense FFN).
-    Each layer is rematerialised under ``cfg.remat`` (`nn.layer_call`)."""
+    Each layer is rematerialised under ``cfg.remat`` (`nn.layer_call`),
+    its collectives under ``tp`` too."""
     if positions is None:
         positions = torch.arange(x.shape[1], device=x.device)
     aux = 0.0
     for i in range(cfg.n_layers):
         x, a = nn.layer_call(cfg, block_apply,
                              layer_params(params["blocks"], i), x, cfg,
-                             positions)
+                             positions, False, tp)
         aux = aux + a
     return nn.rms_norm(x, params["ln_f"]), aux
 
 
-def _embed(params: Params, tokens, cfg: nn.ModelConfig, extra_embeds=None):
+def _embed(params: Params, tokens, cfg: nn.ModelConfig, extra_embeds=None,
+           tp=None):
     """Token embeddings [B, N, D]; ``extra_embeds`` [B, P, D] (VLM)
     overwrite the first P positions."""
-    x = nn.embed(params["emb"], tokens, cfg)
+    x = nn.embed(params["emb"], tokens, cfg, tp)
     if extra_embeds is not None:
         p = extra_embeds.shape[1]
         x = torch.cat([extra_embeds.to(x.dtype), x[:, p:]], dim=1)
@@ -138,12 +144,13 @@ def _embed(params: Params, tokens, cfg: nn.ModelConfig, extra_embeds=None):
 
 
 def lm_forward_aux(params: Params, tokens, cfg: nn.ModelConfig,
-                   extra_embeds=None):
+                   extra_embeds=None, tp=None):
     """tokens: [B, N] -> (logits [B, N, V], aux): the reference's
-    ``lm_forward``."""
-    x, aux = lm_backbone(params, _embed(params, tokens, cfg, extra_embeds),
-                         cfg)
-    return nn.unembed(params["emb"], x, cfg), aux
+    ``lm_forward``.  Under a model split (``tp``) whose vocabulary is
+    split, the logits are this rank's classes."""
+    x, aux = lm_backbone(params, _embed(params, tokens, cfg, extra_embeds,
+                                        tp), cfg, tp=tp)
+    return nn.unembed(params["emb"], x, cfg, tp), aux
 
 
 def lm_forward(params: Params, tokens, cfg: nn.ModelConfig,
@@ -154,20 +161,22 @@ def lm_forward(params: Params, tokens, cfg: nn.ModelConfig,
 
 
 def lm_loss(params: Params, batch: dict, cfg: nn.ModelConfig,
-            aux_weight: float = 0.01) -> torch.Tensor:
+            aux_weight: float = 0.01, tp=None) -> torch.Tensor:
     """Next-token cross-entropy of ``batch`` ("tokens", "labels", optional
     "loss_mask" and "image_embeds"; tensors or numpy arrays) plus
     ``aux_weight`` times the MoE aux loss per layer.  With
-    ``impl="pallas"`` it is forward only (scoring)."""
+    ``impl="pallas"`` it is forward only (scoring).  ``tp``: the dense
+    model on this rank's shards of a model split, the same loss on every
+    rank of it (`distributed.tensor_parallel`)."""
     dev = params["ln_f"].device
 
     def up(x):
         return None if x is None else torch.as_tensor(x, device=dev)
 
     logits, aux = lm_forward_aux(params, up(batch["tokens"]), cfg,
-                                 up(batch.get("image_embeds")))
+                                 up(batch.get("image_embeds")), tp)
     loss = nn.cross_entropy(logits, up(batch["labels"]),
-                            up(batch.get("loss_mask")))
+                            up(batch.get("loss_mask")), tp)
     return loss + aux_weight * aux / cfg.n_layers
 
 
@@ -185,26 +194,29 @@ def _decode_cfg(cfg: nn.ModelConfig) -> mdec.DecodeConfig:
 
 
 def lm_prefill(params: Params, tokens, cfg: nn.ModelConfig, capacity: int,
-               extra_embeds=None):
+               extra_embeds=None, tp=None):
     """Forward over the prompt, building per-layer decode states
     (``extra_embeds`` as in `lm_forward`).  Returns (last_logits [B, V],
-    stacked states)."""
+    stacked states).  Under a model split (``tp``) the states hold this
+    rank's KV heads (its group's, shared by the ranks of the group, when
+    the group spans several) and the logits its classes where the
+    vocabulary is split."""
     n = tokens.shape[1]
     positions = torch.arange(n, device=tokens.device)
-    x = _embed(params, tokens, cfg, extra_embeds)
+    x = _embed(params, tokens, cfg, extra_embeds, tp)
     dcfg = _decode_cfg(cfg)
     states = []
     for i in range(cfg.n_layers):
         lp = layer_params(params["blocks"], i)
-        q, k, v = nn._qkv(lp["attn"], nn.rms_norm(x, lp["ln1"]), cfg,
-                          positions)
+        q, k, v = nn._qkv(nn.attention_weights(lp["attn"], tp),
+                          nn.rms_norm(x, lp["ln1"]), cfg, positions)
         if uses_mita_state(cfg):
             states.append(mdec.mita_prefill_state(q, k, v, dcfg, capacity))
         else:
             states.append(mdec.full_prefill_state(k, v, capacity))
-        x, _ = block_apply(lp, x, cfg, positions)
+        x, _ = block_apply(lp, x, cfg, positions, tp=tp)
     x = nn.rms_norm(x, params["ln_f"])
-    return nn.unembed(params["emb"], x[:, -1], cfg), _stack_states(states)
+    return nn.unembed(params["emb"], x[:, -1], cfg, tp), _stack_states(states)
 
 
 # ----------------------------------------------------------------- decode ---

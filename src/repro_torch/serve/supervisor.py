@@ -18,9 +18,10 @@ bare engine deliberately does not have:
     attribute), ONLY those slots are evicted through the engine's
     recompute-from-prompt preemption path — the victims re-admit and emit
     bit-identical tokens; the rest of the batch never stops.  A fault
-    signature that survives its own quarantine escalates to the ladder
-    instead of thrashing, and is quarantined again once the ladder is
-    spent (a torn dispatch is quarantined every time).
+    signature that comes back after its own quarantine is not retried:
+    it climbs one ladder rung (a rung may clear a fault the code path
+    causes) and is quarantined again at once, since only a quarantine
+    clears a slot-bound fault.
   * **Degradation ladder** — batch-wide persistent faults walk
     ``nominal → spec_off → prefix_cache_off → xla_forced`` one rung per
     escalation, each rung surfaced as ``stats()["degradation_level"]``.
@@ -204,7 +205,14 @@ class Supervisor:
         # state: re-running it could change their tokens, so it is never
         # retried (with no live slot left, the engine has unwound it)
         torn = not getattr(e, "retryable", True) and bool(occupied)
-        if not torn and self._consecutive <= self.cfg.max_retries:
+        batchwide = bool(getattr(e, "batchwide", True))
+        sig = (type(e).__name__, getattr(e, "op", None), tuple(slots))
+        isolate = torn or (bool(occupied) and not batchwide)
+        # a slot-bound signature that came back after its own quarantine
+        # is not retried: retries did not clear it the last time
+        repeat = isolate and sig == self._last_quarantine
+        if not torn and not repeat \
+                and self._consecutive <= self.cfg.max_retries:
             eng.n_retries += 1
             delay = min(
                 self.cfg.backoff_base_s * (2 ** (self._consecutive - 1)),
@@ -213,15 +221,15 @@ class Supervisor:
                 time.sleep(delay)
             return
         self._consecutive = 0
-        batchwide = bool(getattr(e, "batchwide", True))
-        sig = (type(e).__name__, getattr(e, "op", None), tuple(slots))
-        # a repeated signature escalates to the ladder first; once the
-        # ladder is spent, quarantine is the only thing left that can
-        # clear a slot-bound fault (ROADMAP C.9: the reference keeps
-        # retrying a NEW slot fault that shares the last one's signature,
-        # which nothing clears, until SupervisionExhausted)
-        repeat = sig == self._last_quarantine and not self._ladder_spent()
-        if torn or (occupied and not batchwide and not repeat):
+        if isolate:
+            # a repeated signature also climbs a rung, and is quarantined
+            # all the same: only a quarantine clears a slot-bound fault
+            # (ROADMAP C.9: the reference retries a NEW slot fault that
+            # shares the last one's signature and sends it to the ladder
+            # alone, which clears nothing, until the ladder is spent or
+            # SupervisionExhausted)
+            if repeat:
+                self._degrade()
             # fault domain is a strict slot subset: evict ONLY those
             # slots through the preemption path (decoding victims carry
             # their emitted tokens and resurrect bit-identically; mid-

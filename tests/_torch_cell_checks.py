@@ -4,8 +4,13 @@ places the same smoke-size parameters, batch and decode states by the
 cell's ``in_shardings``, calls the cell, gathers what it returns, and
 holds it bit for bit to the plain function (the cell called with plain
 tensors) on the gathered inputs: on the whole batch, and on each data
-rank's share of it (the rows that rank computed).  This module imports
-torch and the port only; rank 0 writes ``<out>/cells.pt``.
+rank's share of it (the rows that rank computed).  One case is held to a
+tolerance instead: the dense family's prefill, which computes
+tensor-parallel over "model" (`distributed.tensor_parallel`), so its
+row-parallel sums add in another order.  Its float leaves are held
+within 1e-5 of each leaf's largest magnitude (float32), its integer and
+boolean leaves exactly.  This module imports torch and the port only;
+rank 0 writes ``<out>/cells.pt``.
 """
 
 from __future__ import annotations
@@ -55,6 +60,25 @@ def _equal(a, b) -> bool:
         and torch.equal(_bits(x), _bits(y)) for x, y in zip(la, lb))
 
 
+FLOAT_TOL = 1e-5     # of a leaf's largest magnitude: reordered sums
+
+
+def _close(a, b) -> bool:
+    """Float leaves within ``FLOAT_TOL`` of each leaf's largest magnitude,
+    integer and boolean leaves equal."""
+    la, lb = _leaves(a), _leaves(b)
+
+    def near(x, y):
+        if not x.dtype.is_floating_point:
+            return torch.equal(x, y)
+        err = (x.double() - y.double()).abs().max()
+        return bool(err <= FLOAT_TOL * y.double().abs().max())
+
+    return len(la) == len(lb) and all(
+        x.dtype == y.dtype and x.shape == y.shape and near(x, y)
+        for x, y in zip(la, lb))
+
+
 def _placed_as(tree, shardings) -> bool:
     return all(_leaves(zip_map(lambda t, pl: list(t.placements) == list(pl),
                                tree, shardings)))
@@ -86,18 +110,21 @@ def check_prefill(arch, mesh, params, batch, audio) -> dict:
     x = audio if arch.family == "encdec" else batch
     out = cell.fn(_place(params, mesh, psh), _place(x, mesh, bsh))
     got = _gather(out)
+    # tensor-parallel over "model": the dense family (see the docstring)
+    same = _close if arch.family == "dense" and mesh.size(1) > 1 \
+        else _equal
     share = (lambda t, i: t[i * HALF:(i + 1) * HALF])
     per_share = True
     for i in range(2):
         xi = zip_map(lambda t: share(t, i), x)
         ref = cell.fn(params, xi)
         if isinstance(got, tuple):       # (last logits, decode states)
-            per_share &= _equal(share(got[0], i), ref[0]) \
-                and _equal(_state_share(got[1], i), ref[1])
+            per_share &= same(share(got[0], i), ref[0]) \
+                and same(_state_share(got[1], i), ref[1])
         else:
-            per_share &= _equal(share(got, i), ref)
+            per_share &= same(share(got, i), ref)
     return {"out_placed": _placed_as(out, cell.out_shardings),
-            "whole_batch": _equal(got, cell.fn(params, x)),
+            "whole_batch": same(got, cell.fn(params, x)),
             "per_share": per_share}
 
 

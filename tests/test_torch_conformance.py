@@ -578,10 +578,12 @@ def _fuzz_case(name, spec_k, cancel, chaos, seed):
 
 
 # schedules on which the reference's supervisor ends in SupervisionExhausted
-# (ROADMAP C.9: a new slot fault with the last quarantine's signature once
-# the ladder is spent); the port quarantines it again and completes
+# (ROADMAP C.9: a new slot fault with the last quarantine's signature is
+# retried and sent to the ladder, which clears nothing); the port
+# quarantines it again at once and completes
 C9_EXAMPLES = [("mamba2", 1, False, 3398), ("mita", 2, True, 1375484614),
-               ("mamba2", 4, True, 383294387)]
+               ("mamba2", 4, True, 383294387), ("mita", 1, False, 1854459574),
+               ("mamba2", 4, False, 619563013)]
 
 
 @pytest.mark.parametrize("name,spec_k,cancel,seed", C9_EXAMPLES)

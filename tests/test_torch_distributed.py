@@ -8,16 +8,19 @@ checks in one go (`_torch_dist_checks`), then the assertions here.
   microbatch per data rank (a data-parallel step is that step: the MoE's
   capacity groups and aux loss are a call's, as they are a microbatch's):
   loss within 1e-6 relative, every gradient leaf within 1e-5 of its max,
-  parameters within 1e-6 of their leaf's max (these nine come out bit
-  for bit); each rank's local shapes are its ``param_specs`` shards.
-  Two cases sum their gradients in another order than the single
-  process: ``microbatch=2`` on 2 x 1 (against four microbatches) and a
+  parameters within 1e-6 of their leaf's max (seven of the nine come out
+  bit for bit); each rank's local shapes are its ``param_specs`` shards.
+  Four cases sum their gradients in another order than the single
+  process: ``microbatch=2`` on 2 x 1 (against four microbatches), a
   masked batch whose ranks count different labels (against the whole
-  batch's masked mean).  They are held to the same loss and gradient
-  tolerances, and their parameters to AdamW's bound for a rounding-level
-  gradient difference, 2 lr a step (where a gradient element is near 0,
-  m / sqrt(v) is near +-1 whatever its size; as in
-  `test_torch_train_parity.py`).
+  batch's masked mean), and qwen3-0.6b on 1 x 2 and 2 x 2, whose train
+  cell computes tensor-parallel over "model" (the dense family,
+  `distributed.tensor_parallel`): its row-parallel products and the
+  vocabulary-parallel loss add the ranks' parts in another order.  They
+  are held to the same loss and gradient tolerances, and their
+  parameters to AdamW's bound for a rounding-level gradient difference,
+  2 lr a step (where a gradient element is near 0, m / sqrt(v) is near
+  +-1 whatever its size; as in `test_torch_train_parity.py`).
 * Elastic re-placement 2 x 2 -> 1 x 2 -> one process keeps every leaf
   bit-equal.
 * Checkpoints: one written on 2 x 2 restores on 1 x 2 and in one process
@@ -79,13 +82,16 @@ def worlds(tmp_path_factory):
 def test_sharded_train_step_matches_single_process(worlds, world):
     runs = worlds[world]["train"]
     assert set(chk.ARCHS) <= set(runs)
+    split = world != "2x1"      # a "model" axis of 2 ranks
     for arch_id, r in runs.items():
         assert r["loss_rel"] <= LOSS_TOL, (arch_id, r)
         assert r["grad_rel"] <= GRAD_TOL, (arch_id, r)
-        if arch_id in chk.ARCHS:
-            assert r["param_rel"] <= PARAM_TOL, (arch_id, r)
-        else:
+        reordered = arch_id not in chk.ARCHS or (
+            split and arch_id == "qwen3-0.6b")     # tensor-parallel
+        if reordered:
             assert r["param_abs"] <= 2 * chk.OPT.lr * chk.STEPS, (arch_id, r)
+        else:
+            assert r["param_rel"] <= PARAM_TOL, (arch_id, r)
     if world == "2x1":
         assert {"qwen3-0.6b microbatch 2", "qwen3-0.6b masked"} <= set(runs)
 

@@ -6,10 +6,18 @@ ranks (`_torch_cell_checks`).
 
 * The reference's ``test_dryrun_cell_on_test_mesh`` asserts, on a smoke
   qwen3-0.6b train cell on a fake 2 x 4 mesh: temp memory >= 0, FLOPs
-  and both time terms > 0; its collectives are all-gathers of the
-  parameters over "model" and all-reduces over "data" and "model".
-* Per-rank FLOPs on D x M equal the 1 x 1 count at batch B / D, for M in
-  {1, 2, 4}: the "model" axis splits no compute (ROADMAP C.16).
+  and both time terms > 0.  Its collectives (the dense train cell is
+  tensor-parallel over "model", `distributed.tensor_parallel`):
+  all-reduces over "model" (4 ranks) and "data" (2), and, by the KV-group
+  rule (4 ranks > 2 KV heads), all-gathers of a group's wq / wk / wv
+  columns over the 2 ranks that share it and reduce-scatters of their
+  gradients.
+* Per-rank FLOPs on D x M, exactly, no tolerance: at M = 1 the 1 x 1
+  count at batch B / D; at M = 2 and 4 the 1 x 1 count at batch B / D of
+  the model with the rank's local config (heads, KV heads, FFN width and
+  vocabulary divided by M, ROADMAP C.16), plus at M = 4 the replicated
+  group work: each rank projects its KV group's 2 query heads, not its 1
+  (forward and both backward products of x @ wq's extra columns).
 * The 1 x 1 count equals ``FlopCounterMode`` over plain `train_step` on
   real CPU tensors (same batch shape).
 * FLOPs and collective bytes at depths 2, 3, 4 and 5 are exactly linear
@@ -23,7 +31,11 @@ ranks (`_torch_cell_checks`).
 * Fault 1: the prefill and decode cells of six families on a 2 x 2
   ``gloo`` group, bit-equal to the plain functions on the gathered inputs
   (the whole batch and each data rank's share); outputs placed as the
-  cell's ``out_shardings``.
+  cell's ``out_shardings``.  One case is held to a tolerance instead:
+  qwen3-0.6b's prefill, which computes tensor-parallel over "model"
+  (the dense family), so its row-parallel sums add in another order:
+  float leaves within 1e-5 of each leaf's max (float32), integer leaves
+  exact (`_torch_cell_checks._close`).
 * Fault 2: the MoE train cell traces on a fake mesh (its aux loss has a
   static shape).
 * ``run_cell``: records with the reference's keys (``trace_s`` for
@@ -78,9 +90,10 @@ def fake_group():
 
 def _smoke_qwen3(**model):
     arch = get_arch("qwen3-0.6b", smoke=True)
+    model = {"d_model": 128, "n_heads": 4, "n_kv": 2, "head_dim": 32,
+             "d_ff": 256, "vocab": 256, **model}
     return dataclasses.replace(arch, model=dataclasses.replace(
-        arch.model, d_model=128, n_heads=4, n_kv=2, head_dim=32, d_ff=256,
-        vocab=256, **model))
+        arch.model, **model))
 
 
 def test_dryrun_cell_on_test_mesh(fake_group):
@@ -93,8 +106,8 @@ def test_dryrun_cell_on_test_mesh(fake_group):
     assert roof.flops_per_chip > 0
     assert roof.t_compute > 0 and roof.t_memory > 0
     kinds = {(c["kind"], c["group"]) for c in counts.collectives}
-    assert kinds == {("all-gather", 4), ("all-reduce", 2),
-                     ("all-reduce", 4)}, kinds
+    assert kinds == {("all-gather", 2), ("all-reduce", 2),
+                     ("all-reduce", 4), ("reduce-scatter", 2)}, kinds
     assert all(c["op_name"].startswith("repro_torch/")
                for c in counts.collectives)
     assert roof.coll_bytes_per_chip > 0
@@ -102,25 +115,52 @@ def test_dryrun_cell_on_test_mesh(fake_group):
     assert cal.to_dict() == roof.to_dict()
 
 
-@pytest.fixture(scope="module")
-def one_rank_flops():
-    """The 1 x 1 count of the smoke train cell at batch 4."""
+def _one_rank_count(**model) -> float:
+    """The 1 x 1 FLOPs of the smoke train cell at batch 4."""
     cpu_log_ready()
     dr.join_fake_group(1)
     try:
         mesh = make_host_mesh(1, 1, device_type=dr.trace_device())
-        return dr._measure(_smoke_qwen3(), ShapeSpec("t", "train", SEQ, 4),
-                           mesh).flops
+        return dr._measure(_smoke_qwen3(**model),
+                           ShapeSpec("t", "train", SEQ, 4), mesh).flops
     finally:
         dist.destroy_process_group()
 
 
+@pytest.fixture(scope="module")
+def one_rank_flops():
+    """The 1 x 1 count of the smoke train cell at batch 4."""
+    return _one_rank_count()
+
+
+def _split_share_flops(m: int) -> float:
+    """What one rank of a "model" axis of ``m`` ranks computes at batch 4:
+    the local config's 1 x 1 count, plus the query columns of its KV
+    group's other heads where ``m`` exceeds the 2 KV heads."""
+    cfg = _smoke_qwen3().model
+    count = _one_rank_count(n_heads=cfg.n_heads // m,
+                            n_kv=max(cfg.n_kv // m, 1),
+                            d_ff=cfg.d_ff // m, vocab=cfg.vocab // m)
+    if m > cfg.n_kv:
+        extra = cfg.group - cfg.n_heads // m       # heads projected twice
+        # x [4 x SEQ, d] @ wq's extra columns: forward, dx and dw
+        count += cfg.n_layers * 3 * 2 * 4 * SEQ * cfg.d_model \
+            * extra * cfg.dh
+    return count
+
+
 @pytest.mark.parametrize("model", [1, 2, 4])
 def test_per_rank_flops_equal_data_share(fake_group, one_rank_flops, model):
+    """At M = 1 a rank computes the 1 x 1 count at its data share; at M
+    = 2 and 4 its tensor-parallel share of it, exactly
+    (`_split_share_flops`)."""
+    want = one_rank_flops if model == 1 else _split_share_flops(model)
     mesh = fake_group(2, model)
     got = dr._measure(_smoke_qwen3(), ShapeSpec("t", "train", SEQ, 8),
                       mesh).flops
-    assert got == one_rank_flops > 0
+    assert got == want > 0
+    if model > 1:
+        assert got < one_rank_flops
 
 
 def test_one_rank_flops_equal_plain_train_step(one_rank_flops):
