@@ -200,6 +200,19 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      processes on the card against the 1 x 1 path here, with full
      attention under every tolerance and with MiTA up to the first layer
      whose top-K picks part, those picks proven near ties;
+  then expert parallel (``phase_expert_parallel``, no port kernel on its
+     path): deepseek-moe-16b ``train_4k`` / ``prefill_32k`` and
+     internvl2-76b ``train_4k`` traced on 16 x 16 fake ``cuda`` ranks
+     (traced on the host while the card runs the 1 x 2 step) with the moe family expert-parallel and the vlm's LM
+     split over "model" (deepseek ``train_4k`` at most 0.25 of the
+     gather-once FLOPs and under 80 GiB and half the gather-once peak,
+     internvl2 at most 0.25 of its FLOPs, no collective from the
+     gather-once path); one train step and one prefill of
+     deepseek-moe-16b at full width, 2 layers (float32 compute, full
+     attention) on a 1 x 2 ``gloo`` group of two processes on the card,
+     32 experts each, against the 1 x 1 path here, under every tolerance
+     or up to the first layer whose router picks part, those proven near
+     ties;
   5. summary: one JSON line of per-kernel results (launches from each
      kernel's main path: the spec_k = 3 serve for the serving kernels,
      with the plain chunked serve's beside them, the bf16 full-sequence
@@ -3474,10 +3487,10 @@ class _MoEInputs:
         from repro_torch.models import transformer as tfm
         self.tfm, self.fn = tfm, tfm.moe_apply
 
-        def record(p, x, cfg):
+        def record(p, x, cfg, tp=None):
             if x.shape[1] > 1 and len(self.calls) < self.n:
                 self.calls.append(x.clone())
-            return self.fn(p, x, cfg)
+            return self.fn(p, x, cfg, tp)
 
         tfm.moe_apply = record
         return self
@@ -5032,26 +5045,48 @@ def tp_arch(backend: str = "mita"):
         arch.model, compute_dtype=torch.float32))
 
 
-def tp_detail_clis() -> list:
-    """`scripts/dryrun_cell_detail.py` on each of ``TP_CELLS`` (16 x 16
-    fake ranks, fake ``cuda``), one subprocess a cell, all started
-    together; returns the Popen handles and output paths."""
+def tp_detail_clis(cells=None, out_dir=None) -> list:
+    """`scripts/dryrun_cell_detail.py` on each (arch, shape) of ``cells``
+    (``TP_CELLS`` of ``TRAIN_ARCH`` by default; 16 x 16 fake ranks, fake
+    ``cuda``), one subprocess a cell, all started together, output under
+    ``out_dir`` (``TP_OUT``); returns the Popen handles and output
+    paths."""
     import os
+    cells = cells or [(TRAIN_ARCH, shape) for shape in TP_CELLS]
+    out_dir = out_dir or TP_OUT
     env = dict(os.environ)
     env["PYTHONPATH"] = os.pathsep.join(
         [str(HERE / "src")] + [x for x in (env.get("PYTHONPATH"),) if x])
-    TP_OUT.mkdir(parents=True, exist_ok=True)
+    out_dir.mkdir(parents=True, exist_ok=True)
     runs = []
-    for shape in TP_CELLS:
-        out = TP_OUT / f"detail_{shape}.json"
+    for arch, shape in cells:
+        out = out_dir / f"detail_{arch}_{shape}.json"
         with open(out, "w") as f, open(out.with_suffix(".log"), "w") as log:
             proc = subprocess.Popen(
                 [sys.executable, str(HERE / "scripts" /
                                      "dryrun_cell_detail.py"),
-                 "--arch", TRAIN_ARCH, "--shape", shape], cwd=HERE, env=env,
+                 "--arch", arch, "--shape", shape], cwd=HERE, env=env,
                 stdout=f, stderr=log)
         runs.append((proc, out))
     return runs
+
+
+def wait_detail(runs, cells, what: str) -> dict:
+    """The records of `tp_detail_clis`' subprocesses, by cell; a run that
+    failed fails the phase."""
+    out = {}
+    for (proc, path), cell in zip(runs, cells):
+        try:
+            proc.wait(timeout=600)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+        if proc.returncode != 0:
+            log = path.with_suffix(".log").read_text()
+            fail(f"{what} dry run {cell}: rc {proc.returncode} "
+                 f"{log[-2000:]}")
+        out[cell] = json.loads(path.read_text().strip().splitlines()[-1])
+    return out
 
 
 def _tp_local(tree):
@@ -5060,13 +5095,50 @@ def _tp_local(tree):
                    else t.cpu(), tree)
 
 
-def _tp_rank(proc: int, ports: list, out_dir: str) -> None:
-    """Process ``proc`` of the ``TP_BACKENDS`` groups, all on this card at
-    once: rank ``proc % 2`` of backend ``proc // 2``'s 1 x 2 group, which
-    runs the train cell's first step and the prefill cell on this rank's
-    shards; local results to ``<out_dir>/<backend><r>.pt``.  No
+def split_case(name: str):
+    """(arch, batch, sequence length) of a 1 x 2 comparison: a backend of
+    ``TP_BACKENDS`` (qwen3-0.6b, `tp_arch`) or ``"moe"`` (deepseek-moe-16b,
+    `ep_arch`)."""
+    if name == "moe":
+        return ep_arch(), EP_BATCH, EP_SEQ
+    return tp_arch(name), TP_BATCH, TP_SEQ
+
+
+class _Routes:
+    """While active, records the input (float32, on the host) and the
+    picks of the first ``n`` calls of `models.moe.route`: one a layer of a
+    forward (the recomputation of remat comes after them); none in a
+    model without experts."""
+
+    def __init__(self, n: int):
+        self.n, self.inputs, self.picks = n, [], []
+
+    def __enter__(self):
+        from repro_torch.models import moe
+        self.moe, self.fn = moe, moe.route
+
+        def record(params, tokens, cfg):
+            r = self.fn(params, tokens, cfg)
+            if len(self.picks) < self.n:
+                self.inputs.append(tokens.detach().float().cpu())
+                self.picks.append(r.gate_idx.cpu())
+            return r
+
+        moe.route = record
+        return self
+
+    def __exit__(self, *exc):
+        self.moe.route = self.fn
+
+
+def _split_rank(proc: int, names: tuple, ports: list, out_dir: str) -> None:
+    """Process ``proc`` of the 1 x 2 groups of ``names`` (`split_case`),
+    all on this card at once: rank ``proc % 2`` of case ``names[proc //
+    2]``'s group, which runs the train cell's first step and the prefill
+    cell on this rank's shards, recording the router's inputs and picks
+    (`_Routes`); local results to ``<out_dir>/<name><r>.pt``.  No
     all-gather runs: the groups are ``gloo`` on cuda tensors, which cannot
-    all-gather them (this phase's docstring)."""
+    all-gather them (`phase_tensor_parallel`'s docstring)."""
     import torch.distributed as dist
     sys.path.insert(0, str(HERE / "src"))
     import repro_torch  # noqa: F401  (TF32 off)
@@ -5077,9 +5149,9 @@ def _tp_rank(proc: int, ports: list, out_dir: str) -> None:
     from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.launch.steps import build_cell, family_fns
     from repro_torch.launch.train import train_batch
-    from repro_torch.optim import OptConfig, adamw_init
+    from repro_torch.optim import OptConfig
     from repro_torch.optim.adamw import AdamWState, tree_map
-    backend, rank = TP_BACKENDS[proc // 2], proc % 2
+    name, rank = names[proc // 2], proc % 2
     torch.cuda.set_device(0)
     dist.init_process_group(
         "gloo", init_method=f"tcp://localhost:{ports[proc // 2]}",
@@ -5087,8 +5159,9 @@ def _tp_rank(proc: int, ports: list, out_dir: str) -> None:
     try:
         ops.reset_launch_counts()
         mesh = make_host_mesh(1, 2, device_type="cuda")
-        arch = tp_arch(backend)
+        arch, batch, seq = split_case(name)
         fns = family_fns(arch)
+        n = arch.model.n_layers
         res = {}
 
         def placed(tree, shardings):
@@ -5099,31 +5172,41 @@ def _tp_rank(proc: int, ports: list, out_dir: str) -> None:
             return fns["init"](torch.Generator(device="cuda").manual_seed(0),
                                "cuda")
 
-        cell = build_cell(arch, ShapeSpec("tp", "train", TP_SEQ, TP_BATCH),
+        cell = build_cell(arch, ShapeSpec("split", "train", seq, batch),
                           mesh, opt_cfg=OptConfig())
         psh, osh, _ = cell.in_shardings
-        params = weights()
-        opt = adamw_init(params)
-        p = placed(params, psh)
-        o = AdamWState(mu=placed(opt.mu, osh.mu), nu=placed(opt.nu, osh.nu),
-                       step=placed(opt.step, osh.step))
-        del params, opt
+        p = placed(weights(), psh)
+
+        def zeros(pls):
+            # `adamw_init`'s zeros, one whole leaf at a time, then this
+            # rank's shard
+            return tree_map(lambda t, pl: distribute_tensor(
+                torch.zeros(t.shape, dtype=torch.float32, device="cuda"),
+                mesh, pl, src_data_rank=None), p, pls)
+
+        o = AdamWState(mu=zeros(osh.mu), nu=zeros(osh.nu), step=placed(
+            torch.zeros((), dtype=torch.int32, device="cuda"), osh.step))
         torch.cuda.empty_cache()
-        dcfg = DataConfig(vocab=arch.model.vocab, seq_len=TP_SEQ,
-                          global_batch=TP_BATCH)
+        dcfg = DataConfig(vocab=arch.model.vocab, seq_len=seq,
+                          global_batch=batch)
         torch.cuda.reset_peak_memory_stats()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        p, o, met = cell.fn(p, o, train_batch(arch, dcfg, 0))
-        loss = float(met["loss"])                   # synchronises
+        with _Routes(n) as routes:
+            p, o, met = cell.fn(p, o, train_batch(arch, dcfg, 0))
+            loss = float(met["loss"])               # synchronises
+        moe = p["blocks"].get("moe")
         res.update(loss=loss, step_s=time.perf_counter() - t0,
                    train_peak_gib=torch.cuda.max_memory_allocated() / 2**30,
-                   params=_tp_local(p), mu=_tp_local(o.mu))
-        del p, o, met
+                   params=_tp_local(p), mu=_tp_local(o.mu),
+                   train_routes=(routes.inputs, routes.picks),
+                   experts_local=None if moe is None
+                   else moe["wi"].to_local().shape[1])
+        del p, o, met, moe
         torch.cuda.empty_cache()
 
-        pcell = build_cell(arch, ShapeSpec("tp", "prefill", TP_SEQ,
-                                           TP_BATCH), mesh)
+        pcell = build_cell(arch, ShapeSpec("split", "prefill", seq, batch),
+                           mesh)
         ppsh, bsh = pcell.in_shardings
         pp = placed(weights(), ppsh)
         tokens = torch.as_tensor(train_batch(arch, dcfg, 0)["tokens"],
@@ -5132,55 +5215,65 @@ def _tp_rank(proc: int, ports: list, out_dir: str) -> None:
         torch.cuda.reset_peak_memory_stats()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        with torch.no_grad():
+        with torch.no_grad(), _Routes(n) as routes:
             logits, states = pcell.fn(pp, pb)
-        torch.cuda.synchronize()
+            torch.cuda.synchronize()
         res.update(prefill_s=time.perf_counter() - t0,
                    prefill_peak_gib=torch.cuda.max_memory_allocated() / 2**30,
                    logits=_tp_local(logits), states=_tp_local(states),
+                   prefill_routes=(routes.inputs, routes.picks),
                    launches=ops.launch_counts())
-        torch.save(res, f"{out_dir}/{backend}{rank}.pt")
+        torch.save(res, f"{out_dir}/{name}{rank}.pt")
     finally:
         dist.destroy_process_group()
 
 
-def tp_reference(backend: str) -> dict:
-    """The 1 x 1 path in this process on the ranks' inputs: `train_step`
-    (step 0's batch) and the plain prefill, results on the host, with the
-    step's seconds and peak."""
+def split_reference(name: str) -> dict:
+    """The 1 x 1 path of case ``name`` (`split_case`) in this process on
+    the ranks' inputs: `train_step` (step 0's batch) and the plain
+    prefill, results on the host, with the step's seconds and peak, the
+    router's inputs and picks and its weights before the step."""
     from repro_torch.data import DataConfig
     from repro_torch.launch.steps import family_fns, train_step
     from repro_torch.launch.train import train_batch
     from repro_torch.optim import OptConfig, adamw_init
-    arch = tp_arch(backend)
+    arch, batch_size, seq = split_case(name)
     fns = family_fns(arch)
-    dcfg = DataConfig(vocab=arch.model.vocab, seq_len=TP_SEQ,
-                      global_batch=TP_BATCH)
+    n = arch.model.n_layers
+    dcfg = DataConfig(vocab=arch.model.vocab, seq_len=seq,
+                      global_batch=batch_size)
 
     def weights():
         return fns["init"](torch.Generator(device="cuda").manual_seed(0),
                            "cuda")
 
     params = weights()
+    moe = params["blocks"].get("moe")
+    router = None if moe is None else moe["router"].cpu()
     opt = adamw_init(params)
     batch = train_batch(arch, dcfg, 0)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    new_p, new_o, met = train_step(params, opt, batch, fns["loss"],
-                                   OptConfig())
-    loss = float(met["loss"])
+    with _Routes(n) as routes:
+        new_p, new_o, met = train_step(params, opt, batch, fns["loss"],
+                                       OptConfig())
+        loss = float(met["loss"])
     res = dict(loss=loss, step_s=time.perf_counter() - t0,
                peak_gib=torch.cuda.max_memory_allocated() / 2**30,
-               params=_tp_local(new_p), mu=_tp_local(new_o.mu))
-    del params, opt, new_p, new_o, met
+               train_routes=(routes.inputs, routes.picks), router=router,
+               batch=batch_size)
+    del params, opt, moe
+    res.update(params=_tp_local(new_p), mu=_tp_local(new_o.mu))
+    del new_p, new_o, met
     torch.cuda.empty_cache()
     params = weights()
     tokens = torch.as_tensor(batch["tokens"], device="cuda")
-    with torch.no_grad():
-        logits, states = fns["prefill"](params, {"tokens": tokens}, TP_SEQ)
+    with torch.no_grad(), _Routes(n) as routes:
+        logits, states = fns["prefill"](params, {"tokens": tokens}, seq)
     res.update(logits=logits.cpu(), states=_tp_local(states),
-               opt_lr=OptConfig().lr)
+               opt_lr=OptConfig().lr,
+               prefill_routes=(routes.inputs, routes.picks))
     del params, logits, states
     torch.cuda.empty_cache()
     return res
@@ -5191,7 +5284,9 @@ def _tp_compare(ref: dict, ranks: list) -> dict:
     its own part of the reference (the parameters' and states' placements
     on a 1 x 2 mesh): float leaves by their largest error, relative to
     the reference leaf's largest magnitude and absolute; integer and
-    boolean leaves by their unequal elements."""
+    boolean leaves by their unequal elements.  MiTA's top-K picks layer
+    by layer (`tp_layers`) where the states hold them, and the router's
+    (`ep_layers`) where a router ran."""
     from torch.distributed.tensor import Shard
     from repro_torch.distributed import sharding as shd
     from repro_torch.launch.steps import zip_map
@@ -5201,7 +5296,7 @@ def _tp_compare(ref: dict, ranks: list) -> dict:
         "params": shd.tree_shardings(shd.param_specs(ref["params"], mesh),
                                      mesh),
         "states": shd.tree_shardings(shd.state_specs(ref["states"], mesh,
-                                                     TP_BATCH), mesh)}
+                                                     ref["batch"]), mesh)}
     shardings["mu"] = shardings["params"]
 
     def errors(key):
@@ -5230,15 +5325,15 @@ def _tp_compare(ref: dict, ranks: list) -> dict:
     _, param_abs, _, _ = errors("params")
     states_rel, _, bad, _ = errors("states")
     fields = ref["states"]._fields
+    whole = zip_map(lambda a, pl, b: torch.cat([a, b], dim=pl[1].dim)
+                    if isinstance(pl[1], Shard) else a,
+                    ranks[0]["states"], shardings["states"],
+                    ranks[1]["states"])
     layers = None
     if "expert_idx" in fields:
-        whole = zip_map(lambda a, pl, b: torch.cat([a, b], dim=pl[1].dim)
-                        if isinstance(pl[1], Shard) else a,
-                        ranks[0]["states"], shardings["states"],
-                        ranks[1]["states"])
         layers = tp_layers(zip_map(torch.Tensor.cuda, ref["states"]),
                            zip_map(torch.Tensor.cuda, whole))
-    return dict(layers=layers, grad_worst_leaf=grad_leaf,
+    res = dict(layers=layers, grad_worst_leaf=grad_leaf,
         loss_rel=max(abs(g["loss"] - ref["loss"]) / abs(ref["loss"])
                      for g in ranks),
         grad_rel=grad_rel, param_abs=param_abs,
@@ -5248,39 +5343,58 @@ def _tp_compare(ref: dict, ranks: list) -> dict:
                        .item() for g in ranks),
         states_float_rel=states_rel,
         states_int_mismatches={fields[i]: n for i, n in bad.items()})
+    if ref["router"] is not None:
+        res.update(
+            train_layers=ep_layers(ref["router"], ref["train_routes"],
+                                   ranks[0]["train_routes"]),
+            prefill_layers=ep_layers(ref["router"], ref["prefill_routes"],
+                                     ranks[0]["prefill_routes"],
+                                     ref["states"], whole))
+    return res
 
 
-def _tp_near_tie(ref, got, layer: int) -> dict:
-    """Layer ``layer``'s landmark top-K picks where the two sides' pick
-    sets differ: for every pick x that one side took and y that the
-    other took instead, the float64 gap of their scores (key . landmark
-    query, the reference side's) within what float32 rounding of the four
-    scores and the two sides' own score differences allow (`_tp_layers`'
-    proof).  Returns the landmarks and pairs seen and the largest
-    gap / bound."""
-    d = ref.k_cache.shape[-1]
-    eps = (d + 1) * 2.0 ** -24
-    a, b = ref.expert_idx[layer].long(), got.expert_idx[layer].long()
+def _near_ties(a, b, score, unit: str) -> dict:
+    """Where the two sides' pick sets ``a`` and ``b`` (indices ``[...,
+    k]``) differ: for every pick x that one side took and y that the
+    other took instead, the float64 gap of their scores (the reference
+    side's) over what float32 rounding of the four scores and the two
+    sides' own score differences allow.  ``score(side, at, idx)`` gives
+    side 0's (the reference's) or side 1's float64 scores of the picks
+    ``idx`` at position ``at`` and their float32 rounding bounds.
+    Returns the positions (``unit``) and pairs seen and the largest gap /
+    bound: at most 1 proves every differing pick a near tie."""
+    a, b = a.long(), b.long()
     differ = (a.sort(-1).values != b.sort(-1).values).any(-1).nonzero()
     worst, pairs = 0.0, 0
-    for bb, h, j in differ.tolist():
-        sa, sb = set(a[bb, h, j].tolist()), set(b[bb, h, j].tolist())
-        xs = torch.tensor(sorted(sa - sb))
-        ys = torch.tensor(sorted(sb - sa))
-
-        def scores(st, idx):
-            k = st.k_cache[layer, bb, h, idx].double()
-            q = st.lm_q[layer, bb, h, j].double()
-            return (k * q).sum(-1), eps * (k * q).abs().sum(-1)
-
-        (rx, ex), (ry, ey) = scores(ref, xs), scores(ref, ys)
-        (tx, fx), (ty, fy) = scores(got, xs), scores(got, ys)
+    for at in differ.tolist():
+        sa, sb = set(a[tuple(at)].tolist()), set(b[tuple(at)].tolist())
+        xs, ys = sorted(sa - sb), sorted(sb - sa)
+        (rx, ex), (ry, ey) = score(0, at, xs), score(0, at, ys)
+        (tx, fx), (ty, fy) = score(1, at, xs), score(1, at, ys)
         gap = (rx[:, None] - ry[None, :]).abs()
         bound = (ex[:, None] + ey[None, :] + fx[:, None] + fy[None, :]
                  + (tx - rx).abs()[:, None] + (ty - ry).abs()[None, :])
         worst = max(worst, (gap / bound).max().item())
         pairs += gap.numel()
-    return dict(landmarks=len(differ), pairs=pairs, worst_gap_over_bound=worst)
+    return {unit: len(differ), "pairs": pairs, "worst_gap_over_bound": worst}
+
+
+def _tp_near_tie(ref, got, layer: int) -> dict:
+    """Layer ``layer``'s landmark top-K picks where the two sides' pick
+    sets differ, held to `_near_ties`: a pick's score is key . landmark
+    query, its float32 rounding ``(d + 1) 2^-24`` times the sum of
+    |k_i q_i|."""
+    eps = (ref.k_cache.shape[-1] + 1) * 2.0 ** -24
+
+    def score(side, at, idx):
+        st = (ref, got)[side]
+        bb, h, j = at
+        k = st.k_cache[layer, bb, h, idx].double()
+        q = st.lm_q[layer, bb, h, j].double()
+        return (k * q).sum(-1), eps * (k * q).abs().sum(-1)
+
+    return _near_ties(ref.expert_idx[layer], got.expert_idx[layer], score,
+                      "landmarks")
 
 
 def tp_layers(ref, got) -> dict:
@@ -5309,30 +5423,30 @@ def tp_layers(ref, got) -> dict:
                                                               first))
 
 
-def tp_two_ranks() -> dict:
-    """Step b of `phase_tensor_parallel`: the 1 x 1 references here, one
-    backend after the other, then both backends' two ranks at once (four
-    processes on the card, two groups), then each backend's comparison
-    and its ranks' times and peaks."""
+def split_two_ranks(names: tuple, out_root) -> dict:
+    """The 1 x 1 references of ``names`` (`split_case`) here, one after
+    the other, then every case's two ranks at once (two processes a case
+    on the card, one group each), then each case's comparison
+    (`_tp_compare`) and its ranks' times and peaks, by name."""
     import shutil
     import socket
     import torch.multiprocessing as mp
-    refs = {b: tp_reference(b) for b in TP_BACKENDS}
-    out = TP_OUT / "ranks"
+    refs = {name: split_reference(name) for name in names}
+    out = out_root / "ranks"
     shutil.rmtree(out, ignore_errors=True)
     out.mkdir(parents=True)
     ports = []
-    for _ in TP_BACKENDS:
+    for _ in names:
         with socket.socket() as s:
             s.bind(("localhost", 0))
             ports.append(s.getsockname()[1])
     t0 = time.perf_counter()
-    mp.start_processes(_tp_rank, args=(ports, str(out)),
-                       nprocs=2 * len(TP_BACKENDS), start_method="spawn")
+    mp.start_processes(_split_rank, args=(names, ports, str(out)),
+                       nprocs=2 * len(names), start_method="spawn")
     ranks_s = time.perf_counter() - t0
     res = {}
-    for backend, ref in refs.items():
-        ranks = [torch.load(out / f"{backend}{r}.pt", weights_only=False)
+    for name, ref in refs.items():
+        ranks = [torch.load(out / f"{name}{r}.pt", weights_only=False)
                  for r in range(2)]
         two = _tp_compare(ref, ranks)
         two.update(
@@ -5341,9 +5455,10 @@ def tp_two_ranks() -> dict:
             train_peak_gib=[g["train_peak_gib"] for g in ranks],
             prefill_ms=[1e3 * g["prefill_s"] for g in ranks],
             prefill_peak_gib=[g["prefill_peak_gib"] for g in ranks],
+            experts_local=[g["experts_local"] for g in ranks],
             launches=[g["launches"] for g in ranks], ranks_s=ranks_s,
             loss=ref["loss"], rank_losses=[g["loss"] for g in ranks])
-        res[backend] = two
+        res[name] = two
         del ranks
         torch.cuda.empty_cache()
     shutil.rmtree(out, ignore_errors=True)
@@ -5401,7 +5516,7 @@ def phase_tensor_parallel(card: str) -> dict:
        (NCCL runs no two ranks on one device), both backends' pairs at
        once on this card.  One train
        step and one prefill held to the 1 x 1 path in this process
-       (`tp_reference`): loss within ``TP_LOSS_TOL``, every gradient leaf
+       (`split_reference`): loss within ``TP_LOSS_TOL``, every gradient leaf
        (AdamW's first moment) within ``TP_GRAD_TOL`` of its max,
        parameters within 2 lr of it, the prefill's logits and float state
        leaves within ``TP_FLOAT_TOL`` of their max, integer state leaves
@@ -5422,20 +5537,10 @@ def phase_tensor_parallel(card: str) -> dict:
     runs = tp_detail_clis()
     res = {"cells": {}}
     try:
-        res["two_ranks"] = tp_two_ranks()
+        res["two_ranks"] = split_two_ranks(TP_BACKENDS, TP_OUT)
     finally:
-        for proc, _ in runs:
-            try:
-                proc.wait(timeout=600)
-            except subprocess.TimeoutExpired:
-                proc.kill()
-                proc.wait()
-    for (proc, path), shape in zip(runs, TP_CELLS):
-        if proc.returncode != 0:
-            log = path.with_suffix(".log").read_text()
-            fail(f"tensor-parallel dry run {shape}: rc {proc.returncode} "
-                 f"{log[-2000:]}")
-        d = json.loads(path.read_text().strip().splitlines()[-1])
+        details = wait_detail(runs, TP_CELLS, "tensor-parallel")
+    for shape, d in details.items():
         d["gather_once"] = TP_GATHER_ONCE[shape]
         res["cells"][shape] = d
         kinds = ", ".join(f"{k} {v['issues']} x (payload "
@@ -5496,6 +5601,250 @@ def phase_tensor_parallel(card: str) -> dict:
           f"gather-once FLOPs, peak {train['peak_gib']:.2f} GiB; 1 x 2 "
           f"steps held to 1 x 1; launches {launches}")
     return res
+
+
+# ------------------------------------------------------ expert parallel --
+
+# the cells traced on 16 x 16 fake ranks, and their gather-once numbers a
+# rank (scripts/dryrun_cell_detail.py on the tree before the moe and vlm
+# splits; PERF.md)
+EP_CELLS = (("deepseek-moe-16b", "train_4k"),
+            ("deepseek-moe-16b", "prefill_32k"), ("internvl2-76b", "train_4k"))
+EP_GATHER_ONCE = {
+    ("deepseek-moe-16b", "train_4k"): dict(
+        flops_per_rank=1.579629e15, peak_gib=208.34, t_compute=1.5966,
+        t_memory=7.6940, t_collective=3.7976),
+    ("deepseek-moe-16b", "prefill_32k"): dict(
+        flops_per_rank=4.310545e14, peak_gib=103.51, t_compute=0.43567,
+        t_memory=2.2133, t_collective=1.2657),
+    ("internvl2-76b", "train_4k"): dict(
+        flops_per_rank=3.430284e16, peak_gib=792.42, t_compute=34.670,
+        t_memory=66.280, t_collective=15.874)}
+EP_PEAK_LIMIT_GIB = 80.0     # deepseek train_4k must fit a card a rank
+EP_BATCH, EP_SEQ = 2, 2048
+# depth of the 1 x 2 step: at MOE_LAYERS (4) the 1 x 1 step alone would
+# hold ~100 GB (11.1 GB of float32 weights, their gradients twice, the
+# moments and the updated tree), and the two ranks share one card; back
+# to MOE_LAYERS once AdamW updates in place (ROADMAP C.21)
+EP_LAYERS = 2
+EP_OUT = HERE / "build" / "chip_smoke_ep"
+
+
+def ep_arch():
+    """deepseek-moe-16b at full width (d 2048, 64 routed experts top-6, 2
+    shared, vocabulary 102400) and ``EP_LAYERS`` layers, float32 compute
+    (remat on), full attention: the router's picks are then the only
+    discrete decisions (the dense phase covers MiTA under the split)."""
+    import dataclasses
+    from repro_torch.configs.registry import get_arch
+    arch = get_arch(MOE_ARCH, backend="full")
+    return dataclasses.replace(arch, model=dataclasses.replace(
+        arch.model, compute_dtype=torch.float32, n_layers=EP_LAYERS))
+
+
+def _router_near_ties(router, ref_in, got_in, ref_picks, got_picks) -> dict:
+    """One layer's router decisions where the two sides' pick sets
+    differ, held to `_near_ties`: a pick's score is its logit (token .
+    router column; the softmax keeps their order), its float32 rounding
+    ``(d + 1) 2^-24`` times the sum of |x_i r_ij|."""
+    eps = (router.shape[0] + 1) * 2.0 ** -24
+    r = router.double()
+
+    def score(side, at, idx):
+        t = (ref_in, got_in)[side][tuple(at)].double()
+        return t @ r[:, idx], eps * (t[:, None].abs()
+                                      * r[:, idx].abs()).sum(0)
+
+    return _near_ties(ref_picks, got_picks, score, "tokens")
+
+
+def ep_layers(router, ref_routes, got_routes, ref_states=None,
+              got_states=None) -> dict:
+    """Two runs' router decisions layer by layer: tokens whose pick sets
+    differ, tokens whose picks differ in order only, the routing inputs'
+    largest error relative to their largest magnitude and, for a
+    prefill, each K / V cache's; at the first layer whose pick sets
+    differ (where the runs part), `_router_near_ties`' proof."""
+    rows, first = [], None
+    (ri, rp), (gi, gp) = ref_routes, got_routes
+    for layer, (x, y, a, b) in enumerate(zip(ri, gi, rp, gp)):
+        same = (a.sort(-1).values == b.sort(-1).values).all(-1)
+        row = {"sets_differ": int((~same).sum()),
+               "order_only": int(((a != b).any(-1) & same).sum()),
+               "route_in": ((x.double() - y.double()).abs().max()
+                            / x.double().abs().max().clamp_min(1e-30))
+               .item()}
+        if ref_states is not None:
+            for f in ("k_cache", "v_cache"):
+                u = getattr(ref_states, f)[layer].double()
+                v = getattr(got_states, f)[layer].double()
+                row[f] = ((u - v).abs().max()
+                          / u.abs().max().clamp_min(1e-30)).item()
+        rows.append(row)
+        if row["sets_differ"] and first is None:
+            first = layer
+    proof = None
+    if first is not None:
+        proof = _router_near_ties(router[first], ri[first], gi[first],
+                                  rp[first], gp[first])
+    return dict(rows=rows, first_parting=first, proof=proof)
+
+
+def ep_gate(two: dict) -> None:
+    """Step b's gates.  Each rank holds 32 of the 64 experts.  The train
+    step: where its router picks do not part from the 1 x 1 step's, the
+    dense phase's tolerances (loss ``TP_LOSS_TOL``, gradients
+    ``TP_GRAD_TOL`` of a leaf's max, parameters 2 lr) and every layer's
+    routing input within ``TP_FLOAT_TOL``; where they part, the routing
+    inputs up to that layer within ``TP_FLOAT_TOL`` and the layer's
+    differing picks near ties (`_router_near_ties`), the step's errors
+    recorded, not gated (every later layer sees other inputs).  The
+    prefill the same way, with its logits and float states within
+    ``TP_FLOAT_TOL``, integer states exact, and before the first parting
+    each layer's K / V caches within ``TP_FLOAT_TOL``."""
+    e = ep_arch().model.n_experts
+    if two["experts_local"] != [e // 2, e // 2]:
+        fail(f"expert-parallel 1 x 2: experts a rank {two['experts_local']}")
+    for what, layers, whole in (
+            ("train", two["train_layers"],
+             two["loss_rel"] <= TP_LOSS_TOL and two["grad_rel"] <= TP_GRAD_TOL
+             and two["param_abs"] <= two["param_bound"]),
+            ("prefill", two["prefill_layers"],
+             two["logits_rel"] <= TP_FLOAT_TOL
+             and two["states_float_rel"] <= TP_FLOAT_TOL
+             and not any(two["states_int_mismatches"].values()))):
+        first = layers["first_parting"]
+        rows = layers["rows"]
+        upto = rows if first is None else rows[:first + 1]
+        for i, row in enumerate(upto):
+            caches = [row[f] for f in ("k_cache", "v_cache") if f in row
+                      and (first is None or i < first)]
+            worst = max([row["route_in"]] + caches)
+            if worst > TP_FLOAT_TOL:
+                fail(f"expert-parallel 1 x 2 {what}: layer {i} (first "
+                     f"parting {first}) float error {worst:.3e}: {row}")
+        if first is None:
+            if not whole:
+                fail(f"expert-parallel 1 x 2 {what} against the 1 x 1 path: "
+                     + str({k: two[k] for k in (
+                         "loss_rel", "grad_rel", "param_abs", "logits_rel",
+                         "states_float_rel", "states_int_mismatches")}))
+        elif layers["proof"]["worst_gap_over_bound"] > 1.0:
+            fail(f"expert-parallel 1 x 2 {what}: layer {first}'s differing "
+                 f"router picks are not near ties: {layers['proof']}")
+
+
+def phase_expert_parallel(card: str) -> dict:
+    """Expert parallelism for the moe family and the split of the vlm's
+    LM on the "model" axis (`distributed.tensor_parallel`, `models.moe`;
+    no port kernel on its path).
+    a. The dry run of deepseek-moe-16b ``train_4k`` and ``prefill_32k``
+       and internvl2-76b ``train_4k`` on 16 x 16 fake ``cuda`` ranks
+       (`scripts/dryrun_cell_detail.py`, one subprocess a cell, started
+       first, as the dense phase's: the host traces them while the card
+       runs step b): per-rank FLOPs, peak, collectives by kind and the
+       three time terms beside the gather-once numbers
+       (``EP_GATHER_ONCE``).
+       Gates: deepseek ``train_4k``'s FLOPs a rank at most
+       ``TP_FLOPS_GATE`` of gather-once and its peak under
+       ``EP_PEAK_LIMIT_GIB`` and at most ``TP_PEAK_GATE`` of gather-once;
+       internvl2's ``train_4k`` FLOPs at most ``TP_FLOPS_GATE``; no
+       collective of the three sourced from `launch.steps._full`.
+    b. deepseek-moe-16b at full width, ``EP_LAYERS`` layers (`ep_arch`:
+       float32 compute, full attention), B ``EP_BATCH`` x ``EP_SEQ``, on
+       a 1 x 2 ``gloo`` group of two processes on this card (each rank
+       32 experts), after the dense phase's processes have exited: one
+       train step and one prefill held to the 1 x 1 path here (the dense
+       phase's `split_two_ranks` and `_tp_compare`; `ep_gate`: the dense
+       phase's tolerances, or up to the first layer where the router's
+       picks part, those proven near ties).  Step ms and peak a rank
+       printed beside the 1 x 1 numbers.
+    c. The five kernels' launch counters read 0, here and in the
+       ranks."""
+    import shutil
+    from repro_torch.kernels import ops
+    from repro_torch.launch import dryrun as dr
+    ops.reset_launch_counts()
+    shutil.rmtree(EP_OUT, ignore_errors=True)
+    runs = tp_detail_clis(EP_CELLS, EP_OUT)
+    try:
+        two = split_two_ranks(("moe",), EP_OUT)["moe"]
+    finally:
+        cells = wait_detail(runs, EP_CELLS, "expert-parallel")
+    shutil.rmtree(EP_OUT, ignore_errors=True)
+    for cell, d in cells.items():
+        g = EP_GATHER_ONCE[cell]
+        d["gather_once"] = g
+        kinds = ", ".join(f"{k} {v['issues']} x (payload "
+                          f"{v['payload_bytes']:.4e} B, ring "
+                          f"{v['ring_bytes']:.4e} B, groups {v['groups']})"
+                          for k, v in d["by_kind"].items())
+        print(f"  [expert-parallel] {cell[0]} {cell[1]} 16 x 16 a rank: "
+              f"FLOPs {d['flops_per_rank']:.6e} (gather-once "
+              f"{g['flops_per_rank']:.6e}), peak {d['peak_gib']:.2f} GiB "
+              f"({g['peak_gib']}), t_compute {d['t_compute']:.5g} s "
+              f"({g['t_compute']}), t_memory {d['t_memory']:.5g} s "
+              f"({g['t_memory']}), t_collective {d['t_collective']:.5g} s "
+              f"({g['t_collective']}), {d['bottleneck']}-bound; "
+              f"collectives: {kinds}; traced in {d['trace_s']:.1f} s")
+        full = [k for k in d["by_source"]
+                if dr.from_gather_once(k.partition(" ")[2])]
+        if full:
+            fail(f"expert-parallel {cell}: collectives from the gather-once "
+                 f"path: {full}")
+    ds = cells[("deepseek-moe-16b", "train_4k")]
+    once = EP_GATHER_ONCE[("deepseek-moe-16b", "train_4k")]
+    if ds["flops_per_rank"] > TP_FLOPS_GATE * once["flops_per_rank"]:
+        fail(f"expert-parallel deepseek train_4k: {ds['flops_per_rank']:.6e} "
+             f"FLOPs a rank, over {TP_FLOPS_GATE} x {once['flops_per_rank']}")
+    if ds["peak_gib"] >= EP_PEAK_LIMIT_GIB \
+            or ds["peak_gib"] > TP_PEAK_GATE * once["peak_gib"]:
+        fail(f"expert-parallel deepseek train_4k: peak {ds['peak_gib']:.2f} "
+             f"GiB a rank, over {EP_PEAK_LIMIT_GIB} or {TP_PEAK_GATE} x "
+             f"{once['peak_gib']}")
+    iv = cells[("internvl2-76b", "train_4k")]
+    once_iv = EP_GATHER_ONCE[("internvl2-76b", "train_4k")]
+    if iv["flops_per_rank"] > TP_FLOPS_GATE * once_iv["flops_per_rank"]:
+        fail(f"split internvl2-76b train_4k: {iv['flops_per_rank']:.6e} "
+             f"FLOPs a rank, over {TP_FLOPS_GATE} x "
+             f"{once_iv['flops_per_rank']}")
+    layer_note = {}
+    for what in ("train", "prefill"):
+        lay = two[f"{what}_layers"]
+        layer_note[what] = (
+            "no pick parts" if lay["first_parting"] is None else
+            f"picks first part at layer {lay['first_parting']} "
+            f"({lay['proof']})") + "; per layer " + ", ".join(
+            f"{i}: sets {r['sets_differ']}, order {r['order_only']}, "
+            f"input {r['route_in']:.2e}" for i, r in enumerate(lay["rows"]))
+    print(f"  [expert-parallel] 1 x 2 over gloo on {card}, {MOE_ARCH} "
+          f"{EP_LAYERS} layers, full width, full attention, B {EP_BATCH} x "
+          f"{EP_SEQ} f32, {two['experts_local']} experts a rank: loss "
+          f"{two['rank_losses']} vs 1 x 1 {two['loss']} (rel "
+          f"{two['loss_rel']:.3e}), gradients rel {two['grad_rel']:.3e} "
+          f"({two['grad_worst_leaf']}), parameters {two['param_abs']:.3e} "
+          f"(bound {two['param_bound']:.1e}); prefill logits rel "
+          f"{two['logits_rel']:.3e}, float states rel "
+          f"{two['states_float_rel']:.3e}, integer states unequal "
+          f"{two['states_int_mismatches']}; router: train "
+          f"{layer_note['train']}; prefill {layer_note['prefill']}; step ms "
+          f"per rank {two['step_ms']} (1 x 1 {two['ref_step_ms']:.1f}), "
+          f"peak GiB {two['train_peak_gib']} (1 x 1 "
+          f"{two['ref_peak_gib']:.2f}); prefill ms {two['prefill_ms']}, "
+          f"peak GiB {two['prefill_peak_gib']}; ranks {two['ranks_s']:.1f} s")
+    ep_gate(two)
+    launches = ops.launch_counts()
+    if sum(launches.values()) or any(sum(c.values())
+                                     for c in two["launches"]):
+        fail(f"the expert-parallel phase launched a port kernel: {launches}, "
+             f"ranks {two['launches']}")
+    print(f"expert parallel ({card}): deepseek-moe-16b train_4k 16 x 16 "
+          f"{ds['flops_per_rank'] / once['flops_per_rank']:.4f} of the "
+          f"gather-once FLOPs, peak {ds['peak_gib']:.2f} GiB; internvl2-76b "
+          f"{iv['flops_per_rank'] / once_iv['flops_per_rank']:.4f}; 1 x 2 "
+          f"step and prefill held to 1 x 1; launches {launches}")
+    return {"cells": {f"{a}:{sh}": d for (a, sh), d in cells.items()},
+            "two_ranks": two, "launches": launches}
 
 
 def main() -> int:
@@ -5564,6 +5913,7 @@ def main() -> int:
     distributed = timed("distributed", phase_distributed, card, training)
     dryrun = timed("dryrun", phase_dryrun, card, training)
     tensor_parallel = timed("tensor_parallel", phase_tensor_parallel, card)
+    expert_parallel = timed("expert_parallel", phase_expert_parallel, card)
     launches = dict(launches)
     launches["mita_expert_attention"] = fs_launches["mita_expert_attention"]
     launches["flash_attention"] = fs_launches["flash_attention"]
@@ -5715,7 +6065,8 @@ def main() -> int:
         "vit_parity": vit_parity, "whisper_parity": whisper_parity,
         "vision_serve": vision, "training": training,
         "vision_training": vision_training, "distributed": distributed,
-        "dryrun": dryrun, "tensor_parallel": tensor_parallel}))
+        "dryrun": dryrun, "tensor_parallel": tensor_parallel,
+        "expert_parallel": expert_parallel}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

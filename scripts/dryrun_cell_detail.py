@@ -10,14 +10,16 @@ argument and peak memory (GiB), the three roofline time terms against
 one H100, and the collectives by kind (issues, payload bytes, ring-costed
 bytes, group sizes) and by source line (``op_name``: the port's frame
 that issued them, e.g. a gathered parameter in ``launch/steps.py _full``
-or a gathered decode state in ``rank_rows``).  A host run: no card is
-needed (fake ``cuda`` tensors where one is present, else fake ``cpu``).
+or a gathered decode state in ``rank_rows``), and the trace's host
+seconds (``trace_s``).  A host run: no card is needed (fake ``cuda``
+tensors where one is present, else fake ``cpu``).
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import time
 from collections import defaultdict
 
 import torch.distributed as dist
@@ -31,7 +33,9 @@ def detail(arch_id: str, shape_name: str, multi_pod: bool) -> dict:
     arch, shape = get_arch(arch_id), SHAPES[shape_name]
     mesh = dr.fake_mesh(multi_pod)
     name = "x".join(map(str, mesh.shape))
+    t0 = time.perf_counter()
     counts = dr._measure(arch, shape, mesh)
+    trace_s = time.perf_counter() - t0
     roof = rl.from_counts(f"{arch_id}:{shape_name}", name, mesh.size(),
                           counts, model_flops=rl.model_flops_for(arch, shape))
     kinds: dict = defaultdict(lambda: {"issues": 0, "payload_bytes": 0,
@@ -58,7 +62,8 @@ def detail(arch_id: str, shape_name: str, multi_pod: bool) -> dict:
             "by_kind": {k: dict(v, groups=sorted(v["groups"]))
                         for k, v in kinds.items()},
             "by_source": dict(sorted(sources.items(),
-                                     key=lambda kv: -kv[1]))}
+                                     key=lambda kv: -kv[1])),
+            "trace_s": trace_s}
 
 
 def main(argv=None) -> None:

@@ -24,9 +24,10 @@ A mesh is a ``torch.distributed.device_mesh.DeviceMesh``; the spec
 functions read only its ``mesh_dim_names`` and ``shape``, so anything
 with those two attributes (a mesh described, not built) serves them too.
 In this port the "model" axis partitions the storage of parameters,
-gradients and optimizer moments everywhere, and the compute of the dense
-family's train and prefill cells (`distributed.tensor_parallel`); the
-other cells gather the parameters (`launch.steps`, ROADMAP C.16).
+gradients and optimizer moments everywhere, and the compute of the
+train and prefill cells of the dense and moe families and of the vlm's
+LM (`distributed.tensor_parallel`); the other cells gather the
+parameters (`launch.steps`, ROADMAP C.16).
 """
 
 from __future__ import annotations

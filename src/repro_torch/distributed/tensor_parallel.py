@@ -1,6 +1,6 @@
-"""Tensor-parallel compute on a mesh's "model" axis for the dense LM
-family's train and prefill cells (ROADMAP C.16; port-only, the reference
-leaves it to GSPMD).
+"""Tensor- and expert-parallel compute on a mesh's "model" axis for the
+transformer LM families' train and prefill cells (dense, moe and the
+vlm's LM; ROADMAP C.16; port-only, the reference leaves it to GSPMD).
 
 `model_split` plans it, and the cell then runs the port's model code on
 each rank's parameter shards (``DTensor.to_local``), as plain tensors,
@@ -14,7 +14,20 @@ them.  The model code calls this module at a few explicit points
   forward, all-reduce backward) before every column-parallel product,
   `ModelSplit.leave` (all-reduce forward, identity backward) after every
   row-parallel one.  A block makes one all-reduce a pass after
-  ``attn/wo`` and one after ``ffn/wo``.
+  ``attn/wo`` and one after its FFN (``ffn/wo``, or the whole MoE layer).
+* Expert parallelism for the moe family.  ``param_specs`` shards the
+  stacked ``moe/w[ig]`` and ``moe/wo`` over their expert dimension, so
+  the rank at coordinate i holds experts [i·E/M, (i + 1)·E/M)
+  (``experts``).  Its MoE layer (`models.moe.moe_apply`) routes every
+  token of its data share with the whole (replicated) router, over all
+  E experts, and computes only its own experts' slots; each token sums
+  its kept assignments to those experts, the shared expert adds its
+  column/row-parallel part, and one `leave` sums the ranks' parts.  The
+  local config keeps ``n_experts`` and ``d_ff`` whole: the capacity and
+  the expert width are the global ones.  The load-balance loss is whole
+  on every rank; `ModelSplit.once` gives it 1 / M of its gradient on
+  each, so that the sums over "model" (the ``enter`` before the layer,
+  the router's ``sum_over_model``) count it once.
 * The KV-group rule.  ``wq``'s columns are ordered (kv, group, dh), so
   when M divides ``n_kv`` a rank holds whole KV groups and everything it
   needs is local.  When M > ``n_kv`` (qwen3-0.6b's 8 KV heads on 16
@@ -29,11 +42,14 @@ them.  The model code calls this module at a few explicit points
   its own heads, the ``wo`` rows it holds (``own``).  Other splits
   (M neither dividing nor a multiple of ``n_kv``, or a group of heads
   that r does not divide) are not planned: the cell gathers once.
-* Replicated leaves inside the split region (``q_norm``, ``k_norm``)
-  get a partial gradient on each rank; ``sum_over_model`` marks them and
-  the train cell sums them over "model" before placing them.  Leaves
-  outside it (the norms on the residual stream, a replicated embedding)
-  get the whole gradient on every rank.
+* Replicated leaves inside the split region (``q_norm``, ``k_norm``,
+  ``moe/router``) get a partial gradient on each rank; ``sum_over_model``
+  marks them and the train cell sums them over "model" before placing
+  them.  Leaves outside it (the norms on the residual stream, a
+  replicated embedding) get the whole gradient on every rank.
+* The VLM's image embeddings overwrite the first positions after the
+  (vocabulary-parallel) lookup; they are the rank's data rows, the same
+  on every "model" rank, so the plan is the dense family's.
 * A vocabulary-parallel embedding, head and cross-entropy where
   ``emb/tok`` is ``P("model", None)`` (and ``emb/head`` ``P(None,
   "model")``): the lookup masks the ids outside the rank's rows and
@@ -58,13 +74,21 @@ from typing import Any, Optional
 import torch
 import torch.distributed as dist
 import torch.distributed._functional_collectives as funcol
-from torch.distributed.tensor import Shard
+from torch.distributed.tensor import Replicate, Shard
 
 from repro_torch.distributed.sharding import axis_sizes
 
-# the parameters a split cell computes on, by the path under a block
-_COLUMN = ("attn/wq", "attn/wk", "attn/wv", "ffn/wi", "ffn/wg")
-_ROW = ("attn/wo", "ffn/wo")
+# the placement on "model" of the parameters a split cell computes on,
+# by the path under a block: the attention, and the dense FFN or the MoE
+# layer (experts over their stacked dimension, the shared expert as a
+# dense FFN, a replicated router)
+_ATTN = {"attn/wq": Shard(2), "attn/wk": Shard(2), "attn/wv": Shard(2),
+         "attn/wo": Shard(1)}
+_FFN = {"ffn/wi": Shard(2), "ffn/wg": Shard(2), "ffn/wo": Shard(1)}
+_MOE = {"moe/wi": Shard(1), "moe/wg": Shard(1), "moe/wo": Shard(1),
+        "moe/router": Replicate()}
+_SHARED = {"moe/shared/wi": Shard(2), "moe/shared/wg": Shard(2),
+           "moe/shared/wo": Shard(1)}
 
 
 def _all_reduce(x: torch.Tensor, group, op: str = "sum") -> torch.Tensor:
@@ -97,6 +121,19 @@ class _Leave(torch.autograd.Function):
         return g, None
 
 
+class _Once(torch.autograd.Function):
+    """Identity forward, gradient divided by the group's size backward."""
+
+    @staticmethod
+    def forward(ctx, x, size):
+        ctx.size = size
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g / ctx.size, None
+
+
 class _GatherColumns(torch.autograd.Function):
     """All-gather of the last dimension over the group forward, the
     gradient reduce-scattered back backward."""
@@ -126,7 +163,7 @@ def gather_group_columns(w: torch.Tensor, group) -> torch.Tensor:
 
 @dataclasses.dataclass
 class ModelSplit:
-    """How one rank computes a dense cell with the "model" axis split
+    """How one rank computes a cell with the "model" axis split
     (`model_split` builds it)."""
     cfg: Any                       # the local ModelConfig
     group: Any                     # the "model" axis's process group
@@ -136,6 +173,7 @@ class ModelSplit:
     share_group: Any = None        # those r ranks (None when r == 1)
     own: Optional[slice] = None    # this rank's heads of its group (r > 1)
     vocab: Optional[tuple] = None  # (first id, count) of its classes
+    experts: Optional[tuple] = None  # (first expert, count) of its experts
     sum_over_model: Any = None     # tree of bools like the parameters
 
     def enter(self, x: torch.Tensor) -> torch.Tensor:
@@ -145,6 +183,13 @@ class ModelSplit:
     def leave(self, x: torch.Tensor) -> torch.Tensor:
         """After a row-parallel product: the sum of the ranks' parts."""
         return _Leave.apply(x, self.group)
+
+    def once(self, x: torch.Tensor) -> torch.Tensor:
+        """A term every rank computes whole from replicated inputs (the
+        MoE load-balance loss): the same value, 1 / M of its gradient on
+        each rank, so that the gradient sums over "model" count it
+        once."""
+        return _Once.apply(x, self.size)
 
     def sum(self, x: torch.Tensor) -> torch.Tensor:
         """``x`` summed over the "model" ranks (no gradient)."""
@@ -253,18 +298,27 @@ def _share_groups(mesh, share: int):
     return mine
 
 
+def _at(tree, path: str):
+    for key in path.split("/"):
+        tree = tree[key]
+    return tree
+
+
 def model_split(family: str, cfg, mesh, param_placements) -> \
         Optional[ModelSplit]:
-    """The plan of a dense cell on ``mesh`` whose "model" axis has M > 1
-    ranks, given the cell's parameter placements (`distributed.sharding.
-    tree_shardings` of ``param_specs``), or None: another family, M = 1,
-    or a split this module does not plan (the module docstring), where
-    the cell gathers the parameters once instead."""
+    """The plan of a dense, moe or vlm cell on ``mesh`` whose "model"
+    axis has M > 1 ranks, given the cell's parameter placements
+    (`distributed.sharding.tree_shardings` of ``param_specs``), or None:
+    another family, M = 1, or a split this module does not plan (the
+    module docstring; for the moe family, experts or a shared expert
+    that the specs replicate because M does not divide them), where the
+    cell gathers the parameters once instead."""
     m = axis_sizes(mesh).get("model", 1)
-    if family != "dense" or m == 1:
+    if family not in ("dense", "moe", "vlm") or m == 1:
         return None
+    moe = family == "moe"
     h, kv = cfg.n_heads, cfg.n_kv
-    if h % m or cfg.d_ff % m:
+    if h % m or (not moe and cfg.d_ff % m):
         return None
     if kv % m == 0:
         share = 1
@@ -273,10 +327,12 @@ def model_split(family: str, cfg, mesh, param_placements) -> \
     else:
         return None
     blocks = param_placements["blocks"]
-    for path, want in [(p, Shard(2)) for p in _COLUMN] + \
-            [(p, Shard(1)) for p in _ROW]:
-        sub, leaf = path.split("/")
-        if _model_placement(blocks[sub][leaf], mesh) != want:
+    want = dict(_ATTN)
+    want.update(_MOE if moe else _FFN)
+    if moe and "shared" in blocks["moe"]:
+        want.update(_SHARED)
+    for path, pl in want.items():
+        if _model_placement(_at(blocks, path), mesh) != pl:
             return None
     emb = param_placements["emb"]
     tok = _model_placement(emb["tok"], mesh)
@@ -289,23 +345,27 @@ def model_split(family: str, cfg, mesh, param_placements) -> \
     hl = h // m
     local = dataclasses.replace(
         cfg, head_dim=cfg.dh, n_heads=hl if share == 1 else cfg.group,
-        n_kv=kv // m if share == 1 else 1, d_ff=cfg.d_ff // m, vocab=vl)
+        n_kv=kv // m if share == 1 else 1,
+        d_ff=cfg.d_ff if moe else cfg.d_ff // m, vocab=vl)
     own = None
     if share > 1:
         s = index % share
         own = slice(s * hl, (s + 1) * hl)
+    el = cfg.n_experts // m
 
     def summed(tree, path=""):
-        # replicated leaves of the attention and FFN (q_norm, k_norm)
+        # replicated leaves of the attention, FFN and MoE layer (q_norm,
+        # k_norm, the router)
         if isinstance(tree, dict):
             return {k: summed(v, f"{path}/{k}") for k, v in tree.items()}
-        return ("/attn/" in path or "/ffn/" in path) and not isinstance(
-            _model_placement(tree, mesh), Shard)
+        return any(f"/{sub}/" in path for sub in ("attn", "ffn", "moe")) \
+            and not isinstance(_model_placement(tree, mesh), Shard)
 
     return ModelSplit(
         cfg=local, group=mesh.get_group("model"), size=m, index=index,
         share=share, share_group=_share_groups(mesh, share) if share > 1
         else None, own=own, vocab=(index * vl, vl) if vocab_split else None,
+        experts=(index * el, el) if moe else None,
         sum_over_model=summed(param_placements))
 
 

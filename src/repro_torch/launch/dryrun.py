@@ -162,6 +162,18 @@ def _source_frame() -> str:
     return ""
 
 
+def from_gather_once(op_name: str) -> bool:
+    """Whether a collective's ``op_name`` (`_source_frame`'s ``file:line
+    function``) lies in `launch.steps._full`, the path that gathers every
+    parameter once."""
+    import inspect
+    from repro_torch.launch import steps
+    lines, first = inspect.getsourcelines(steps._full)
+    path, _, rest = op_name.partition(":")
+    return (path == os.path.join("repro_torch", "launch", "steps.py")
+            and first <= int(rest.split()[0]) < first + len(lines))
+
+
 def _in_sharding_propagation() -> bool:
     """Whether DTensor's sharding propagation issued the operator: on the
     first call of an operator at given shapes it runs the operator on

@@ -14,26 +14,30 @@ dtypes, no memory) and the DTensor placements of its inputs and outputs
 (`distributed.sharding`).  Each rank takes its "data" share of the batch
 and computes in one of two ways (ROADMAP C.16):
 
-* Tensor-parallel: the dense family's train and prefill cells on a mesh
-  whose "model" axis has M > 1 ranks (`distributed.tensor_parallel`).
-  Each rank runs the model code on its own parameter shards with a local
-  config (heads, FFN width and, where the specs split it, the
-  vocabulary divided by M) and never gathers a whole weight over
-  "model": one all-reduce a block after ``attn/wo`` and one after
-  ``ffn/wo`` each pass, a vocabulary-parallel embedding and loss, and
-  the KV-group rule where M exceeds ``n_kv`` (a group's columns of wq,
-  wk and wv gathered among the ranks that share it).  Its gradients are
-  already the rank's shards; they are summed over the data ranks (and
-  over "model" for the replicated ``q_norm`` / ``k_norm``).  The prefill
-  cell assembles its logits (split over the vocabulary) and decode
-  states (split over KV heads) into their placements with one all-to-all
-  a leaf.
-* Gather-once, every other cell: the decode cells, the ``moe``,
-  ``vlm``, ``ssm``, ``hybrid`` and ``encdec`` families, any cell at M = 1
-  and a dense split that ``tensor_parallel.model_split`` does not plan.
-  Each rank gathers the full parameters once a call (and the decode
-  states over the other axes), runs the model code as it is, and places
-  what it returns; there "model" partitions memory, not compute.
+* Tensor- and expert-parallel: the train and prefill cells of the
+  transformer LM families (``dense``, ``moe`` and the ``vlm``'s LM) on a
+  mesh whose "model" axis has M > 1 ranks (`distributed.
+  tensor_parallel`).  Each rank runs the model code on its own parameter
+  shards with a local config (heads, the dense FFN's width and, where
+  the specs split it, the vocabulary divided by M) and never gathers a
+  whole weight over "model": one all-reduce a block after ``attn/wo``
+  and one after the FFN each pass, a vocabulary-parallel embedding and
+  loss, and the KV-group rule where M exceeds ``n_kv`` (a group's
+  columns of wq, wk and wv gathered among the ranks that share it).  An
+  MoE layer routes every token over all experts and computes only the
+  rank's E / M experts (and its part of the shared expert) before its
+  one all-reduce; the VLM's image embeddings are the rank's data rows.
+  Its gradients are already the rank's shards; they are summed over the
+  data ranks (and over "model" for the replicated ``q_norm``, ``k_norm``
+  and router).  The prefill cell assembles its logits (split over the
+  vocabulary) and decode states (split over KV heads) into their
+  placements with one all-to-all a leaf.
+* Gather-once, every other cell: the decode cells, the ``ssm``,
+  ``hybrid`` and ``encdec`` families, any cell at M = 1 and a split that
+  ``tensor_parallel.model_split`` does not plan.  Each rank gathers the
+  full parameters once a call (and the decode states over the other
+  axes), runs the model code as it is, and places what it returns;
+  there "model" partitions memory, not compute.
 
 A train cell's function is `sharded_train_step`, which reduces the
 gradients into the parameters' placement; a prefill or decode cell's
@@ -274,8 +278,8 @@ def sharded_train_step(params, opt_state: AdamWState, batch: dict,
     the batch (`data_rows`), computes the loss and gradients with
     `accumulate_grads` (split into ``microbatch`` slices), and turns every
     gradient into its parameter's placement: a sum over the data ranks,
-    divided by their count.  With ``split`` (the dense family with the
-    "model" axis split, `tensor_parallel.model_split`), it gathers
+    divided by their count.  With ``split`` (a transformer LM family
+    with the "model" axis split, `tensor_parallel.model_split`), it gathers
     nothing: ``loss_fn`` runs on the rank's local shards, whose gradients
     are already its shards' (summed over "model" too for the leaves
     ``split.sum_over_model`` marks).  Where the batch has a "loss_mask",
@@ -466,13 +470,16 @@ def build_cell(arch: ArchConfig, shape: ShapeSpec, mesh,
                     placed_states(st, st_sh, states))
 
         def split_prefill(p, bt):
-            """The dense prefill on this rank's shards; its logits (the
+            """The prefill on this rank's shards; its logits (the
             rank's classes where the vocabulary is split) and states (its
             KV heads, dimension 2 of every leaf but the counters)
             assembled into the cell's placements."""
+            extra = bt.get("image_embeds")
             logits, st = tfm.lm_prefill(
                 tree_map(lambda t: t.to_local(), p), rows(bt["tokens"]),
-                split.cfg, shape.seq, tp=split)
+                split.cfg, shape.seq,
+                extra_embeds=None if extra is None else rows(extra),
+                tp=split)
             by_vocab = None if split.vocab is None else (
                 lambda x, pl: split.assemble(x, -1, pl))
 

@@ -12,13 +12,22 @@ included).
 
 The reference's ``_ep_constraint`` / ``_group_constraint`` are GSPMD
 sharding hints (experts over "model" and capacity slots over the data
-axes inside the layer, identities on one device).  They have no
-counterpart here: the port's sharded train step
-(`launch.steps.sharded_train_step`) keeps the expert leaves sharded over
-"model" in storage only, gathers the full parameters before the forward,
-and runs this layer whole on each rank's data share, so no layout inside
-the layer is distributed (ROADMAP C.16).  The ``moe_groups`` knob is left
-out too: it always resolves to 16.
+axes inside the layer, identities on one device).  The port's split
+cells do expert parallelism explicitly instead (``tp``, a
+`distributed.tensor_parallel.ModelSplit`): the rank that holds experts
+[e0, e0 + E/M) (its shard of the stacked expert leaves) routes every
+token of its data share over all E experts with the whole router, builds
+only its own experts' slots, runs the experts' products on those E/M
+experts, and sums each token's kept assignments to them; the shared
+expert adds its column/row-parallel part, and one all-reduce of the
+[B, N, d] output over "model" ends the layer.  No all-to-all is needed:
+every "model" rank already holds every token of its data share (the
+residual stream is replicated over the axis), so dispatch is a local
+slice.  GSPMD's data-major to expert-major transpose would be that
+slice in and an all-gather of the experts' outputs (~K·cf·T·d elements)
+out; the all-reduce moves ~2·T·d, about 3.75x less at deepseek-moe-16b's
+K 6 and capacity factor 1.25.  The ``moe_groups`` knob is left out: it
+always resolves to 16.
 """
 
 from __future__ import annotations
@@ -131,43 +140,53 @@ def route(params: Params, tokens: torch.Tensor,
                    *_queues(gate_idx.reshape(g, tg * kk), e))
 
 
-def moe_apply(params: Params, x: torch.Tensor, cfg: nn.ModelConfig):
+def moe_apply(params: Params, x: torch.Tensor, cfg: nn.ModelConfig,
+              tp=None):
     """x: [B, N, D] in the compute dtype.  Returns (out [B, N, D], aux),
     aux the switch-style load-balance loss (float32 scalar).
 
     Per group: route, rank, keep ``slot < cap``, gather the kept tokens
     into their expert's slots (an empty slot reads token 0 and is never
     read back), the experts' SwiGLU, then each token sums its kept
-    assignments' outputs times their gates."""
+    assignments' outputs times their gates.  Under a model split
+    (``tp``; ``params`` this rank's shards, ``cfg`` with the global
+    ``n_experts``) only the rank's experts ``tp.experts`` are computed,
+    the output is summed over "model" once, and ``aux`` (whole on every
+    rank) passes its gradient there once (`ModelSplit.once`)."""
     b, n, d = x.shape
     e, kk = cfg.n_experts, cfg.moe_top_k
     ct = cfg.compute_dtype
     t = b * n
     g = math.gcd(t, MOE_GROUPS)
     tg = t // g
+    if tp is not None:
+        x = tp.enter(x)
+    e0, el = (0, e) if tp is None else tp.experts
     tokens = x.reshape(g, tg, d)
     gates, gate_w, gate_idx, cap, order, counts, starts, slot = route(
         params, tokens, cfg)
     assign = gate_idx.reshape(g, tg * kk)
     keep = slot < cap
-    dst = torch.where(keep, assign * cap + slot, e * cap)        # [G, Tg*K]
+    if tp is not None:
+        keep = keep & (assign >= e0) & (assign < e0 + el)
+    dst = torch.where(keep, (assign - e0) * cap + slot, el * cap)  # [G, Tg*K]
 
     # expert-slot sources by gather, not scatter: slot c of expert e holds
     # the assignment at sorted position starts[e] + c while c < counts[e]
     c_ar = torch.arange(cap, device=x.device)
-    pos = starts[:, :e, None] + c_ar                            # [G, E, C]
-    filled = c_ar < counts[:, :e, None]
+    pos = starts[:, e0:e0 + el, None] + c_ar                    # [G, E, C]
+    filled = c_ar < counts[:, e0:e0 + el, None]
     src = torch.gather(order, 1, torch.clamp(pos, max=tg * kk - 1)
-                       .reshape(g, e * cap)) // kk
-    src = torch.where(filled.reshape(g, e * cap), src, 0)        # [G, E*C]
+                       .reshape(g, el * cap)) // kk
+    src = torch.where(filled.reshape(g, el * cap), src, 0)       # [G, E*C]
     xe = take_rows(tokens.to(ct), src)
-    xe = xe.reshape(g, e, cap, d).transpose(0, 1).reshape(e, g * cap, d)
+    xe = xe.reshape(g, el, cap, d).transpose(0, 1).reshape(el, g * cap, d)
 
     h = torch.nn.functional.silu(torch.bmm(xe, params["wg"].to(ct)))
     h = h * torch.bmm(xe, params["wi"].to(ct))
     ye = torch.bmm(h, params["wo"].to(ct))                     # [E, G*C, d]
 
-    ye = ye.reshape(e, g, cap, d).transpose(0, 1).reshape(g, e * cap, d)
+    ye = ye.reshape(el, g, cap, d).transpose(0, 1).reshape(g, el * cap, d)
     ypad = torch.cat([ye, torch.zeros((g, 1, d), dtype=ct, device=x.device)],
                      dim=1)
     y_tok = take_rows(ypad, dst)
@@ -176,6 +195,7 @@ def moe_apply(params: Params, x: torch.Tensor, cfg: nn.ModelConfig):
     out = torch.einsum("gtkd,gtk->gtd", y_tok, w).reshape(b, n, d)
 
     if cfg.n_shared_experts:
+        # under a split: this rank's columns / rows, summed with the rest
         out = out + nn.swiglu_apply(params["shared"], x, cfg)
 
     # the reference's mean of one-hot rows: static shape [E] (a bincount's
@@ -184,4 +204,6 @@ def moe_apply(params: Params, x: torch.Tensor, cfg: nn.ModelConfig):
     frac = (first == torch.arange(e, device=x.device)).sum(0).float() / t
     imp = gates.mean(dim=(0, 1))
     aux = e * torch.sum(frac * imp)
+    if tp is not None:
+        out, aux = tp.leave(out), tp.once(aux)
     return out, aux

@@ -80,7 +80,7 @@ def block_init(gen, cfg: nn.ModelConfig, device, ffn: bool = True) -> Params:
 def _ffn(params: Params, xn, cfg: nn.ModelConfig, tp=None):
     """The block's FFN on normed activations xn [B, N, D]: (out, aux)."""
     if cfg.n_experts:
-        return moe_apply(params["moe"], xn, cfg)
+        return moe_apply(params["moe"], xn, cfg, tp)
     return nn.swiglu_apply(params["ffn"], xn, cfg, tp), 0.0
 
 
@@ -90,7 +90,8 @@ def block_apply(params: Params, x, cfg: nn.ModelConfig, positions,
     dense FFN).  ``bidir``: bidirectional attention (the ViT).  ``tp``: a
     `distributed.tensor_parallel.ModelSplit` (``params`` this rank's
     shards, ``cfg`` its local config): one all-reduce over "model" after
-    the attention and one after the FFN."""
+    the attention and one after the FFN (dense, or the MoE layer's
+    experts and shared expert together)."""
     h = nn.attention_apply(params["attn"], nn.rms_norm(x, params["ln1"]),
                            cfg, positions, bidir=bidir, tp=tp)
     x = x + h
@@ -135,7 +136,9 @@ def lm_backbone(params: Params, x, cfg: nn.ModelConfig, positions=None,
 def _embed(params: Params, tokens, cfg: nn.ModelConfig, extra_embeds=None,
            tp=None):
     """Token embeddings [B, N, D]; ``extra_embeds`` [B, P, D] (VLM)
-    overwrite the first P positions."""
+    overwrite the first P positions.  Under a model split (``tp``) the
+    lookup is summed over "model" first, and ``extra_embeds`` are the
+    rank's data rows, the same on every "model" rank."""
     x = nn.embed(params["emb"], tokens, cfg, tp)
     if extra_embeds is not None:
         p = extra_embeds.shape[1]
@@ -165,9 +168,9 @@ def lm_loss(params: Params, batch: dict, cfg: nn.ModelConfig,
     """Next-token cross-entropy of ``batch`` ("tokens", "labels", optional
     "loss_mask" and "image_embeds"; tensors or numpy arrays) plus
     ``aux_weight`` times the MoE aux loss per layer.  With
-    ``impl="pallas"`` it is forward only (scoring).  ``tp``: the dense
-    model on this rank's shards of a model split, the same loss on every
-    rank of it (`distributed.tensor_parallel`)."""
+    ``impl="pallas"`` it is forward only (scoring).  ``tp``: the model
+    (dense, MoE or the VLM's LM) on this rank's shards of a model split,
+    the same loss on every rank of it (`distributed.tensor_parallel`)."""
     dev = params["ln_f"].device
 
     def up(x):
@@ -197,10 +200,10 @@ def lm_prefill(params: Params, tokens, cfg: nn.ModelConfig, capacity: int,
                extra_embeds=None, tp=None):
     """Forward over the prompt, building per-layer decode states
     (``extra_embeds`` as in `lm_forward`).  Returns (last_logits [B, V],
-    stacked states).  Under a model split (``tp``) the states hold this
-    rank's KV heads (its group's, shared by the ranks of the group, when
-    the group spans several) and the logits its classes where the
-    vocabulary is split."""
+    stacked states).  Under a model split (``tp``: dense, MoE or the
+    VLM's LM on this rank's shards) the states hold this rank's KV heads
+    (its group's, shared by the ranks of the group, when the group spans
+    several) and the logits its classes where the vocabulary is split."""
     n = tokens.shape[1]
     positions = torch.arange(n, device=tokens.device)
     x = _embed(params, tokens, cfg, extra_embeds, tp)

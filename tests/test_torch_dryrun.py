@@ -31,9 +31,11 @@ ranks (`_torch_cell_checks`).
 * Fault 1: the prefill and decode cells of six families on a 2 x 2
   ``gloo`` group, bit-equal to the plain functions on the gathered inputs
   (the whole batch and each data rank's share); outputs placed as the
-  cell's ``out_shardings``.  One case is held to a tolerance instead:
-  qwen3-0.6b's prefill, which computes tensor-parallel over "model"
-  (the dense family), so its row-parallel sums add in another order:
+  cell's ``out_shardings``.  Three cases are held to a tolerance
+  instead: the prefills of qwen3-0.6b, deepseek-moe-16b and
+  internvl2-76b, which compute tensor- (and expert-) parallel over
+  "model" (the dense, moe and vlm families), so their row-parallel sums
+  add in another order:
   float leaves within 1e-5 of each leaf's max (float32), integer leaves
   exact (`_torch_cell_checks._close`).
 * Fault 2: the MoE train cell traces on a fake mesh (its aux loss has a

@@ -334,13 +334,13 @@ class _DropCounter:
         self.dropped = 0
         apply = ttfm.moe_apply
 
-        def counting(p, x, cfg):
+        def counting(p, x, cfg, tp=None):
             b, n, d = x.shape
             if n > 1:
                 g = math.gcd(b * n, tmoe.MOE_GROUPS)
                 r = tmoe.route(p, x.reshape(g, -1, d), cfg)
                 self.dropped += int((r.slot >= r.cap).sum())
-            return apply(p, x, cfg)
+            return apply(p, x, cfg, tp)
 
         monkeypatch.setattr(ttfm, "moe_apply", counting)
 

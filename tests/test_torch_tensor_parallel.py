@@ -1,10 +1,21 @@
-"""Tensor-parallel compute on the "model" axis for the dense family's
-train and prefill cells (`distributed.tensor_parallel`, ROADMAP C.16), on
-``gloo`` worlds of spawned CPU ranks: 1 x 2, 2 x 2 and 1 x 4 (the 1 x 4
-world has more "model" ranks than the smoke qwen3's 2 KV heads, so the
-KV-group rule gathers).  The smoke qwen3-0.6b (vocabulary 251, which
-``param_specs`` replicates) and a vocabulary-256 variant (split over
-"model"), with the reference's init converted (`repro_torch.convert`).
+"""Tensor- and expert-parallel compute on the "model" axis for the
+transformer LM families' train and prefill cells
+(`distributed.tensor_parallel`, ROADMAP C.16), on ``gloo`` worlds of
+spawned CPU ranks: 1 x 2, 2 x 2 and 1 x 4 (the 1 x 4 world has more
+"model" ranks than the smoke qwen3's 2 KV heads, so the KV-group rule
+gathers).  The smoke qwen3-0.6b (vocabulary 251, which ``param_specs``
+replicates) and a vocabulary-256 variant (split over "model"), and the
+smoke deepseek-moe-16b (8 experts top-2, one shared, 4 KV heads),
+dbrx-132b (no shared expert, 2 KV heads: at 1 x 4 the KV-group rule and
+the expert split together) and internvl2-76b (16 image-embedding rows),
+with the reference's init converted (`repro_torch.convert`).  The moe and
+vlm cases (``EP_CASES``) are held to the dense ones' checks and
+tolerances, and besides: each rank's stacked expert leaves hold its E /
+M experts, no collective comes from the gather-once path (``launch/
+steps.py`` ``_full``), and the [..., d_model] all-reduces over "model"
+are exactly one a block after the attention and one after the FFN (the
+MoE layer's experts and shared expert together) each pass: 2 x layers a
+pass, forward and backward in the train step.
 
 * The train cell's two steps against `train_step` in one process with
   one microbatch per data rank: loss within 1e-6 relative, every
@@ -24,6 +35,13 @@ KV-group rule gathers).  The smoke qwen3-0.6b (vocabulary 251, which
 * The vocabulary-parallel cross-entropy on its own against
   `cross_entropy` over the whole vocabulary, within 1e-6: a batch with a
   label in every rank's classes, plain and masked, loss and gradient.
+* The MoE layer alone under the split (`models.moe.moe_apply` with
+  ``tp``) against the whole layer on the same input, with drops, for the
+  losses ``out.sum()`` and the aux loss alone: output and aux within
+  1e-6, the gradients of the input, the router (summed over "model"),
+  the rank's expert shards and its shared-expert shards within 1e-5 of
+  their max.  The aux loss is whole on every rank; without
+  `ModelSplit.once` its gradient would be counted M times.
 * Placing a prefill or decode output makes no tensor of its global
   shape (the dry run counted one as memory before this slice), and
   `launch.steps.contiguous_stride` is a contiguous empty's stride.
@@ -48,8 +66,10 @@ import torch
 
 from repro.configs.registry import get_arch as jget_arch
 from repro.models import transformer as jtfm
+from repro_torch.configs.registry import get_arch
 from repro_torch.convert import params_from_jax, to_numpy
 from repro_torch.data import DataConfig
+from repro_torch.launch import dryrun as dr
 from repro_torch.launch import steps
 from repro_torch.launch.train import train_batch
 
@@ -63,18 +83,27 @@ JAX_TOL = dict(atol=1e-5, rtol=1e-5)
 
 
 def _jax_cfg(vocab):
+    """The reference's config of a case: a vocabulary of the smoke qwen3,
+    or a moe / vlm architecture's smoke config."""
+    if vocab in tpc.EP_ARCHS:
+        return jget_arch(vocab, smoke=True).model
     jc = jget_arch("qwen3-0.6b", smoke=True).model
     return dataclasses.replace(jc, vocab=vocab)
 
 
+def _arch(case):
+    return get_arch(case, smoke=True) if case in tpc.EP_ARCHS \
+        else tpc.smoke_arch(case)
+
+
 @pytest.fixture(scope="module")
 def reference():
-    """The reference's weights for both vocabularies, as JAX trees and
+    """The reference's weights of every case, as JAX trees and
     converted."""
     out = {}
-    for vocab in tpc.VOCABS:
-        jp = jtfm.lm_init(jax.random.PRNGKey(0), _jax_cfg(vocab))
-        out[vocab] = (jp, params_from_jax(jax.device_get(jp)))
+    for case in tpc.VOCABS + tpc.EP_ARCHS:
+        jp = jtfm.lm_init(jax.random.PRNGKey(0), _jax_cfg(case))
+        out[case] = (jp, params_from_jax(jax.device_get(jp)))
     return out
 
 
@@ -82,7 +111,7 @@ def reference():
 def worlds(tmp_path_factory, reference):
     out = tmp_path_factory.mktemp("tp")
     path = out / "params.pt"
-    torch.save({v: reference[v][1] for v in tpc.VOCABS}, path)
+    torch.save({v: reference[v][1] for v in reference}, path)
     res = {}
     for name, (d, m) in tpc.WORLDS.items():
         chk.spawn(tpc.world_tp, d * m, name, str(path), str(out))
@@ -91,6 +120,7 @@ def worlds(tmp_path_factory, reference):
 
 
 CASES = [(w, v) for w in tpc.WORLDS for v in tpc.VOCABS]
+EP_CASES = [(w, a) for w in tpc.WORLDS for a in tpc.EP_ARCHS]
 
 
 @pytest.mark.parametrize("world,vocab", CASES)
@@ -187,6 +217,136 @@ def test_slice_matches_reference(worlds, reference, world, vocab):
             np.testing.assert_array_equal(a, b, err_msg=f)
         else:
             np.testing.assert_allclose(a, b, err_msg=f, **JAX_TOL)
+
+
+def _check_train(worlds, world, case):
+    for rank, r in enumerate(worlds[world]["ranks"]):
+        t = r[case]["train"]
+        assert t["loss_rel"] <= LOSS_TOL, (rank, t)
+        assert t["grad_rel"] <= GRAD_TOL, (rank, t)
+        assert t["param_abs"] <= PARAM_ABS, (rank, t)
+        assert t["shard_shapes_bad"] == [], (rank, t)
+
+
+def _check_collectives(worlds, world, case):
+    """The dense cases' collective checks, and for every case but a
+    replicated-vocabulary dense one, the exact count of [..., d_model]
+    all-reduces over "model": one after the attention and one after the
+    FFN a block each pass, no more (no all-reduce per expert, none for
+    the shared expert apart)."""
+    cfg = _arch(case).model
+    res = worlds[world][case]
+    d, m = tpc.WORLDS[world]
+    for what, passes in (("train", 2), ("prefill", 1)):
+        record = res[what]["collectives"]
+        assert record and all(c["op_name"].startswith("repro_torch/")
+                              for c in record), what
+        assert not [c for c in record
+                    if dr.from_gather_once(c["op_name"])], what
+        assert not [c for c in record if c["kind"] == "all-gather"
+                    and c["group"] == m and m > 2], what
+        assert _weight_gathers_ok(record, world, cfg) == [], what
+        gathers = [c for c in record if c["kind"] == "all-gather"]
+        if m > cfg.n_kv:
+            assert gathers, what          # the KV-group rule ran
+        else:
+            assert not gathers, what
+        leaves = [c for c in record if c["kind"] == "all-reduce"
+                  and c["group"] == m and "tensor_parallel.py" in
+                  c["op_name"] and c["shape"][-1] == cfg.d_model]
+        assert len(leaves) >= 2 * cfg.n_layers, what
+        if case in tpc.EP_ARCHS:          # vocabulary replicated, no remat
+            assert len(leaves) == 2 * cfg.n_layers * passes, what
+
+
+def _check_reference(worlds, reference, world, case):
+    """The train cell's first loss and the gathered prefill against the
+    JAX package on the same weights, on each data rank's share of the
+    batch (an MoE's capacity groups and aux loss are a call's): the
+    shares' mean loss, their prefills joined."""
+    jp, _ = reference[case]
+    jc = _jax_cfg(case)
+    arch = _arch(case)
+    d = tpc.WORLDS[world][0]
+
+    def shares(batch):
+        return [{k: jnp.asarray(np.asarray(v)[i * len(v) // d:
+                                              (i + 1) * len(v) // d])
+                 for k, v in batch.items()} for i in range(d)]
+
+    want = float(np.mean([jtfm.lm_loss(jp, b, jc)
+                          for b in shares(tpc.batch_at(arch, 0))]))
+    res = worlds[world][case]
+    assert abs(res["train"]["loss0"] - want) <= 1e-5 * abs(want)
+    pre = res["prefill"]
+    parts = [jtfm.lm_prefill(jp, b["tokens"], jc, tpc.SEQ,
+                             extra_embeds=b.get("image_embeds"))
+             for b in shares(tpc.prefill_batch(arch))]
+    jl = np.concatenate([np.asarray(p[0]) for p in parts])
+    jst = type(parts[0][1])(*(
+        np.concatenate([np.asarray(x) for x in xs], axis=1)
+        if np.ndim(xs[0]) >= 3 else np.asarray(xs[0])
+        for xs in zip(*(p[1] for p in parts))))
+    np.testing.assert_array_equal(pre["tokens"].numpy(),
+                                  tpc.prefill_batch(arch)["tokens"].numpy())
+    np.testing.assert_allclose(pre["logits"].numpy(), jl, **JAX_TOL)
+    for f, a in to_numpy(pre["states"])._asdict().items():
+        b = getattr(jst, f)
+        if a.dtype.kind in "biu":
+            np.testing.assert_array_equal(a, b, err_msg=f)
+        else:
+            np.testing.assert_allclose(a, b, err_msg=f, **JAX_TOL)
+
+
+@pytest.mark.parametrize("world,arch_id", EP_CASES)
+def test_moe_vlm_train_cell_matches_train_step(worlds, world, arch_id):
+    _check_train(worlds, world, arch_id)
+
+
+@pytest.mark.parametrize("world,arch_id", EP_CASES)
+def test_moe_vlm_prefill_cell_matches_plain(worlds, world, arch_id):
+    for rank, r in enumerate(worlds[world]["ranks"]):
+        assert r[arch_id]["prefill"] == {"placed": True, "close": True}, \
+            rank
+
+
+@pytest.mark.parametrize("world,arch_id", EP_CASES)
+def test_moe_ranks_hold_their_experts(worlds, world, arch_id):
+    """Each rank's shard of ``moe/wi``, ``moe/wg`` and ``moe/wo`` holds E /
+    M experts (the vlm has none)."""
+    cfg = _arch(arch_id).model
+    d, m = tpc.WORLDS[world]
+    want = {k: cfg.n_experts // m for k in ("wi", "wg", "wo")} \
+        if cfg.n_experts else {}
+    for rank, r in enumerate(worlds[world]["ranks"]):
+        assert r[arch_id]["train"]["experts_local"] == want, rank
+
+
+@pytest.mark.parametrize("world,arch_id", EP_CASES)
+def test_moe_vlm_no_whole_weight_gathered_over_model(worlds, world,
+                                                      arch_id):
+    _check_collectives(worlds, world, arch_id)
+
+
+@pytest.mark.parametrize("world,arch_id", EP_CASES)
+def test_moe_vlm_slice_matches_reference(worlds, reference, world,
+                                         arch_id):
+    _check_reference(worlds, reference, world, arch_id)
+
+
+@pytest.mark.parametrize("world", list(tpc.WORLDS))
+@pytest.mark.parametrize("loss", ["out", "aux"])
+def test_moe_layer_split_matches_whole(worlds, world, loss):
+    """`moe_apply` under the split against the whole layer, for
+    ``out.sum()`` and the aux loss alone (the aux-loss trap)."""
+    for rank, r in enumerate(worlds[world]["ranks"]):
+        layer = r[tpc.VOCABS[0]]["moe_layer"]
+        assert layer["dropped"] > 0, rank
+        got = layer[loss]
+        assert got["out_rel"] <= 1e-6 and got["aux_rel"] <= 1e-6, \
+            (rank, got)
+        for name, err in got["grad_rel"].items():
+            assert err <= 1e-5, (rank, name, got)
 
 
 @pytest.mark.parametrize("shape", [(), (0,), (3,), (2, 0, 3), (4, 1, 5),
