@@ -171,7 +171,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      compute on ``synthetic_vision_batch`` B 64 x 224^2 drawn on the
      card, 12 AdamW steps (step ms, images/s, peak memory, losses
      finite), and ``benchmarks/tables.py``'s ``_train_vit`` recipe (tiny
-     ViT, 60 steps, float32) on the card and the CPU from the same
+     ViT, 60 steps, float32, deterministic algorithms) on the card and
+     the CPU from the same
      parameters (first 10 losses within 1e-4, both eval accuracies);
   then distribution (``phase_distributed``, one rank: NCCL runs no two
      ranks on one device): the training phase's full-width CLI run (the
@@ -203,16 +204,29 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
   then expert parallel (``phase_expert_parallel``, no port kernel on its
      path): deepseek-moe-16b ``train_4k`` / ``prefill_32k`` and
      internvl2-76b ``train_4k`` traced on 16 x 16 fake ``cuda`` ranks
-     (traced on the host while the card runs the 1 x 2 step) with the moe family expert-parallel and the vlm's LM
-     split over "model" (deepseek ``train_4k`` at most 0.25 of the
+     (started before the dry-run phase, traced on the host beside it and
+     the tensor-parallel phase) with the moe family expert-parallel and
+     the vlm's LM split over "model" (deepseek ``train_4k`` at most 0.25 of the
      gather-once FLOPs and under 80 GiB and half the gather-once peak,
      internvl2 at most 0.25 of its FLOPs, no collective from the
-     gather-once path); one train step and one prefill of
-     deepseek-moe-16b at full width, 2 layers (float32 compute, full
-     attention) on a 1 x 2 ``gloo`` group of two processes on the card,
-     32 experts each, against the 1 x 1 path here, under every tolerance
-     or up to the first layer whose router picks part, those proven near
-     ties;
+     gather-once path; internvl2 at 8 of its 80 layers); one train step
+     and one prefill of deepseek-moe-16b at full width, 4 layers (float32
+     compute, full attention) on a 1 x 2 ``gloo`` group of two processes
+     on the card, 32 experts each, against the 1 x 1 path here, under
+     every tolerance or up to the first layer whose router pick sets
+     part, those proven near ties (a token whose first pick alone
+     differs, a near tie too, moves the router's gradient by what the
+     load-balance loss predicts for it, which the check adds);
+  then the hybrid split (``phase_hybrid_split``, no port kernel on its
+     path): recurrentgemma-9b ``train_4k`` / ``prefill_32k`` traced on
+     16 x 16 fake ``cuda`` ranks (started before the expert-parallel
+     phase, traced beside it) with RG-LRU channels split over "model"
+     (both at most 0.25 of the gather-once FLOPs, ``train_4k`` under 80
+     GiB, no collective from the gather-once path); one train step and
+     one prefill of recurrentgemma-9b at full width, one super-block
+     (float32 compute, MiTA) on a 1 x 2 ``gloo`` group against the 1 x 1
+     path, under every tolerance or up to the first attention layer
+     whose MiTA picks part, those proven near ties;
   5. summary: one JSON line of per-kernel results (launches from each
      kernel's main path: the spec_k = 3 serve for the serving kernels,
      with the plain chunked serve's beside them, the bf16 full-sequence
@@ -4423,7 +4437,8 @@ def train_card_vs_cpu(arch_id: str, microbatch: int = 1) -> dict:
     runs = {}
     for key, dev, mb in (("ref", "cpu" if microbatch == 1 else "cuda", 1),
                          ("card", "cuda", microbatch)):
-        p = tree_map(lambda t: t.to(dev), p0)
+        # a copy: the step updates its parameters in place
+        p = tree_map(lambda t: t.to(dev, copy=True), p0)
         _, st, m = train_step(p, adamw_init(p), batch, fns["loss"], opt,
                               microbatch=mb)
         runs[key] = (float(m["loss"]), [x.cpu() for x in tree_leaves(st.mu)])
@@ -4564,26 +4579,33 @@ def recipe_cfg():
 def recipe_run(params0, device) -> dict:
     """``_train_vit``'s 60 steps on ``device`` from ``params0``: the
     losses, the eval accuracy on ``PRNGKey(9)``'s 256 images, the first
-    batch (to compare the draws across devices)."""
+    batch (to compare the draws across devices).  Under deterministic
+    algorithms, as the training entry point runs (`launch.train.
+    deterministic`): without them the backward's float atomics make two
+    runs on the card differ, and where that moves a near tie of MiTA's
+    routing the first 10 losses part past ``RECIPE_LOSS_TOL`` (by
+    1.4e-03 on an H100)."""
     from repro_torch.launch.steps import train_step
+    from repro_torch.launch.train import deterministic
     from repro_torch.models.vit import vit_accuracy, vit_loss
     from repro_torch.optim import OptConfig, adamw_init
     from repro_torch.optim.adamw import tree_map
     cfg = recipe_cfg()
     opt = OptConfig(lr=2e-3, warmup_steps=5, total_steps=RECIPE_STEPS,
                     weight_decay=0.01)
-    p = tree_map(lambda t: t.to(device), params0)
+    p = tree_map(lambda t: t.to(device, copy=True), params0)  # in place
     st = adamw_init(p)
     losses = []
     first = None
-    for i in range(RECIPE_STEPS):
-        batch = vision_batch(1000 + i, RECIPE_B, RECIPE_N, RECIPE_PATCH,
-                             device)
-        if first is None:
-            first = {k: v.cpu() for k, v in batch.items()}
-        p, st, m = train_step(p, st, batch,
-                              lambda q, b: vit_loss(q, b, cfg), opt)
-        losses.append(float(m["loss"]))
+    with deterministic(torch.device(device)):
+        for i in range(RECIPE_STEPS):
+            batch = vision_batch(1000 + i, RECIPE_B, RECIPE_N, RECIPE_PATCH,
+                                 device)
+            if first is None:
+                first = {k: v.cpu() for k, v in batch.items()}
+            p, st, m = train_step(p, st, batch,
+                                  lambda q, b: vit_loss(q, b, cfg), opt)
+            losses.append(float(m["loss"]))
     acc = float(vit_accuracy(p, vision_batch(9, 256, RECIPE_N, RECIPE_PATCH,
                                              device), cfg))
     return dict(losses=losses, eval_acc=acc, first_batch=first)
@@ -4598,8 +4620,9 @@ def phase_vision_training(card: str) -> dict:
     decay 0.01, 12 steps on ``synthetic_vision_batch(PRNGKey(1000 + i),
     ...)`` drawn on the card: step ms after the first, images/s, peak
     memory, every loss finite.  Then ``_train_vit``'s recipe (tiny ViT, N
-    128, B 32, 60 steps, float32) on the card and on the CPU from the
-    same parameters: the first 10 losses within 1e-4, both eval
+    128, B 32, 60 steps, float32, deterministic algorithms: `recipe_run`)
+    on the card and on the CPU from the same parameters: the first 10
+    losses within 1e-4, both eval
     accuracies recorded.  The five kernels' launch counters read 0."""
     from repro_torch.kernels import ops
     from repro_torch.launch.steps import train_step
@@ -5030,6 +5053,10 @@ TP_GRAD_TOL = TRAIN_GRAD_TOL
 TP_FLOAT_TOL = 1e-5        # prefill float leaves, relative to their max
 TP_OUT = HERE / "build" / "chip_smoke_tp"
 TP_BACKENDS = ("full", "mita")
+# cells traced at a cut depth: internvl2-76b train_4k at 8 of its 80
+# layers (its trace took 74.5 s at full depth; its FLOPs gate is a ratio
+# to the gather-once count at the same depth, which depth does not move)
+DETAIL_DEPTH = {("internvl2-76b", "train_4k"): 8}
 
 
 def tp_arch(backend: str = "mita"):
@@ -5048,7 +5075,8 @@ def tp_arch(backend: str = "mita"):
 def tp_detail_clis(cells=None, out_dir=None) -> list:
     """`scripts/dryrun_cell_detail.py` on each (arch, shape) of ``cells``
     (``TP_CELLS`` of ``TRAIN_ARCH`` by default; 16 x 16 fake ranks, fake
-    ``cuda``), one subprocess a cell, all started together, output under
+    ``cuda``; at the depth ``DETAIL_DEPTH`` gives, else the config's),
+    one subprocess a cell, all started together, output under
     ``out_dir`` (``TP_OUT``); returns the Popen handles and output
     paths."""
     import os
@@ -5065,8 +5093,10 @@ def tp_detail_clis(cells=None, out_dir=None) -> list:
             proc = subprocess.Popen(
                 [sys.executable, str(HERE / "scripts" /
                                      "dryrun_cell_detail.py"),
-                 "--arch", arch, "--shape", shape], cwd=HERE, env=env,
-                stdout=f, stderr=log)
+                 "--arch", arch, "--shape", shape]
+                + (["--layers", str(DETAIL_DEPTH[(arch, shape)])]
+                   if (arch, shape) in DETAIL_DEPTH else []),
+                cwd=HERE, env=env, stdout=f, stderr=log)
         runs.append((proc, out))
     return runs
 
@@ -5097,11 +5127,62 @@ def _tp_local(tree):
 
 def split_case(name: str):
     """(arch, batch, sequence length) of a 1 x 2 comparison: a backend of
-    ``TP_BACKENDS`` (qwen3-0.6b, `tp_arch`) or ``"moe"`` (deepseek-moe-16b,
-    `ep_arch`)."""
+    ``TP_BACKENDS`` (qwen3-0.6b, `tp_arch`), ``"moe"`` (deepseek-moe-16b,
+    `ep_arch`) or ``"hybrid"`` (recurrentgemma-9b, `hy_arch`)."""
     if name == "moe":
         return ep_arch(), EP_BATCH, EP_SEQ
+    if name == "hybrid":
+        return hy_arch(), HY_BATCH, HY_SEQ
     return tp_arch(name), TP_BATCH, TP_SEQ
+
+
+def _moe_of(params):
+    """The stacked MoE leaves of a parameter tree (None without them)."""
+    return params.get("blocks", {}).get("moe")
+
+
+class _MiTAPicks:
+    """While active, records the first ``n`` MiTA forward attentions'
+    landmark top-K: the keys, the landmark queries (the group axis of
+    one squeezed) and the picks (`core.mita.topk_indices`), on the host:
+    the layers of a full-sequence forward (a hybrid's prefill has no
+    decode state to read them from), in call order."""
+
+    def __init__(self, n: int):
+        self.n, self.k, self.lm_q, self.idx = n, [], [], []
+
+    def __enter__(self):
+        from repro_torch.core import mita
+        self.mita, self.scores, self.topk = (mita, mita.landmark_scores,
+                                             mita.topk_indices)
+
+        def scores(k, q_lm, cfg):
+            if len(self.k) < self.n:
+                self.k.append(k.detach().squeeze(2).cpu())
+                self.lm_q.append(q_lm.detach().squeeze(2).cpu())
+            return self.scores(k, q_lm, cfg)
+
+        def topk(s_kv, cfg):
+            out = self.topk(s_kv, cfg)
+            if len(self.idx) < self.n:
+                self.idx.append(out[0].squeeze(2).cpu())
+            return out
+
+        mita.landmark_scores, mita.topk_indices = scores, topk
+        return self
+
+    def __exit__(self, *exc):
+        self.mita.landmark_scores = self.scores
+        self.mita.topk_indices = self.topk
+
+    def states(self):
+        """The picks as a decode state's fields (``k_cache``, ``lm_q``,
+        ``expert_idx``), layers stacked first, for `tp_layers`."""
+        if not self.idx:
+            return None
+        return types.SimpleNamespace(
+            k_cache=torch.stack(self.k), lm_q=torch.stack(self.lm_q),
+            expert_idx=torch.stack(self.idx))
 
 
 class _Routes:
@@ -5131,14 +5212,18 @@ class _Routes:
         self.moe.route = self.fn
 
 
-def _split_rank(proc: int, names: tuple, ports: list, out_dir: str) -> None:
+def _split_rank(proc: int, names: tuple, ports: list, out_dir: str,
+                go) -> None:
     """Process ``proc`` of the 1 x 2 groups of ``names`` (`split_case`),
     all on this card at once: rank ``proc % 2`` of case ``names[proc //
-    2]``'s group, which runs the train cell's first step and the prefill
+    2]``'s group, which waits for ``go`` (the card free of the 1 x 1
+    references) and then runs the train cell's first step and the prefill
     cell on this rank's shards, recording the router's inputs and picks
-    (`_Routes`); local results to ``<out_dir>/<name><r>.pt``.  No
-    all-gather runs: the groups are ``gloo`` on cuda tensors, which cannot
-    all-gather them (`phase_tensor_parallel`'s docstring)."""
+    (`_Routes`); local results to ``<out_dir>/<name><r>.pt``.  The groups
+    are ``gloo`` on cuda tensors, which gloo cannot all-gather: the one
+    all-gather on these paths (the hybrid's KV-group rule and RG-LRU
+    gates, `tensor_parallel._GatherLast`) sends its shards by an
+    all-to-all there."""
     import torch.distributed as dist
     sys.path.insert(0, str(HERE / "src"))
     import repro_torch  # noqa: F401  (TF32 off)
@@ -5149,6 +5234,7 @@ def _split_rank(proc: int, names: tuple, ports: list, out_dir: str) -> None:
     from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.launch.steps import build_cell, family_fns
     from repro_torch.launch.train import train_batch
+    from repro_torch.models.rglru import n_super
     from repro_torch.optim import OptConfig
     from repro_torch.optim.adamw import AdamWState, tree_map
     name, rank = names[proc // 2], proc % 2
@@ -5175,6 +5261,7 @@ def _split_rank(proc: int, names: tuple, ports: list, out_dir: str) -> None:
         cell = build_cell(arch, ShapeSpec("split", "train", seq, batch),
                           mesh, opt_cfg=OptConfig())
         psh, osh, _ = cell.in_shardings
+        go.wait()
         p = placed(weights(), psh)
 
         def zeros(pls):
@@ -5192,14 +5279,16 @@ def _split_rank(proc: int, names: tuple, ports: list, out_dir: str) -> None:
         torch.cuda.reset_peak_memory_stats()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        with _Routes(n) as routes:
+        picks_n = n_super(arch.model) if name == "hybrid" else 0
+        with _Routes(n) as routes, _MiTAPicks(picks_n) as picks:
             p, o, met = cell.fn(p, o, train_batch(arch, dcfg, 0))
             loss = float(met["loss"])               # synchronises
-        moe = p["blocks"].get("moe")
+        moe = _moe_of(p)
         res.update(loss=loss, step_s=time.perf_counter() - t0,
                    train_peak_gib=torch.cuda.max_memory_allocated() / 2**30,
                    params=_tp_local(p), mu=_tp_local(o.mu),
                    train_routes=(routes.inputs, routes.picks),
+                   train_picks=picks.states(),
                    experts_local=None if moe is None
                    else moe["wi"].to_local().shape[1])
         del p, o, met, moe
@@ -5215,15 +5304,23 @@ def _split_rank(proc: int, names: tuple, ports: list, out_dir: str) -> None:
         torch.cuda.reset_peak_memory_stats()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        with torch.no_grad(), _Routes(n) as routes:
-            logits, states = pcell.fn(pp, pb)
+        with torch.no_grad(), _Routes(n) as routes, \
+                _MiTAPicks(picks_n) as picks:
+            out = pcell.fn(pp, pb)
             torch.cuda.synchronize()
+        # (last logits, decode states), or a hybrid's last logits alone
+        logits, states = out if isinstance(out, tuple) else (out, None)
         res.update(prefill_s=time.perf_counter() - t0,
                    prefill_peak_gib=torch.cuda.max_memory_allocated() / 2**30,
-                   logits=_tp_local(logits), states=_tp_local(states),
+                   logits=_tp_local(logits),
+                   states=None if states is None else _tp_local(states),
                    prefill_routes=(routes.inputs, routes.picks),
+                   prefill_picks=picks.states(),
                    launches=ops.launch_counts())
-        torch.save(res, f"{out_dir}/{name}{rank}.pt")
+        # the legacy format: no zip archive (and its checksums) over the
+        # rank's ~10 GB
+        torch.save(res, f"{out_dir}/{name}{rank}.pt",
+                   _use_new_zipfile_serialization=False)
     finally:
         dist.destroy_process_group()
 
@@ -5231,11 +5328,12 @@ def _split_rank(proc: int, names: tuple, ports: list, out_dir: str) -> None:
 def split_reference(name: str) -> dict:
     """The 1 x 1 path of case ``name`` (`split_case`) in this process on
     the ranks' inputs: `train_step` (step 0's batch) and the plain
-    prefill, results on the host, with the step's seconds and peak, the
+    prefill, results on the card, with the step's seconds and peak, the
     router's inputs and picks and its weights before the step."""
     from repro_torch.data import DataConfig
     from repro_torch.launch.steps import family_fns, train_step
     from repro_torch.launch.train import train_batch
+    from repro_torch.models.rglru import n_super, rg_forward
     from repro_torch.optim import OptConfig, adamw_init
     arch, batch_size, seq = split_case(name)
     fns = family_fns(arch)
@@ -5248,32 +5346,40 @@ def split_reference(name: str) -> dict:
                            "cuda")
 
     params = weights()
-    moe = params["blocks"].get("moe")
+    moe = _moe_of(params)
     router = None if moe is None else moe["router"].cpu()
     opt = adamw_init(params)
     batch = train_batch(arch, dcfg, 0)
+    picks_n = n_super(arch.model) if name == "hybrid" else 0
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    with _Routes(n) as routes:
-        new_p, new_o, met = train_step(params, opt, batch, fns["loss"],
-                                       OptConfig())
+    with _Routes(n) as routes, _MiTAPicks(picks_n) as picks:
+        # the step updates params and opt in place and returns them
+        params, opt, met = train_step(params, opt, batch, fns["loss"],
+                                      OptConfig())
         loss = float(met["loss"])
     res = dict(loss=loss, step_s=time.perf_counter() - t0,
                peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+               grad_norm=float(met["grad_norm"]),
                train_routes=(routes.inputs, routes.picks), router=router,
-               batch=batch_size)
-    del params, opt, moe
-    res.update(params=_tp_local(new_p), mu=_tp_local(new_o.mu))
-    del new_p, new_o, met
+               train_picks=picks.states(), batch=batch_size)
+    # the results stay on the card (the comparison reads them there)
+    res.update(params=params, mu=opt.mu)
+    del params, opt, met, moe
     torch.cuda.empty_cache()
     params = weights()
     tokens = torch.as_tensor(batch["tokens"], device="cuda")
-    with torch.no_grad(), _Routes(n) as routes:
-        logits, states = fns["prefill"](params, {"tokens": tokens}, seq)
-    res.update(logits=logits.cpu(), states=_tp_local(states),
-               opt_lr=OptConfig().lr,
-               prefill_routes=(routes.inputs, routes.picks))
+    with torch.no_grad(), _Routes(n) as routes, \
+            _MiTAPicks(picks_n) as picks:
+        if fns["prefill"] is None:       # the hybrid: a forward's last
+            logits, states = rg_forward(params, tokens, arch.model)[0][
+                :, -1], None
+        else:
+            logits, states = fns["prefill"](params, {"tokens": tokens}, seq)
+    res.update(logits=logits, states=states, opt_lr=OptConfig().lr,
+               prefill_routes=(routes.inputs, routes.picks),
+               prefill_picks=picks.states())
     del params, logits, states
     torch.cuda.empty_cache()
     return res
@@ -5286,70 +5392,114 @@ def _tp_compare(ref: dict, ranks: list) -> dict:
     the reference leaf's largest magnitude and absolute; integer and
     boolean leaves by their unequal elements.  MiTA's top-K picks layer
     by layer (`tp_layers`) where the states hold them, and the router's
-    (`ep_layers`) where a router ran."""
+    (`ep_layers`) where a router ran.  Where the train step's router
+    picks do not part but some tokens' first picks differ, the stacked
+    router's first moment is held to the reference's plus the change
+    that `_aux_router_shift` predicts for them (its error without it is
+    reported beside)."""
+    import inspect
     from torch.distributed.tensor import Shard
     from repro_torch.distributed import sharding as shd
     from repro_torch.launch.steps import zip_map
+    from repro_torch.models import transformer as tfm
+    from repro_torch.optim import OptConfig
     mesh = types.SimpleNamespace(mesh_dim_names=("data", "model"),
                                  shape=(1, 2))
     shardings = {
         "params": shd.tree_shardings(shd.param_specs(ref["params"], mesh),
-                                     mesh),
-        "states": shd.tree_shardings(shd.state_specs(ref["states"], mesh,
-                                                     ref["batch"]), mesh)}
+                                     mesh)}
     shardings["mu"] = shardings["params"]
+    if ref["states"] is not None:
+        shardings["states"] = shd.tree_shardings(
+            shd.state_specs(ref["states"], mesh, ref["batch"]), mesh)
 
-    def errors(key):
-        rel, ab, bad, where = 0.0, 0.0, {}, ""
-        paths = []
+    def errors(key, shift=None):
+        rel, ab, bad, where, raw = 0.0, 0.0, {}, "", {}
+        shift = shift or {}
+        paths, leaves = [], []
         shd.map_with_path(lambda path, _: paths.append(path), ref[key])
-        for r, got in enumerate(ranks):
-            leaves = []
-            zip_map(lambda a, g, pl: leaves.append((a, g, pl)), ref[key],
-                    got[key], shardings[key])
-            for i, (whole, g, pl) in enumerate(leaves):
-                want = (whole.chunk(2, dim=pl[1].dim)[r]
-                        if isinstance(pl[1], Shard) else whole).cuda()
+        zip_map(lambda a, pl, *gs: leaves.append((a, pl, gs)), ref[key],
+                shardings[key], *(got[key] for got in ranks))
+        for i, (whole, pl, gs) in enumerate(leaves):
+            whole = whole.cuda()
+            top = whole.double().abs().max().item() \
+                if whole.dtype.is_floating_point else None
+            for r, g in enumerate(gs):
+                def part(t):
+                    return (t.chunk(2, dim=pl[1].dim)[r]
+                            if isinstance(pl[1], Shard) else t)
+                want = part(whole)
                 g = g.cuda()
-                if g.dtype.is_floating_point:
-                    d = (g.double() - want.double()).abs().max().item()
-                    top = whole.cuda().double().abs().max().item()
+                if top is not None:
+                    d = g.double() - want.double()
+                    if paths[i] in shift:
+                        raw[paths[i]] = max(raw.get(paths[i], 0.0),
+                                            d.abs().max().item() / top)
+                        d = d - part(shift[paths[i]])
+                    d = d.abs().max().item()
                     ab = max(ab, d)
                     if d / max(top, 1e-30) > rel:
                         rel, where = d / max(top, 1e-30), paths[i]
                 else:
                     bad[i] = bad.get(i, 0) + int((g != want).sum())
-        return rel, ab, bad, where
+        return rel, ab, bad, where, raw
 
-    grad_rel, _, _, grad_leaf = errors("mu")
-    _, param_abs, _, _ = errors("params")
-    states_rel, _, bad, _ = errors("states")
-    fields = ref["states"]._fields
-    whole = zip_map(lambda a, pl, b: torch.cat([a, b], dim=pl[1].dim)
-                    if isinstance(pl[1], Shard) else a,
-                    ranks[0]["states"], shardings["states"],
-                    ranks[1]["states"])
-    layers = None
+    train_layers, shift, aux_shift = None, {}, {}
+    if ref["router"] is not None:
+        train_layers = ep_layers(ref["router"], ref["train_routes"],
+                                 ranks[0]["train_routes"], top1=True)
+        if train_layers["first_parting"] is None and train_layers["swaps"]:
+            opt = OptConfig()
+            router = ref["router"]
+            scale = (1 - opt.b1) * min(1.0, opt.clip_norm
+                                       / max(ref["grad_norm"], 1e-9))
+            weight = inspect.signature(tfm.lm_loss).parameters[
+                "aux_weight"].default / router.shape[0]
+            moved = torch.zeros(router.shape, dtype=torch.float64,
+                                device="cuda")
+            for layer, sw in train_layers["swaps"].items():
+                moved[layer] = _aux_router_shift(
+                    router[layer], ref["train_routes"][0][layer], sw, scale,
+                    weight, "cuda")
+            shift["blocks/moe/router"] = moved
+            aux_shift["shift_rel"] = (moved.abs().max() / ref["mu"][
+                "blocks"]["moe"]["router"].double().abs().max()).item()
+    grad_rel, _, _, grad_leaf, raw = errors("mu", shift)
+    aux_shift.update({f"{k} without it": v for k, v in raw.items()})
+    _, param_abs, _, _, _ = errors("params")
+    states_rel, bad, fields, whole, layers = 0.0, {}, (), None, None
+    if ref["states"] is not None:
+        states_rel, _, bad, _, _ = errors("states")
+        fields = ref["states"]._fields
+        whole = zip_map(lambda a, pl, b: torch.cat([a, b], dim=pl[1].dim)
+                        .cuda() if isinstance(pl[1], Shard) else a.cuda(),
+                        ranks[0]["states"], shardings["states"],
+                        ranks[1]["states"])
     if "expert_idx" in fields:
-        layers = tp_layers(zip_map(torch.Tensor.cuda, ref["states"]),
-                           zip_map(torch.Tensor.cuda, whole))
+        layers = tp_layers(zip_map(torch.Tensor.cuda, ref["states"]), whole)
     res = dict(layers=layers, grad_worst_leaf=grad_leaf,
         loss_rel=max(abs(g["loss"] - ref["loss"]) / abs(ref["loss"])
                      for g in ranks),
         grad_rel=grad_rel, param_abs=param_abs,
         param_bound=2 * ref["opt_lr"],
-        logits_rel=max(((g["logits"].double() - ref["logits"].double())
-                        .abs().max() / ref["logits"].double().abs().max())
-                       .item() for g in ranks),
+        logits_rel=max(((g["logits"].cuda().double()
+                         - ref["logits"].cuda().double()).abs().max()
+                        / ref["logits"].double().abs().max()).item()
+                       for g in ranks),
         states_float_rel=states_rel,
         states_int_mismatches={fields[i]: n for i, n in bad.items()})
     if ref["router"] is not None:
         res.update(
-            train_layers=ep_layers(ref["router"], ref["train_routes"],
-                                   ranks[0]["train_routes"]),
+            train_layers=train_layers, aux_shift=aux_shift,
             prefill_layers=ep_layers(ref["router"], ref["prefill_routes"],
                                      ranks[0]["prefill_routes"],
                                      ref["states"], whole))
+    if ref["train_picks"] is not None:
+        # MiTA's picks recorded in the forwards (the hybrid), each rank's
+        res.update({f"{what}_layers": [
+            tp_layers(ref[f"{what}_picks"], g[f"{what}_picks"],
+                      ("k_cache", "lm_q")) for g in ranks]
+            for what in ("train", "prefill")})
     return res
 
 
@@ -5397,20 +5547,22 @@ def _tp_near_tie(ref, got, layer: int) -> dict:
                       "landmarks")
 
 
-def tp_layers(ref, got) -> dict:
+def tp_layers(ref, got, fields=("k_cache", "v_cache", "lm_q", "lm_v",
+                                  "q_sum")) -> dict:
     """The two prefills' MiTA states layer by layer: landmarks whose top-K
     pick sets differ, landmarks whose picks differ in order only (a near
     tie between two picks, harmless: an expert is a set), and each float
-    leaf's largest error relative to its largest magnitude at that layer.
-    At the first layer whose pick sets differ (where the two runs part:
-    every later layer sees other inputs), `_tp_near_tie`'s proof."""
+    leaf's (of ``fields``) largest error relative to its largest magnitude
+    at that layer.  At the first layer whose pick sets differ (where the
+    two runs part: every later layer sees other inputs), `_tp_near_tie`'s
+    proof."""
     rows, first = [], None
     for layer in range(ref.k_cache.shape[0]):
         a, b = ref.expert_idx[layer], got.expert_idx[layer]
         same_set = (a.sort(-1).values == b.sort(-1).values).all(-1)
         row = {"sets_differ": int((~same_set).sum()),
                "order_only": int(((a != b).any(-1) & same_set).sum())}
-        for f in ("k_cache", "v_cache", "lm_q", "lm_v", "q_sum"):
+        for f in fields:
             x = getattr(ref, f)[layer].double()
             y = getattr(got, f)[layer].double()
             row[f] = ((x - y).abs().max()
@@ -5423,15 +5575,15 @@ def tp_layers(ref, got) -> dict:
                                                               first))
 
 
-def split_two_ranks(names: tuple, out_root) -> dict:
-    """The 1 x 1 references of ``names`` (`split_case`) here, one after
-    the other, then every case's two ranks at once (two processes a case
-    on the card, one group each), then each case's comparison
-    (`_tp_compare`) and its ranks' times and peaks, by name."""
+def split_spawn(names: tuple, out_root) -> dict:
+    """The two rank processes of each case of ``names`` (`split_case`,
+    `_split_rank`), spawned now: they start up (imports, process group,
+    cells) and wait for `split_two_ranks` to give them the card.  `main`
+    spawns every split phase's ranks this way before the tensor-parallel
+    phase, so that their start-up is off those phases' paths."""
     import shutil
     import socket
     import torch.multiprocessing as mp
-    refs = {name: split_reference(name) for name in names}
     out = out_root / "ranks"
     shutil.rmtree(out, ignore_errors=True)
     out.mkdir(parents=True)
@@ -5440,15 +5592,51 @@ def split_two_ranks(names: tuple, out_root) -> dict:
         with socket.socket() as s:
             s.bind(("localhost", 0))
             ports.append(s.getsockname()[1])
+    go = mp.get_context("spawn").Event()
+    ctx = mp.start_processes(_split_rank, args=(names, ports, str(out), go),
+                             nprocs=2 * len(names), join=False,
+                             start_method="spawn")
+    return dict(names=names, ctx=ctx, go=go, out=out)
+
+
+def split_stop(spawned: dict) -> None:
+    """Ends `split_spawn`'s processes (a phase before theirs failed)."""
+    for p in spawned["ctx"].processes:
+        p.kill()
+        p.join()
+
+
+def split_two_ranks(spawned: dict) -> dict:
+    """Every case that `split_spawn` ``spawned`` ranks for on two ranks at
+    once (two processes a case on the card, one group each) against its
+    1 x 1 reference here: the ranks start up while this process runs the
+    references, one after the other, keeping their results on the card;
+    the ranks take the card when they are done (``go``).  Then each
+    case's comparison (`_tp_compare`) and its ranks' times and peaks, by
+    name."""
+    import shutil
+    names = spawned["names"]
+    ranks_ctx, go, out = spawned["ctx"], spawned["go"], spawned["out"]
+    try:
+        t0 = time.perf_counter()
+        refs = {name: split_reference(name) for name in names}
+        refs_s = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+    except BaseException:
+        split_stop(spawned)
+        raise
+    go.set()
     t0 = time.perf_counter()
-    mp.start_processes(_split_rank, args=(names, ports, str(out)),
-                       nprocs=2 * len(names), start_method="spawn")
+    while not ranks_ctx.join():
+        pass
     ranks_s = time.perf_counter() - t0
     res = {}
     for name, ref in refs.items():
+        t0 = time.perf_counter()
         ranks = [torch.load(out / f"{name}{r}.pt", weights_only=False)
                  for r in range(2)]
         two = _tp_compare(ref, ranks)
+        two.update(refs_s=refs_s, compare_s=time.perf_counter() - t0)
         two.update(
             ref_step_ms=1e3 * ref["step_s"], ref_peak_gib=ref["peak_gib"],
             step_ms=[1e3 * g["step_s"] for g in ranks],
@@ -5460,7 +5648,8 @@ def split_two_ranks(names: tuple, out_root) -> dict:
             loss=ref["loss"], rank_losses=[g["loss"] for g in ranks])
         res[name] = two
         del ranks
-        torch.cuda.empty_cache()
+    del refs
+    torch.cuda.empty_cache()
     shutil.rmtree(out, ignore_errors=True)
     return res
 
@@ -5500,21 +5689,24 @@ def tp_gate(backend: str, two: dict) -> None:
              f"top-K picks are not near ties: {layers['proof']}")
 
 
-def phase_tensor_parallel(card: str) -> dict:
+def phase_tensor_parallel(card: str, runs: list, spawned: dict) -> dict:
     """Tensor-parallel compute on the "model" axis for the dense family's
     train and prefill cells (`distributed.tensor_parallel`; no port
     kernel on its path).
     a. The dry run of qwen3-0.6b ``train_4k`` and ``prefill_32k`` on 16 x
        16 fake ``cuda`` ranks (`scripts/dryrun_cell_detail.py`, one
-       subprocess a cell, started first): per-rank FLOPs, peak,
+       subprocess a cell: ``runs``, which `main` starts before the dry-run
+       phase, so that the host traces them beside that phase's card
+       work): per-rank FLOPs, peak,
        collectives by kind and bytes, the three time terms, beside the
        gather-once numbers (``TP_GATHER_ONCE``).  Gates: ``train_4k``'s
        FLOPs a rank at most ``TP_FLOPS_GATE`` and its peak at most
        ``TP_PEAK_GATE`` of the gather-once ones.
     b. qwen3-0.6b at full width and depth (float32 compute, remat), B 2
-       x 4096, on a 1 x 2 group: two spawned processes over ``gloo``
-       (NCCL runs no two ranks on one device), both backends' pairs at
-       once on this card.  One train
+       x 4096, on a 1 x 2 group: two processes over ``gloo`` (NCCL runs
+       no two ranks on one device; ``spawned`` by `main` after the
+       dry-run phase), both backends' pairs at once on this card.  One
+       train
        step and one prefill held to the 1 x 1 path in this process
        (`split_reference`): loss within ``TP_LOSS_TOL``, every gradient leaf
        (AdamW's first moment) within ``TP_GRAD_TOL`` of its max,
@@ -5525,19 +5717,17 @@ def phase_tensor_parallel(card: str) -> dict:
        top-K and routing decisions part at near ties at this depth, up to
        the first layer where the prefills' pick sets part and that
        layer's picks proven near ties (`tp_gate`).  Step ms (the first
-       step, as the 1 x 1 step's) and peak per rank printed.  ``gloo`` cannot all-gather cuda tensors (a segfault
-       on the H100 machine's PyTorch 2.11): the 1 x 2 path needs none
-       (all-reduces, the prefill's all-to-alls), and the ranks gather
-       nothing to compare.
+       step, as the 1 x 1 step's) and peak per rank printed.  ``gloo``
+       cannot all-gather cuda tensors (a segfault, PyTorch 2.11): this
+       path needs none (at M = 2 the KV-group rule gathers nothing, with
+       8 KV heads), and the ranks gather nothing to compare.
     c. The five kernels' launch counters read 0, here and in the ranks."""
     import shutil
     from repro_torch.kernels import ops
     ops.reset_launch_counts()
-    shutil.rmtree(TP_OUT, ignore_errors=True)
-    runs = tp_detail_clis()
     res = {"cells": {}}
     try:
-        res["two_ranks"] = split_two_ranks(TP_BACKENDS, TP_OUT)
+        res["two_ranks"] = split_two_ranks(spawned)
     finally:
         details = wait_detail(runs, TP_CELLS, "tensor-parallel")
     for shape, d in details.items():
@@ -5607,7 +5797,7 @@ def phase_tensor_parallel(card: str) -> dict:
 
 # the cells traced on 16 x 16 fake ranks, and their gather-once numbers a
 # rank (scripts/dryrun_cell_detail.py on the tree before the moe and vlm
-# splits; PERF.md)
+# splits; internvl2-76b at its traced depth, DETAIL_DEPTH; PERF.md)
 EP_CELLS = (("deepseek-moe-16b", "train_4k"),
             ("deepseek-moe-16b", "prefill_32k"), ("internvl2-76b", "train_4k"))
 EP_GATHER_ONCE = {
@@ -5618,15 +5808,14 @@ EP_GATHER_ONCE = {
         flops_per_rank=4.310545e14, peak_gib=103.51, t_compute=0.43567,
         t_memory=2.2133, t_collective=1.2657),
     ("internvl2-76b", "train_4k"): dict(
-        flops_per_rank=3.430284e16, peak_gib=792.42, t_compute=34.670,
-        t_memory=66.280, t_collective=15.874)}
+        flops_per_rank=3.802111e15, peak_gib=211.16, t_compute=3.8428,
+        t_memory=4.5042, t_collective=2.0130)}
 EP_PEAK_LIMIT_GIB = 80.0     # deepseek train_4k must fit a card a rank
 EP_BATCH, EP_SEQ = 2, 2048
-# depth of the 1 x 2 step: at MOE_LAYERS (4) the 1 x 1 step alone would
-# hold ~100 GB (11.1 GB of float32 weights, their gradients twice, the
-# moments and the updated tree), and the two ranks share one card; back
-# to MOE_LAYERS once AdamW updates in place (ROADMAP C.21)
-EP_LAYERS = 2
+# depth of the 1 x 2 step: the 1 x 1 step holds the float32 weights (11.1
+# GB at 4 layers), the two moments and one gradient copy, AdamW updating
+# in place (ROADMAP C.21)
+EP_LAYERS = MOE_LAYERS
 EP_OUT = HERE / "build" / "chip_smoke_ep"
 
 
@@ -5659,18 +5848,27 @@ def _router_near_ties(router, ref_in, got_in, ref_picks, got_picks) -> dict:
 
 
 def ep_layers(router, ref_routes, got_routes, ref_states=None,
-              got_states=None) -> dict:
+              got_states=None, top1: bool = False) -> dict:
     """Two runs' router decisions layer by layer: tokens whose pick sets
-    differ, tokens whose picks differ in order only, the routing inputs'
-    largest error relative to their largest magnitude and, for a
-    prefill, each K / V cache's; at the first layer whose pick sets
-    differ (where the runs part), `_router_near_ties`' proof."""
+    differ, tokens whose picks differ in order only (of them, those whose
+    first pick differs), the routing inputs' largest error relative to
+    their largest magnitude and, for a prefill, each K / V cache's; at
+    the first layer whose pick sets differ (where the runs part),
+    `_router_near_ties`' proof.  With ``top1`` (a train step), also each
+    earlier layer's tokens whose first pick differs: an order harmless
+    to the layer's output, but the load-balance loss counts first picks
+    (`models.moe`), so it moves the router's gradient.  For each such
+    layer, the `_router_near_ties` proof of those first picks and the
+    swaps (the tokens' positions, the reference's first picks and the
+    other side's, as lists), from which `_aux_router_shift` predicts that
+    gradient's change."""
     rows, first = [], None
     (ri, rp), (gi, gp) = ref_routes, got_routes
     for layer, (x, y, a, b) in enumerate(zip(ri, gi, rp, gp)):
         same = (a.sort(-1).values == b.sort(-1).values).all(-1)
         row = {"sets_differ": int((~same).sum()),
                "order_only": int(((a != b).any(-1) & same).sum()),
+               "top1_differ": int((a[..., 0] != b[..., 0]).sum()),
                "route_in": ((x.double() - y.double()).abs().max()
                             / x.double().abs().max().clamp_min(1e-30))
                .item()}
@@ -5687,21 +5885,70 @@ def ep_layers(router, ref_routes, got_routes, ref_states=None,
     if first is not None:
         proof = _router_near_ties(router[first], ri[first], gi[first],
                                   rp[first], gp[first])
-    return dict(rows=rows, first_parting=first, proof=proof)
+    swaps, top1_proofs = {}, {}
+    for layer in range(len(rows) if first is None else first):
+        if not (top1 and rows[layer]["top1_differ"]):
+            continue
+        a, b = rp[layer][..., 0], gp[layer][..., 0]
+        swaps[layer] = {"tokens": (a != b).nonzero().tolist(),
+                        "ref": a[a != b].tolist(), "got": b[a != b].tolist()}
+        top1_proofs[layer] = _router_near_ties(
+            router[layer], ri[layer], gi[layer], rp[layer][..., :1],
+            gp[layer][..., :1])
+    return dict(rows=rows, first_parting=first, proof=proof, swaps=swaps,
+                top1_proofs=top1_proofs)
+
+
+def _aux_router_shift(router, inputs, swaps, scale: float, weight: float,
+                      device) -> torch.Tensor:
+    """The change in one layer's router gradient that its swapped first
+    picks make, float64 on ``device``.  The load-balance loss is ``e *
+    sum_j frac_j * imp_j`` (`models.moe`), ``frac_j`` the share of the
+    layer's ``t`` tokens whose first pick is expert j (no gradient) and
+    ``imp_j`` the mean over them of softmax(x W)_j, whose derivative by
+    W is J_j = X^T [s_j (onehot_j - S)] / t.  A token whose first pick is
+    j on the reference's side and k on the other moves ``frac_j`` by -1 /
+    t and ``frac_k`` by +1 / t, so the other side's gradient is the
+    reference's plus ``weight * e / t * (J_k - J_j)``.  ``router`` [d, e]
+    and ``inputs`` [..., d] are the reference's (before the step),
+    ``swaps`` `ep_layers`' for the layer, ``weight`` the loss's factor of
+    the layer's aux loss times ``scale``, the factor from the gradient to
+    what is compared (the clip scale and the first moment's 1 - b1).  The
+    swap also moves what flows back through the routing input into the
+    earlier layers, each token by 1 / t of a term of the sum above: at
+    full size far below the tolerance, which every other leaf keeps."""
+    x = inputs.reshape(-1, inputs.shape[-1]).to(device, torch.float64)
+    w = router.to(device, torch.float64)
+    t, e = x.shape[0], w.shape[1]
+    s = torch.softmax(x @ w, dim=-1)
+    eye = torch.eye(e, dtype=torch.float64, device=device)
+
+    def jac(j: int) -> torch.Tensor:
+        return x.T @ (s[:, j:j + 1] * (eye[j] - s)) / t
+
+    shift = torch.zeros_like(w)
+    for j, k in zip(swaps["ref"], swaps["got"]):
+        shift += jac(k) - jac(j)
+    return shift * (scale * weight * e / t)
 
 
 def ep_gate(two: dict) -> None:
     """Step b's gates.  Each rank holds 32 of the 64 experts.  The train
-    step: where its router picks do not part from the 1 x 1 step's, the
-    dense phase's tolerances (loss ``TP_LOSS_TOL``, gradients
+    step: where its router pick sets do not part from the 1 x 1 step's,
+    the dense phase's tolerances (loss ``TP_LOSS_TOL``, gradients
     ``TP_GRAD_TOL`` of a leaf's max, parameters 2 lr) and every layer's
-    routing input within ``TP_FLOAT_TOL``; where they part, the routing
-    inputs up to that layer within ``TP_FLOAT_TOL`` and the layer's
-    differing picks near ties (`_router_near_ties`), the step's errors
-    recorded, not gated (every later layer sees other inputs).  The
-    prefill the same way, with its logits and float states within
-    ``TP_FLOAT_TOL``, integer states exact, and before the first parting
-    each layer's K / V caches within ``TP_FLOAT_TOL``."""
+    routing input within ``TP_FLOAT_TOL``.  Where some tokens' first
+    picks differ (an order the layer's output does not see, but the
+    load-balance loss counts), those picks must be near ties and the
+    router's gradient is held to the reference's plus the change they
+    predict (`_tp_compare`, `_aux_router_shift`), every other leaf as it
+    is.  Where the pick sets part, the routing inputs up to that layer
+    within ``TP_FLOAT_TOL`` and the layer's differing picks near ties
+    (`_router_near_ties`), the step's errors recorded, not gated (every
+    later layer sees other inputs).  The prefill the same way, with its
+    logits and float states within ``TP_FLOAT_TOL``, integer states
+    exact, and before the first parting each layer's K / V caches within
+    ``TP_FLOAT_TOL``."""
     e = ep_arch().model.n_experts
     if two["experts_local"] != [e // 2, e // 2]:
         fail(f"expert-parallel 1 x 2: experts a rank {two['experts_local']}")
@@ -5723,37 +5970,46 @@ def ep_gate(two: dict) -> None:
             if worst > TP_FLOAT_TOL:
                 fail(f"expert-parallel 1 x 2 {what}: layer {i} (first "
                      f"parting {first}) float error {worst:.3e}: {row}")
+        for i, proof in layers["top1_proofs"].items():
+            if proof["worst_gap_over_bound"] > 1.0:
+                fail(f"expert-parallel 1 x 2 {what}: layer {i}'s differing "
+                     f"first picks are not near ties: {proof}")
         if first is None:
             if not whole:
                 fail(f"expert-parallel 1 x 2 {what} against the 1 x 1 path: "
-                     + str({k: two[k] for k in (
-                         "loss_rel", "grad_rel", "param_abs", "logits_rel",
+                     + str({k: two.get(k) for k in (
+                         "loss_rel", "grad_rel", "grad_worst_leaf",
+                         "aux_shift", "param_abs", "logits_rel",
                          "states_float_rel", "states_int_mismatches")}))
         elif layers["proof"]["worst_gap_over_bound"] > 1.0:
             fail(f"expert-parallel 1 x 2 {what}: layer {first}'s differing "
                  f"router picks are not near ties: {layers['proof']}")
 
 
-def phase_expert_parallel(card: str) -> dict:
+def phase_expert_parallel(card: str, runs: list, spawned: dict) -> dict:
     """Expert parallelism for the moe family and the split of the vlm's
     LM on the "model" axis (`distributed.tensor_parallel`, `models.moe`;
     no port kernel on its path).
     a. The dry run of deepseek-moe-16b ``train_4k`` and ``prefill_32k``
        and internvl2-76b ``train_4k`` on 16 x 16 fake ``cuda`` ranks
-       (`scripts/dryrun_cell_detail.py`, one subprocess a cell, started
-       first, as the dense phase's: the host traces them while the card
-       runs step b): per-rank FLOPs, peak, collectives by kind and the
+       (`scripts/dryrun_cell_detail.py`, one subprocess a cell: ``runs``,
+       which `main` starts before the dry-run phase; the host traces them
+       while the card runs other work):
+       per-rank FLOPs, peak, collectives by kind and the
        three time terms beside the gather-once numbers
        (``EP_GATHER_ONCE``).
        Gates: deepseek ``train_4k``'s FLOPs a rank at most
        ``TP_FLOPS_GATE`` of gather-once and its peak under
        ``EP_PEAK_LIMIT_GIB`` and at most ``TP_PEAK_GATE`` of gather-once;
-       internvl2's ``train_4k`` FLOPs at most ``TP_FLOPS_GATE``; no
-       collective of the three sourced from `launch.steps._full`.
+       internvl2's ``train_4k`` (at ``DETAIL_DEPTH``'s 8 of 80 layers,
+       beside the gather-once count at that depth) FLOPs at most
+       ``TP_FLOPS_GATE``; no collective of the three sourced from
+       `launch.steps._full`.
     b. deepseek-moe-16b at full width, ``EP_LAYERS`` layers (`ep_arch`:
        float32 compute, full attention), B ``EP_BATCH`` x ``EP_SEQ``, on
        a 1 x 2 ``gloo`` group of two processes on this card (each rank
-       32 experts), after the dense phase's processes have exited: one
+       32 experts; ``spawned`` by `main` before the dense phase), after
+       the dense phase's processes have exited: one
        train step and one prefill held to the 1 x 1 path here (the dense
        phase's `split_two_ranks` and `_tp_compare`; `ep_gate`: the dense
        phase's tolerances, or up to the first layer where the router's
@@ -5765,10 +6021,8 @@ def phase_expert_parallel(card: str) -> dict:
     from repro_torch.kernels import ops
     from repro_torch.launch import dryrun as dr
     ops.reset_launch_counts()
-    shutil.rmtree(EP_OUT, ignore_errors=True)
-    runs = tp_detail_clis(EP_CELLS, EP_OUT)
     try:
-        two = split_two_ranks(("moe",), EP_OUT)["moe"]
+        two = split_two_ranks(spawned)["moe"]
     finally:
         cells = wait_detail(runs, EP_CELLS, "expert-parallel")
     shutil.rmtree(EP_OUT, ignore_errors=True)
@@ -5814,15 +6068,20 @@ def phase_expert_parallel(card: str) -> dict:
         layer_note[what] = (
             "no pick parts" if lay["first_parting"] is None else
             f"picks first part at layer {lay['first_parting']} "
-            f"({lay['proof']})") + "; per layer " + ", ".join(
-            f"{i}: sets {r['sets_differ']}, order {r['order_only']}, "
-            f"input {r['route_in']:.2e}" for i, r in enumerate(lay["rows"]))
+            f"({lay['proof']})") + (
+            f"; first picks differ at layers {lay['top1_proofs']}"
+            if lay["top1_proofs"] else "") + "; per layer " + ", ".join(
+            f"{i}: sets {r['sets_differ']}, order {r['order_only']} (first "
+            f"pick {r['top1_differ']}), input {r['route_in']:.2e}"
+            for i, r in enumerate(lay["rows"]))
     print(f"  [expert-parallel] 1 x 2 over gloo on {card}, {MOE_ARCH} "
           f"{EP_LAYERS} layers, full width, full attention, B {EP_BATCH} x "
           f"{EP_SEQ} f32, {two['experts_local']} experts a rank: loss "
           f"{two['rank_losses']} vs 1 x 1 {two['loss']} (rel "
           f"{two['loss_rel']:.3e}), gradients rel {two['grad_rel']:.3e} "
-          f"({two['grad_worst_leaf']}), parameters {two['param_abs']:.3e} "
+          f"({two['grad_worst_leaf']}; the router's predicted change for "
+          f"differing first picks {two['aux_shift']}), parameters "
+          f"{two['param_abs']:.3e} "
           f"(bound {two['param_bound']:.1e}); prefill logits rel "
           f"{two['logits_rel']:.3e}, float states rel "
           f"{two['states_float_rel']:.3e}, integer states unequal "
@@ -5831,7 +6090,9 @@ def phase_expert_parallel(card: str) -> dict:
           f"per rank {two['step_ms']} (1 x 1 {two['ref_step_ms']:.1f}), "
           f"peak GiB {two['train_peak_gib']} (1 x 1 "
           f"{two['ref_peak_gib']:.2f}); prefill ms {two['prefill_ms']}, "
-          f"peak GiB {two['prefill_peak_gib']}; ranks {two['ranks_s']:.1f} s")
+          f"peak GiB {two['prefill_peak_gib']}; references "
+          f"{two['refs_s']:.1f} s, ranks {two['ranks_s']:.1f} s, compared "
+          f"in {two['compare_s']:.1f} s")
     ep_gate(two)
     launches = ops.launch_counts()
     if sum(launches.values()) or any(sum(c.values())
@@ -5845,6 +6106,187 @@ def phase_expert_parallel(card: str) -> dict:
           f"step and prefill held to 1 x 1; launches {launches}")
     return {"cells": {f"{a}:{sh}": d for (a, sh), d in cells.items()},
             "two_ranks": two, "launches": launches}
+
+
+# ------------------------------------------------ hybrid split (RG-LRU) --
+
+HY_ARCH = "recurrentgemma-9b"
+HY_CELLS = ((HY_ARCH, "train_4k"), (HY_ARCH, "prefill_32k"))
+# recurrentgemma-9b a rank of 16 x 16 on the gather-once cells
+# (scripts/dryrun_cell_detail.py on the tree before the hybrid split;
+# PERF.md)
+HY_GATHER_ONCE = {
+    (HY_ARCH, "train_4k"): dict(
+        flops_per_rank=3.808957e15, peak_gib=361.80, t_compute=3.8498,
+        t_memory=11.7213, t_collective=1.9504),
+    (HY_ARCH, "prefill_32k"): dict(
+        flops_per_rank=1.011362e15, peak_gib=68.01, t_compute=1.0222,
+        t_memory=3.0157, t_collective=0.6501)}
+HY_PEAK_LIMIT_GIB = 80.0     # train_4k must fit a card a rank
+HY_BATCH, HY_SEQ = 2, 2048
+HY_LAYERS = 3                # one super-block: RG-LRU, RG-LRU, attention
+HY_OUT = HERE / "build" / "chip_smoke_hy"
+
+
+def hy_arch():
+    """recurrentgemma-9b at full width (d 4096, 16 heads of 256, MQA,
+    d_ff 12288, vocabulary 256000, which splits on 2 ranks) and
+    ``HY_LAYERS`` layers, float32 compute (remat on), its MiTA backend
+    (``impl="sorted"``)."""
+    import dataclasses
+    from repro_torch.configs.registry import get_arch
+    arch = get_arch(HY_ARCH)
+    return dataclasses.replace(arch, model=dataclasses.replace(
+        arch.model, compute_dtype=torch.float32, n_layers=HY_LAYERS))
+
+
+def hy_gate(two: dict) -> None:
+    """Step b's gates, for each of the train step and the prefill: where
+    no attention layer's MiTA pick sets part from the 1 x 1 path's (on
+    either rank), the dense phase's tolerances (loss ``TP_LOSS_TOL``,
+    gradients ``TP_GRAD_TOL`` of a leaf's max, parameters 2 lr; the
+    last logits ``TP_FLOAT_TOL``); where they part, the keys and
+    landmark queries of every attention layer up to that one within
+    ``TP_FLOAT_TOL`` and its differing picks near ties (`_tp_near_tie`),
+    the step's errors recorded, not gated (every later layer sees other
+    inputs)."""
+    for what, whole in (
+            ("train", two["loss_rel"] <= TP_LOSS_TOL
+             and two["grad_rel"] <= TP_GRAD_TOL
+             and two["param_abs"] <= two["param_bound"]),
+            ("prefill", two["logits_rel"] <= TP_FLOAT_TOL)):
+        parted = False
+        for r, layers in enumerate(two[f"{what}_layers"]):
+            first = layers["first_parting"]
+            rows = layers["rows"] if first is None \
+                else layers["rows"][:first + 1]
+            for i, row in enumerate(rows):
+                worst = max(row["k_cache"], row["lm_q"])
+                if worst > TP_FLOAT_TOL:
+                    fail(f"hybrid 1 x 2 {what}, rank {r}: attention layer "
+                         f"{i} (first parting {first}) float error "
+                         f"{worst:.3e}: {row}")
+            if first is not None:
+                parted = True
+                if layers["proof"]["worst_gap_over_bound"] > 1.0:
+                    fail(f"hybrid 1 x 2 {what}, rank {r}: attention layer "
+                         f"{first}'s differing top-K picks are not near "
+                         f"ties: {layers['proof']}")
+        if not parted and not whole:
+            fail(f"hybrid 1 x 2 {what} against the 1 x 1 path: " + str(
+                {k: two[k] for k in ("loss_rel", "grad_rel", "param_abs",
+                                     "logits_rel")}))
+
+
+def phase_hybrid_split(card: str, runs: list, spawned: dict) -> dict:
+    """The hybrid family's train and prefill cells split over the "model"
+    axis (`distributed.tensor_parallel`, `models.rglru`; no port kernel
+    on its path).
+    a. The dry run of recurrentgemma-9b ``train_4k`` (full depth: the
+       peak gate needs it) and ``prefill_32k`` on 16 x 16 fake ``cuda``
+       ranks (`scripts/dryrun_cell_detail.py`, one subprocess a cell:
+       ``runs``, which `main` starts before the expert-parallel phase; the
+       host traces them beside that phase's card work and step b):
+       per-rank FLOPs, peak, collectives by kind and the three time
+       terms beside the gather-once numbers (``HY_GATHER_ONCE``).
+       Gates: ``train_4k``'s FLOPs a rank at most ``TP_FLOPS_GATE`` of
+       gather-once and its peak under ``HY_PEAK_LIMIT_GIB``;
+       ``prefill_32k``'s FLOPs at most ``TP_FLOPS_GATE``; no collective
+       sourced from `launch.steps._full`.
+    b. recurrentgemma-9b at full width, one super-block (`hy_arch`:
+       float32 compute, MiTA ``impl="sorted"``), B ``HY_BATCH`` x
+       ``HY_SEQ``, on a 1 x 2 ``gloo`` group of two processes on this card
+       (``spawned`` by `main` before the dense phase; each rank half the recurrent width, the FFNs' columns and the
+       vocabulary; MQA, so both ranks compute the whole query by the
+       KV-group rule), one train step and one prefill held to the 1 x 1
+       path here (the split phases' `split_two_ranks` and `_tp_compare`;
+       `hy_gate`: the dense phase's tolerances, or up to the first
+       attention layer whose MiTA picks part, those proven near ties).
+       Step ms and peak a rank printed beside the 1 x 1 numbers.
+    c. The five kernels' launch counters read 0, here and in the
+       ranks."""
+    import shutil
+    from repro_torch.kernels import ops
+    from repro_torch.launch import dryrun as dr
+    ops.reset_launch_counts()
+    try:
+        two = split_two_ranks(spawned)["hybrid"]
+    finally:
+        cells = wait_detail(runs, HY_CELLS, "hybrid split")
+    shutil.rmtree(HY_OUT, ignore_errors=True)
+    for cell, d in cells.items():
+        g = HY_GATHER_ONCE[cell]
+        d["gather_once"] = g
+        kinds = ", ".join(f"{k} {v['issues']} x (payload "
+                          f"{v['payload_bytes']:.4e} B, ring "
+                          f"{v['ring_bytes']:.4e} B, groups {v['groups']})"
+                          for k, v in d["by_kind"].items())
+        print(f"  [hybrid split] {cell[0]} {cell[1]} 16 x 16 a rank: FLOPs "
+              f"{d['flops_per_rank']:.6e} (gather-once "
+              f"{g['flops_per_rank']:.6e}, "
+              f"{d['flops_per_rank'] / g['flops_per_rank']:.4f}), peak "
+              f"{d['peak_gib']:.2f} GiB ({g['peak_gib']}), t_compute "
+              f"{d['t_compute']:.5g} s ({g['t_compute']}), t_memory "
+              f"{d['t_memory']:.5g} s ({g['t_memory']}), t_collective "
+              f"{d['t_collective']:.5g} s ({g['t_collective']}), "
+              f"{d['bottleneck']}-bound; collectives: {kinds}; by source "
+              f"{d['by_source']}; traced in {d['trace_s']:.1f} s")
+        full = [k for k in d["by_source"]
+                if dr.from_gather_once(k.partition(" ")[2])]
+        if full:
+            fail(f"hybrid split {cell}: collectives from the gather-once "
+                 f"path: {full}")
+        if d["flops_per_rank"] > TP_FLOPS_GATE * g["flops_per_rank"]:
+            fail(f"hybrid split {cell}: {d['flops_per_rank']:.6e} FLOPs a "
+                 f"rank, over {TP_FLOPS_GATE} x {g['flops_per_rank']}")
+    train = cells[(HY_ARCH, "train_4k")]
+    if train["peak_gib"] >= HY_PEAK_LIMIT_GIB:
+        fail(f"hybrid split train_4k: peak {train['peak_gib']:.2f} GiB a "
+             f"rank, over {HY_PEAK_LIMIT_GIB}")
+    note = {}
+    for what in ("train", "prefill"):
+        note[what] = "; ".join(
+            f"rank {r}: " + ("no pick parts" if lay["first_parting"] is None
+                             else f"picks first part at attention layer "
+                             f"{lay['first_parting']} ({lay['proof']})")
+            + ", per layer " + ", ".join(
+                f"{i}: sets {x['sets_differ']}, order {x['order_only']}, "
+                f"k {x['k_cache']:.2e}, lm_q {x['lm_q']:.2e}"
+                for i, x in enumerate(lay["rows"]))
+            for r, lay in enumerate(two[f"{what}_layers"]))
+    print(f"  [hybrid split] 1 x 2 over gloo on {card}, {HY_ARCH} "
+          f"{HY_LAYERS} layers, full width, MiTA sorted, B {HY_BATCH} x "
+          f"{HY_SEQ} f32: loss {two['rank_losses']} vs 1 x 1 {two['loss']} "
+          f"(rel {two['loss_rel']:.3e}), gradients rel "
+          f"{two['grad_rel']:.3e} ({two['grad_worst_leaf']}), parameters "
+          f"{two['param_abs']:.3e} (bound {two['param_bound']:.1e}); "
+          f"prefill logits rel {two['logits_rel']:.3e}; MiTA picks: train "
+          f"{note['train']}; prefill {note['prefill']}; step ms per rank "
+          f"{two['step_ms']} (1 x 1 {two['ref_step_ms']:.1f}), peak GiB "
+          f"{two['train_peak_gib']} (1 x 1 {two['ref_peak_gib']:.2f}); "
+          f"prefill ms {two['prefill_ms']}, peak GiB "
+          f"{two['prefill_peak_gib']}; references {two['refs_s']:.1f} s, "
+          f"ranks {two['ranks_s']:.1f} s, compared in "
+          f"{two['compare_s']:.1f} s")
+    hy_gate(two)
+    launches = ops.launch_counts()
+    if sum(launches.values()) or any(sum(c.values())
+                                     for c in two["launches"]):
+        fail(f"the hybrid split phase launched a port kernel: {launches}, "
+             f"ranks {two['launches']}")
+    frac = {sh: cells[(HY_ARCH, sh)]["flops_per_rank"]
+            / HY_GATHER_ONCE[(HY_ARCH, sh)]["flops_per_rank"]
+            for sh in ("train_4k", "prefill_32k")}
+    print(f"hybrid split ({card}): {HY_ARCH} train_4k 16 x 16 "
+          f"{frac['train_4k']:.4f} of the gather-once FLOPs, peak "
+          f"{train['peak_gib']:.2f} GiB; prefill_32k "
+          f"{frac['prefill_32k']:.4f}; 1 x 2 step and prefill held to 1 x "
+          f"1; launches {launches}")
+    return {"cells": {f"{a}:{sh}": d for (a, sh), d in cells.items()},
+            "two_ranks": {k: v for k, v in two.items()
+                          if k not in ("train_layers", "prefill_layers")},
+            "picks": {w: two[f"{w}_layers"] for w in ("train", "prefill")},
+            "launches": launches}
 
 
 def main() -> int:
@@ -5911,9 +6353,33 @@ def main() -> int:
     training = timed("training", phase_training, card)
     vision_training = timed("vision_training", phase_vision_training, card)
     distributed = timed("distributed", phase_distributed, card, training)
-    dryrun = timed("dryrun", phase_dryrun, card, training)
-    tensor_parallel = timed("tensor_parallel", phase_tensor_parallel, card)
-    expert_parallel = timed("expert_parallel", phase_expert_parallel, card)
+    # the split phases' work off their own paths: the tensor- and
+    # expert-parallel dry runs traced beside the dry-run phase, every
+    # split phase's ranks started up (and waiting) from the end of the
+    # dry-run phase, the hybrid's dry runs traced beside the
+    # expert-parallel phase; all stopped if a phase fails
+    tracers = {"tp": tp_detail_clis(), "ep": tp_detail_clis(EP_CELLS,
+                                                             EP_OUT)}
+    spawned = {}
+    try:
+        dryrun = timed("dryrun", phase_dryrun, card, training)
+        spawned = {"tp": split_spawn(TP_BACKENDS, TP_OUT),
+                   "ep": split_spawn(("moe",), EP_OUT),
+                   "hy": split_spawn(("hybrid",), HY_OUT)}
+        tensor_parallel = timed("tensor_parallel", phase_tensor_parallel,
+                                card, tracers["tp"], spawned["tp"])
+        tracers["hy"] = tp_detail_clis(HY_CELLS, HY_OUT)
+        expert_parallel = timed("expert_parallel", phase_expert_parallel,
+                                card, tracers["ep"], spawned["ep"])
+        hybrid_split = timed("hybrid_split", phase_hybrid_split, card,
+                             tracers["hy"], spawned["hy"])
+    except BaseException:
+        for proc, _ in sum(tracers.values(), []):
+            proc.kill()
+            proc.wait()
+        for s in spawned.values():
+            split_stop(s)
+        raise
     launches = dict(launches)
     launches["mita_expert_attention"] = fs_launches["mita_expert_attention"]
     launches["flash_attention"] = fs_launches["flash_attention"]
@@ -6066,7 +6532,7 @@ def main() -> int:
         "vision_serve": vision, "training": training,
         "vision_training": vision_training, "distributed": distributed,
         "dryrun": dryrun, "tensor_parallel": tensor_parallel,
-        "expert_parallel": expert_parallel}))
+        "expert_parallel": expert_parallel, "hybrid_split": hybrid_split}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -2,8 +2,8 @@
 ``repro.distributed.fault_tolerance``).
 
   1. **Checkpoint/restart** -- `run_with_restarts` wraps the train loop:
-     a step that raises restores the latest checkpoint and replays from
-     there.  The data pipeline is stateless-resumable (`repro_torch.data`)
+     a step that raises restores the latest checkpoint (step 0's, which
+     it writes first, before any other) and replays from there.  The data pipeline is stateless-resumable (`repro_torch.data`)
      and the training entry point runs deterministic algorithms on the
      card, so replayed steps are bit-identical.  In-process retry is for
      failures that leave the process sound.  A CUDA error that poisons
@@ -89,9 +89,12 @@ def run_with_restarts(step_fn: Callable[[int, Any], Any],
                       max_restarts: int = 3) -> Any:
     """Drive ``step_fn(step, state) -> state`` with restart-on-failure.
 
-    On exception: restore the latest checkpoint and replay from there (or
-    from ``init_state`` at step 0 when there is none).  Determinism of the
-    data pipeline and of the step makes the replay exact.  Past
+    On exception: restore the latest checkpoint and replay from there.
+    Where the directory holds none, ``init_state`` is saved as step 0
+    first: a train step updates its parameters and moments in place
+    (`launch.steps.train_step` donates them), so after a failure
+    ``init_state`` holds a later, or half-updated, state.  Determinism of
+    the data pipeline and of the step makes the replay exact.  Past
     ``max_restarts`` the exception propagates.
     """
     state = init_state
@@ -100,6 +103,8 @@ def run_with_restarts(step_fn: Callable[[int, Any], Any],
     if latest is not None:
         start, state = ckpt.restore(state)
         log.info("resumed from step %d", start)
+    else:
+        ckpt.save(0, state)
 
     restarts = 0
     step = start
@@ -115,12 +120,8 @@ def run_with_restarts(step_fn: Callable[[int, Any], Any],
                 raise
             log.warning("step %d failed (%s); restart %d/%d",
                         step, e, restarts, max_restarts)
-            latest = ckpt.latest_step()
-            if latest is None:
-                state, step = init_state, 0
-            else:
-                ckpt.wait()
-                step, state = ckpt.restore(state)
+            ckpt.wait()
+            step, state = ckpt.restore(state)
     ckpt.wait()
     return state
 

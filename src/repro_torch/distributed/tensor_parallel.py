@@ -1,6 +1,7 @@
 """Tensor- and expert-parallel compute on a mesh's "model" axis for the
-transformer LM families' train and prefill cells (dense, moe and the
-vlm's LM; ROADMAP C.16; port-only, the reference leaves it to GSPMD).
+train and prefill cells of the transformer LM families (dense, moe and
+the vlm's LM) and of the hybrid family (ROADMAP C.16; port-only, the
+reference leaves it to GSPMD).
 
 `model_split` plans it, and the cell then runs the port's model code on
 each rank's parameter shards (``DTensor.to_local``), as plain tensors,
@@ -34,7 +35,7 @@ them.  The model code calls this module at a few explicit points
   ranks), the r = M / ``n_kv`` ranks that share a group (the group's
   "share" ranks, consecutive on the axis) each gather the group's
   columns of ``wq``, ``wk`` and ``wv`` from one another
-  (`gather_group_columns`: an all-gather of 1 / ``n_kv`` of each weight
+  (`gather_last`: an all-gather of 1 / ``n_kv`` of each weight
   forward, a reduce-scatter of its gradient backward).  Each then
   computes the whole group's query (the landmark query pools all of the
   group's heads when ``landmark_per_group``) and the group's K / V, which
@@ -47,6 +48,18 @@ them.  The model code calls this module at a few explicit points
   marks them and the train cell sums them over "model" before placing
   them.  Leaves outside it (the norms on the residual stream, a
   replicated embedding) get the whole gradient on every rank.
+* The hybrid family (`models.rglru`): its attention blocks and FFNs take
+  the dense plan (recurrentgemma-9b is MQA, so on M ranks the KV-group
+  rule has r = M: every rank gathers all of wq, wk and wv and computes
+  the whole query).  An RG-LRU block splits the recurrent width into M
+  contiguous blocks of channels, the same for every leaf (``_REC``):
+  ``enter`` before ``w_gate`` / ``w_in``, the conv, gate biases, decay
+  and scan on the rank's channels, ``leave`` after ``w_out``.  The gate
+  products multiply the conv output by column shards of the whole
+  ``w_a`` / ``w_x``, so they take every channel of it: one all-gather
+  of ``xc`` over "model" a block forward (`ModelSplit.gather`), a
+  reduce-scatter of its gradient backward; the gated input uses the
+  rank's own channels.  The recurrence itself needs no communication.
 * The VLM's image embeddings overwrite the first positions after the
   (vocabulary-parallel) lookup; they are the rank's data rows, the same
   on every "model" rank, so the plan is the dense family's.
@@ -89,6 +102,13 @@ _MOE = {"moe/wi": Shard(1), "moe/wg": Shard(1), "moe/wo": Shard(1),
         "moe/router": Replicate()}
 _SHARED = {"moe/shared/wi": Shard(2), "moe/shared/wg": Shard(2),
            "moe/shared/wo": Shard(1)}
+# the hybrid family's RG-LRU blocks: the recurrent width over "model", in
+# the same contiguous blocks for every leaf (columns of the projections
+# in and of the gate weights, channels of the conv and the gate
+# vectors), the rows of w_out
+_REC = {"w_in": Shard(2), "w_gate": Shard(2), "w_a": Shard(2),
+        "w_x": Shard(2), "conv": Shard(2), "b_a": Shard(1), "b_x": Shard(1),
+        "lam": Shard(1), "w_out": Shard(1)}
 
 
 def _all_reduce(x: torch.Tensor, group, op: str = "sum") -> torch.Tensor:
@@ -134,16 +154,29 @@ class _Once(torch.autograd.Function):
         return g / ctx.size, None
 
 
-class _GatherColumns(torch.autograd.Function):
+class _GatherLast(torch.autograd.Function):
     """All-gather of the last dimension over the group forward, the
-    gradient reduce-scattered back backward."""
+    gradient reduce-scattered back backward: a weight's columns (the
+    KV-group rule) or an activation's channels (the RG-LRU's gates)."""
 
     @staticmethod
-    def forward(ctx, w, group):
+    def forward(ctx, x, group):
         ctx.group = group
-        c10d = torch.ops._c10d_functional
-        out = c10d.wait_tensor(c10d.all_gather_into_tensor(
-            w.movedim(-1, 0).contiguous(), group.size(), group.group_name))
+        x = x.movedim(-1, 0).contiguous()
+        n = group.size()
+        if x.is_cuda and dist.get_backend(group) == "gloo":
+            # gloo cannot all-gather cuda tensors (a segfault, PyTorch
+            # 2.11): every rank sends x to every rank with one
+            # all-to-all, the same bytes.  Its only user is chip_smoke.py's
+            # 1 x 2 pair of processes on one card (NCCL runs no two ranks
+            # on one device); remove it once that check runs elsewhere
+            rows = [x.shape[0]] * n
+            out = funcol.wait_tensor(funcol.all_to_all_single(
+                x.repeat((n,) + (1,) * (x.dim() - 1)), rows, rows, group))
+        else:
+            c10d = torch.ops._c10d_functional
+            out = c10d.wait_tensor(c10d.all_gather_into_tensor(
+                x, n, group.group_name))
         return out.movedim(0, -1)
 
     @staticmethod
@@ -155,10 +188,12 @@ class _GatherColumns(torch.autograd.Function):
         return out.movedim(0, -1), None
 
 
-def gather_group_columns(w: torch.Tensor, group) -> torch.Tensor:
-    """``w``'s columns of this rank's KV group, from the ranks that share
-    the group (the KV-group rule; a differentiable all-gather)."""
-    return _GatherColumns.apply(w, group)
+def gather_last(x: torch.Tensor, group) -> torch.Tensor:
+    """``x``'s last dimension gathered from the group's ranks in order (a
+    differentiable all-gather): a KV group's columns of a weight from the
+    ranks that share the group, or every channel of an activation split
+    over "model"."""
+    return _GatherLast.apply(x, group)
 
 
 @dataclasses.dataclass
@@ -195,6 +230,12 @@ class ModelSplit:
         """``x`` summed over the "model" ranks (no gradient)."""
         return _all_reduce(x, self.group)
 
+    def gather(self, x: torch.Tensor) -> torch.Tensor:
+        """Every rank's channels of ``x`` (its last dimension split over
+        "model" in order): an all-gather forward, the gradient
+        reduce-scattered backward (`gather_last`)."""
+        return gather_last(x, self.group)
+
     def group_weights(self, params: dict) -> dict:
         """The attention projections this rank computes with: its shards,
         or with r > 1 its KV group's columns of wq, wk and wv."""
@@ -202,7 +243,7 @@ class ModelSplit:
             return params
         out = dict(params)
         for k in ("wq", "wk", "wv"):
-            out[k] = gather_group_columns(params[k], self.share_group)
+            out[k] = gather_last(params[k], self.share_group)
         return out
 
     # ---------------------------------------------- vocabulary parallel --
@@ -306,19 +347,20 @@ def _at(tree, path: str):
 
 def model_split(family: str, cfg, mesh, param_placements) -> \
         Optional[ModelSplit]:
-    """The plan of a dense, moe or vlm cell on ``mesh`` whose "model"
-    axis has M > 1 ranks, given the cell's parameter placements
+    """The plan of a dense, moe, vlm or hybrid cell on ``mesh`` whose
+    "model" axis has M > 1 ranks, given the cell's parameter placements
     (`distributed.sharding.tree_shardings` of ``param_specs``), or None:
     another family, M = 1, or a split this module does not plan (the
     module docstring; for the moe family, experts or a shared expert
-    that the specs replicate because M does not divide them), where the
-    cell gathers the parameters once instead."""
+    that the specs replicate because M does not divide them; any leaf
+    of a hybrid super-block placed otherwise), where the cell gathers
+    the parameters once instead."""
     m = axis_sizes(mesh).get("model", 1)
-    if family not in ("dense", "moe", "vlm") or m == 1:
+    if family not in ("dense", "moe", "vlm", "hybrid") or m == 1:
         return None
-    moe = family == "moe"
+    moe, hybrid = family == "moe", family == "hybrid"
     h, kv = cfg.n_heads, cfg.n_kv
-    if h % m or (not moe and cfg.d_ff % m):
+    if h % m or (not moe and cfg.d_ff % m) or (hybrid and cfg.d_model % m):
         return None
     if kv % m == 0:
         share = 1
@@ -326,11 +368,20 @@ def model_split(family: str, cfg, mesh, param_placements) -> \
         share = m // kv
     else:
         return None
-    blocks = param_placements["blocks"]
-    want = dict(_ATTN)
-    want.update(_MOE if moe else _FFN)
-    if moe and "shared" in blocks["moe"]:
-        want.update(_SHARED)
+    if hybrid:
+        # (RG-LRU, RG-LRU, attention + FFN) and the FFN after the first
+        # RG-LRU block, stacked under "supers"
+        blocks = param_placements["supers"]
+        want = {f"attn_blk/{k}": v for k, v in {**_ATTN, **_FFN}.items()}
+        want.update({f"ffn1/{k[4:]}": v for k, v in _FFN.items()})
+        want.update({f"{r}/{k}": v for r in ("rec1", "rec2")
+                     for k, v in _REC.items()})
+    else:
+        blocks = param_placements["blocks"]
+        want = dict(_ATTN)
+        want.update(_MOE if moe else _FFN)
+        if moe and "shared" in blocks["moe"]:
+            want.update(_SHARED)
     for path, pl in want.items():
         if _model_placement(_at(blocks, path), mesh) != pl:
             return None
@@ -369,4 +420,4 @@ def model_split(family: str, cfg, mesh, param_placements) -> \
         sum_over_model=summed(param_placements))
 
 
-__all__ = ["ModelSplit", "model_split", "gather_group_columns"]
+__all__ = ["ModelSplit", "model_split", "gather_last"]

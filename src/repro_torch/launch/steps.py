@@ -15,35 +15,40 @@ dtypes, no memory) and the DTensor placements of its inputs and outputs
 and computes in one of two ways (ROADMAP C.16):
 
 * Tensor- and expert-parallel: the train and prefill cells of the
-  transformer LM families (``dense``, ``moe`` and the ``vlm``'s LM) on a
-  mesh whose "model" axis has M > 1 ranks (`distributed.
-  tensor_parallel`).  Each rank runs the model code on its own parameter
-  shards with a local config (heads, the dense FFN's width and, where
-  the specs split it, the vocabulary divided by M) and never gathers a
-  whole weight over "model": one all-reduce a block after ``attn/wo``
-  and one after the FFN each pass, a vocabulary-parallel embedding and
-  loss, and the KV-group rule where M exceeds ``n_kv`` (a group's
-  columns of wq, wk and wv gathered among the ranks that share it).  An
-  MoE layer routes every token over all experts and computes only the
-  rank's E / M experts (and its part of the shared expert) before its
-  one all-reduce; the VLM's image embeddings are the rank's data rows.
-  Its gradients are already the rank's shards; they are summed over the
-  data ranks (and over "model" for the replicated ``q_norm``, ``k_norm``
-  and router).  The prefill cell assembles its logits (split over the
-  vocabulary) and decode states (split over KV heads) into their
-  placements with one all-to-all a leaf.
-* Gather-once, every other cell: the decode cells, the ``ssm``,
-  ``hybrid`` and ``encdec`` families, any cell at M = 1 and a split that
+  transformer LM families (``dense``, ``moe`` and the ``vlm``'s LM) and
+  of the ``hybrid`` family on a mesh whose "model" axis has M > 1 ranks
+  (`distributed.tensor_parallel`).  Each rank runs the model code on its
+  own parameter shards with a local config (heads, the dense FFN's width
+  and, where the specs split it, the vocabulary divided by M) and never
+  gathers a whole weight over "model": one all-reduce a block after
+  ``attn/wo`` and one after the FFN each pass, a vocabulary-parallel
+  embedding and loss, and the KV-group rule where M exceeds ``n_kv`` (a
+  group's columns of wq, wk and wv gathered among the ranks that share
+  it).  An MoE layer routes every token over all experts and computes
+  only the rank's E / M experts (and its part of the shared expert)
+  before its one all-reduce; the VLM's image embeddings are the rank's
+  data rows.  A hybrid RG-LRU block computes the rank's channels of the
+  recurrent width: one all-gather of its conv output (which the gate
+  products take whole) and one all-reduce after ``w_out`` each pass; its
+  attention and FFNs are the dense plan's.  Its gradients are already the
+  rank's shards; they are summed over the data ranks (and over "model"
+  for the replicated ``q_norm``, ``k_norm`` and router).  The prefill
+  cell assembles its logits (split over the vocabulary) and decode
+  states (split over KV heads) into their placements with one all-to-all
+  a leaf; the hybrid's prefill (a forward) its last logits.
+* Gather-once, every other cell: the decode cells, the ``ssm`` and
+  ``encdec`` families, any cell at M = 1 and a split that
   ``tensor_parallel.model_split`` does not plan.  Each rank gathers the
   full parameters once a call (and the decode states over the other
   axes), runs the model code as it is, and places what it returns;
   there "model" partitions memory, not compute.
 
 A train cell's function is `sharded_train_step`, which reduces the
-gradients into the parameters' placement; a prefill or decode cell's
-outputs are local slices of what the rank computed (or assembled).
-Given plain tensors instead of DTensors, a prefill or decode cell is the
-plain function.
+gradients into the parameters' placement and updates the parameters and
+moments it is given in place (the cell donates them, ``donate_argnums``,
+as the reference's does); a prefill or decode cell's outputs are local
+slices of what the rank computed (or assembled).  Given plain tensors
+instead of DTensors, a prefill or decode cell is the plain function.
 """
 
 from __future__ import annotations
@@ -62,7 +67,7 @@ from repro_torch.models import rglru as rg
 from repro_torch.models import transformer as tfm
 from repro_torch.models import whisper as wh
 from repro_torch.optim.adamw import (AdamWState, OptConfig, adamw_init,
-                                     adamw_update, tree_leaves, tree_map)
+                                     adamw_update_, tree_leaves, tree_map)
 from repro_torch.optim.grads import accumulate_grads, batch_share
 
 
@@ -119,15 +124,19 @@ def family_fns(arch) -> dict:
 
 def train_step(params, opt_state: AdamWState, batch: dict,
                loss_fn: Callable, opt_cfg: OptConfig, microbatch: int = 1):
-    """One training step: (new params, new opt state, metrics {"loss",
-    "lr", "grad_norm"}), each metric a float32 scalar on the device.
-    Gradients as `accumulate_grads` gives them.  A loss that needs a
-    backward the port lacks (the expert kernel, ``impl="pallas"``)
-    raises."""
+    """One training step: (params, opt state, metrics {"loss", "lr",
+    "grad_norm"}), each metric a float32 scalar on the device.
+    ``params`` and ``opt_state`` are donated, as the reference's train
+    cell donates them: AdamW updates them in place (`adamw_update_`) and
+    they are returned; a caller that reads them after the step passes
+    clones.  Gradients as `accumulate_grads` gives them.  A loss that
+    needs a backward the port lacks (the expert kernel,
+    ``impl="pallas"``) raises."""
     loss, grads = accumulate_grads(params, batch, loss_fn, microbatch)
-    new_p, new_opt, metrics = adamw_update(grads, opt_state, params, opt_cfg)
+    params, opt_state, metrics = adamw_update_(grads, opt_state, params,
+                                               opt_cfg)
     metrics["loss"] = loss
-    return new_p, new_opt, metrics
+    return params, opt_state, metrics
 
 
 # ---------------------------------------------------------- sharded step ---
@@ -286,8 +295,11 @@ def sharded_train_step(params, opt_state: AdamWState, batch: dict,
     each rank's loss and gradients are first weighted by its share of the
     counted labels, so that the result is the whole batch's masked mean
     (a whole batch with none counts one, as `cross_entropy` does: loss
-    and gradients 0, as in `train_step`).  AdamW then runs on the
-    DTensors (its global norm sums over shards)."""
+    and gradients 0, as in `train_step`).  The gradients are placed leaf
+    by leaf (`_placed_grads`), so one copy of them lives at a time.  AdamW
+    then runs on the DTensors' local shards (its global norm sums over
+    shards).  ``params`` and ``opt_state`` are donated, as in
+    `train_step`: updated in place and returned."""
     local = data_rows(batch, mesh)
     if split is None:
         full = _full(params)
@@ -305,22 +317,50 @@ def sharded_train_step(params, opt_state: AdamWState, batch: dict,
         total = _per_data_rank(count, mesh).full_tensor()
         w = count * dp / torch.clamp(total, min=1.0)
         loss = loss * w
-        grads = tree_map(lambda g: g * w, grads)
-    if split is None:
-        grads = tree_map(lambda g, p: _per_data_rank(g, mesh).redistribute(
-            mesh, p.placements) / dp, grads, params)
-    else:
-        grads = tree_map(lambda g, p, s: _split_grad(g, p, mesh, split, s)
-                         .redistribute(mesh, p.placements) / dp, grads,
-                         params, split.sum_over_model)
-    new_p, new_opt, metrics = adamw_update(grads, opt_state, params, opt_cfg)
+        for g in tree_leaves(grads):
+            g.mul_(w)
+    grads = _placed_grads(grads, params, mesh, split, dp,
+                          None if split is None else split.sum_over_model)
+    params, opt_state, metrics = adamw_update_(grads, opt_state, params,
+                                               opt_cfg)
     metrics = {k: v.full_tensor() if isinstance(v, DTensor) else v
                for k, v in metrics.items()}
     metrics["loss"] = _per_data_rank(loss, mesh).full_tensor() / dp
-    return new_p, new_opt, metrics
+    return params, opt_state, metrics
+
+
+def _placed_grads(grads: dict, params: dict, mesh, split, dp, over) -> dict:
+    """This rank's local gradients (a tree, emptied as it goes) as
+    DTensors in their parameters' placements, each a sum over the data
+    ranks divided by ``dp`` in place; placed leaf by leaf, each local
+    gradient dropped once placed, so that one copy of the gradients lives
+    at a time.  ``over``: `ModelSplit.sum_over_model` (None: no
+    split)."""
+    out = {}
+    for k in list(grads):
+        g = grads.pop(k)
+        sub = None if over is None else over[k]
+        if isinstance(g, dict):
+            out[k] = _placed_grads(g, params[k], mesh, split, dp, sub)
+            continue
+        p = params[k]
+        g = _per_data_rank(g, mesh) if split is None \
+            else _split_grad(g, p, mesh, split, sub)
+        out[k] = g.redistribute(mesh, p.placements)
+        del g
+        with torch.no_grad():
+            out[k].to_local().div_(dp)
+    return out
 
 
 # ------------------------------------------------------------------ cells ---
+
+def _by_vocab(split: tpar.ModelSplit) -> Optional[Callable]:
+    """`place_rows`' ``model_part`` for logits whose classes are split over
+    "model" (None where the vocabulary is whole on every rank)."""
+    if split.vocab is None:
+        return None
+    return lambda x, pl: split.assemble(x, -1, pl)
 
 @dataclasses.dataclass
 class Cell:
@@ -330,6 +370,13 @@ class Cell:
     in_shardings: tuple       # DTensor placement trees of the arguments
     out_shardings: Any        # placement trees of the outputs (None: free)
     donate_argnums: tuple = ()
+
+
+def split_loss(arch: ArchConfig, split: tpar.ModelSplit) -> Callable:
+    """The family's loss on a rank's shards under ``split``."""
+    if arch.family == "hybrid":
+        return lambda p, b: rg.rg_loss(p, b, split.cfg, tp=split)
+    return lambda p, b: tfm.lm_loss(p, b, split.cfg, tp=split)
 
 
 def _meta(shape, dtype) -> torch.Tensor:
@@ -389,10 +436,7 @@ def build_cell(arch: ArchConfig, shape: ShapeSpec, mesh,
         opt_cfg = opt_cfg or OptConfig()
         opt_sh = AdamWState(mu=psh, nu=psh, step=replicated)
         batch = _train_batch_shapes(arch, shape)
-        loss_fn = fns["loss"]
-        if split is not None:
-            def loss_fn(p, b):
-                return tfm.lm_loss(p, b, split.cfg, tp=split)
+        loss_fn = fns["loss"] if split is None else split_loss(arch, split)
 
         def step(p, opt, b):
             return sharded_train_step(p, opt, b, loss_fn, opt_cfg, mesh,
@@ -445,6 +489,14 @@ def build_cell(arch: ArchConfig, shape: ShapeSpec, mesh,
             def last_logits(p, bt):
                 if not _is_sharded(p):
                     return forward(p, bt["tokens"], cfg)[0][:, -1]
+                if split is not None:
+                    # hybrid: the forward on this rank's shards, its
+                    # classes of the logits where the vocabulary is split
+                    out = rg.rg_forward(
+                        tree_map(lambda t: t.to_local(), p),
+                        rows(bt["tokens"]), split.cfg, tp=split)[0][:, -1]
+                    return place_rows(out, mesh, rows_sh, 0, by_rows,
+                                      (b, cfg.vocab), _by_vocab(split))
                 out = forward(_full(p), rows(bt["tokens"]), cfg)[0][:, -1]
                 return placed(out, (b, cfg.vocab))
 
@@ -480,8 +532,7 @@ def build_cell(arch: ArchConfig, shape: ShapeSpec, mesh,
                 split.cfg, shape.seq,
                 extra_embeds=None if extra is None else rows(extra),
                 tp=split)
-            by_vocab = None if split.vocab is None else (
-                lambda x, pl: split.assemble(x, -1, pl))
+            by_vocab = _by_vocab(split)
 
             def heads(x, pl):
                 return split.assemble(x, 2, pl, dup=split.share)

@@ -71,10 +71,14 @@ def rglru_block_init(gen, cfg: nn.ModelConfig, device) -> Params:
     }
 
 
-def _rglru_gates(p: Params, xc, ct):
-    """The decay a_t and the gated input, float32."""
-    r = torch.sigmoid(xc @ p["w_a"].to(ct) + p["b_a"].to(ct))
-    i = torch.sigmoid(xc @ p["w_x"].to(ct) + p["b_x"].to(ct))
+def _rglru_gates(p: Params, xc, ct, whole=None):
+    """The decay a_t and the gated input, float32.  Under a model split
+    ``xc`` is the rank's channels and ``whole`` all of them (gathered
+    over "model"), which the products with the rank's columns of ``w_a``
+    and ``w_x`` take."""
+    xw = xc if whole is None else whole
+    r = torch.sigmoid(xw @ p["w_a"].to(ct) + p["b_a"].to(ct))
+    i = torch.sigmoid(xw @ p["w_x"].to(ct) + p["b_x"].to(ct))
     log_a = (-_C * F.softplus(p["lam"].float())) * r.float()
     a = torch.exp(log_a)
     gated = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a),
@@ -96,11 +100,20 @@ def _doubling_scan(a, b):
     return b
 
 
-def rglru_block_apply(p: Params, x, cfg: nn.ModelConfig):
-    """x: [B, N, D] -> [B, N, D]."""
+def rglru_block_apply(p: Params, x, cfg: nn.ModelConfig, tp=None):
+    """x: [B, N, D] -> [B, N, D].  ``tp``: a `distributed.tensor_parallel.
+    ModelSplit`, ``p`` this rank's shards (its channels of the recurrent
+    width: columns of ``w_in``, ``w_gate``, ``w_a`` and ``w_x``, of
+    ``conv``, ``b_a``, ``b_x`` and ``lam``, rows of ``w_out``).  The conv,
+    the gates' biases and the scan are per channel; the gate products
+    take every channel of the conv output, so each pass moves one
+    all-gather of ``xc`` over "model" (a reduce-scatter of its gradient
+    backward) and one all-reduce after ``w_out``."""
     ct = cfg.compute_dtype
     n = x.shape[1]
     xn = nn.rms_norm(x, p["ln"], cfg.norm_eps)
+    if tp is not None:
+        xn = tp.enter(xn)
     gate = _gelu(xn @ p["w_gate"].to(ct))
     xi = xn @ p["w_in"].to(ct)
     xpad = F.pad(xi, (0, 0, _CONV_K - 1, 0))
@@ -108,9 +121,11 @@ def rglru_block_apply(p: Params, x, cfg: nn.ModelConfig):
     xc = xpad[:, 0:n] * conv[0]
     for j in range(1, _CONV_K):
         xc = xc + xpad[:, j:j + n] * conv[j]
-    a, gated = _rglru_gates(p, xc, ct)
+    a, gated = _rglru_gates(p, xc, ct,
+                            None if tp is None else tp.gather(xc))
     h = _doubling_scan(a, gated)
-    return x + (h.to(ct) * gate) @ p["w_out"].to(ct)
+    y = (h.to(ct) * gate) @ p["w_out"].to(ct)
+    return x + (y if tp is None else tp.leave(y))
 
 
 class RGLRUState(NamedTuple):
@@ -161,15 +176,19 @@ def super_block_init(gen, cfg: nn.ModelConfig, device) -> Params:
                                  device=device)}
 
 
-def _ffn1(sp: Params, x, cfg: nn.ModelConfig):
-    return x + nn.swiglu_apply(sp["ffn1"], nn.rms_norm(x, sp["ln_f1"]), cfg)
+def _ffn1(sp: Params, x, cfg: nn.ModelConfig, tp=None):
+    return x + nn.swiglu_apply(sp["ffn1"], nn.rms_norm(x, sp["ln_f1"]), cfg,
+                               tp)
 
 
-def super_block_apply(p: Params, x, cfg: nn.ModelConfig, positions):
-    x = rglru_block_apply(p["rec1"], x, cfg)
-    x = _ffn1(p, x, cfg)
-    x = rglru_block_apply(p["rec2"], x, cfg)
-    return tfm.block_apply(p["attn_blk"], x, cfg, positions)[0]
+def super_block_apply(p: Params, x, cfg: nn.ModelConfig, positions,
+                      tp=None):
+    """One super-block; under a model split (``tp``) each of its four
+    parts ends in one all-reduce over "model" each pass."""
+    x = rglru_block_apply(p["rec1"], x, cfg, tp)
+    x = _ffn1(p, x, cfg, tp)
+    x = rglru_block_apply(p["rec2"], x, cfg, tp)
+    return tfm.block_apply(p["attn_blk"], x, cfg, positions, tp=tp)[0]
 
 
 def n_super(cfg: nn.ModelConfig) -> int:
@@ -187,29 +206,37 @@ def rg_init(gen: torch.Generator, cfg: nn.ModelConfig,
                                 device=device)}
 
 
-def rg_forward(params: Params, tokens, cfg: nn.ModelConfig):
+def rg_forward(params: Params, tokens, cfg: nn.ModelConfig, tp=None):
     """tokens [B, N] -> (logits [B, N, V], aux 0).  The attention layers
     take ``cfg.attn`` as it is: ``impl="pallas"`` runs MiTA's routed
-    branch on the expert kernel (head dim 256 at recurrentgemma-9b)."""
-    x = nn.embed(params["emb"], tokens, cfg)
+    branch on the expert kernel (head dim 256 at recurrentgemma-9b).
+    Under a model split (``tp``: ``params`` this rank's shards, ``cfg``
+    its local config) the embedding, head and super-blocks are split
+    over "model", each layer rematerialised with its collectives under
+    ``cfg.remat``; the logits are the rank's classes where the
+    vocabulary is split."""
+    x = nn.embed(params["emb"], tokens, cfg, tp)
     positions = torch.arange(tokens.shape[1], device=x.device)
     for i in range(n_super(cfg)):
         x = nn.layer_call(cfg, super_block_apply,
                           layer_params(params["supers"], i), x, cfg,
-                          positions)
+                          positions, tp)
     x = nn.rms_norm(x, params["ln_f"])
-    return nn.unembed(params["emb"], x, cfg), torch.zeros((), device=x.device)
+    return nn.unembed(params["emb"], x, cfg, tp), \
+        torch.zeros((), device=x.device)
 
 
-def rg_loss(params: Params, batch: dict, cfg: nn.ModelConfig):
+def rg_loss(params: Params, batch: dict, cfg: nn.ModelConfig, tp=None):
+    """Next-token cross-entropy of ``batch``; ``tp``: on this rank's
+    shards of a model split, the same loss on every rank of it."""
     dev = params["ln_f"].device
 
     def up(x):
         return None if x is None else torch.as_tensor(x, device=dev)
 
-    logits, _ = rg_forward(params, up(batch["tokens"]), cfg)
+    logits, _ = rg_forward(params, up(batch["tokens"]), cfg, tp)
     return nn.cross_entropy(logits, up(batch["labels"]),
-                            up(batch.get("loss_mask")))
+                            up(batch.get("loss_mask")), tp)
 
 
 class RGSuperState(NamedTuple):

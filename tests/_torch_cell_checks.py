@@ -5,10 +5,10 @@ cell's ``in_shardings``, calls the cell, gathers what it returns, and
 holds it bit for bit to the plain function (the cell called with plain
 tensors) on the gathered inputs: on the whole batch, and on each data
 rank's share of it (the rows that rank computed).  Some cases are held
-to a tolerance instead: the prefill of the dense, moe and vlm families,
-which computes tensor- (for the moe family also expert-) parallel over
-"model" (`distributed.tensor_parallel`), so its row-parallel sums add in
-another order.  Its float leaves are held
+to a tolerance instead: the prefill of the dense, moe, vlm and hybrid
+families, which computes tensor- (for the moe family also expert-)
+parallel over "model" (`distributed.tensor_parallel`), so its
+row-parallel sums add in another order.  Its float leaves are held
 within 1e-5 of each leaf's largest magnitude (float32), its integer and
 boolean leaves exactly.  This module imports torch and the port only;
 rank 0 writes ``<out>/cells.pt``.
@@ -111,8 +111,9 @@ def check_prefill(arch, mesh, params, batch, audio) -> dict:
     x = audio if arch.family == "encdec" else batch
     out = cell.fn(_place(params, mesh, psh), _place(x, mesh, bsh))
     got = _gather(out)
-    # split over "model": the transformer LM families (the docstring)
-    same = _close if arch.family in ("dense", "moe", "vlm") \
+    # split over "model": the transformer LM families and the hybrid (the
+    # docstring)
+    same = _close if arch.family in ("dense", "moe", "vlm", "hybrid") \
         and mesh.size(1) > 1 else _equal
     share = (lambda t, i: t[i * HALF:(i + 1) * HALF])
     per_share = True

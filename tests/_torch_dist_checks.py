@@ -23,16 +23,21 @@ from repro_torch.configs.registry import ShapeSpec, get_arch
 from repro_torch.data import DataConfig
 from repro_torch.distributed import elastic_retarget
 from repro_torch.distributed import sharding as shd
+from repro_torch.distributed import tensor_parallel as tpar
 from repro_torch.launch.mesh import make_host_mesh
-from repro_torch.launch.steps import build_cell, family_fns, train_step
+from repro_torch.launch import steps
+from repro_torch.launch.steps import (build_cell, family_fns, train_step,
+                                      zip_map)
 from repro_torch.launch.train import train_batch
 from repro_torch.models.modules import AttnConfig, ModelConfig
 from repro_torch.models.transformer import lm_init, lm_loss
 from repro_torch.optim import OptConfig, adamw_init, adamw_update
 from repro_torch.optim import compression as comp
 from repro_torch.optim.adamw import AdamWState, tree_leaves, tree_map
+from repro_torch.optim.grads import accumulate_grads
 
-ARCHS = ("qwen3-0.6b", "deepseek-moe-16b", "mamba2-370m")
+ARCHS = ("qwen3-0.6b", "deepseek-moe-16b", "mamba2-370m",
+         "recurrentgemma-9b")
 OPT = OptConfig(lr=1e-3, warmup_steps=2, total_steps=10)
 SEQ, BATCH, STEPS = 64, 4, 2
 CKPT_STEP = 2
@@ -58,6 +63,12 @@ def _enter(rank, world, port, fn, args):
         fn(rank, *args)
     finally:
         dist.destroy_process_group()
+
+
+def clone(tree):
+    """A copy of a tree of tensors (dicts, an `AdamWState`) for a caller
+    that reads it after a train step, which donates its inputs."""
+    return zip_map(torch.clone, tree)
 
 
 def _place(tree, mesh, shardings):
@@ -113,7 +124,9 @@ def sharded_vs_single(arch_id, mesh, microbatch=1, mask=False) -> dict:
                    nu=_place(o0.nu, mesh, osh.nu),
                    step=_place(o0.step, mesh, osh.step))
     ref_mb = 1 if mask else shd.data_size(mesh) * microbatch
-    rp, ro = p0, o0
+    # the steps update in place, and a placed leaf may share its storage
+    # with the tree it was placed from
+    rp, ro = clone(p0), clone(o0)
     dcfg = DataConfig(vocab=arch.model.vocab, seq_len=SEQ, global_batch=BATCH)
     out = {"loss_rel": 0.0, "grad_rel": 0.0, "param_rel": 0.0,
            "shard_shapes_bad": _shard_shapes_bad(p, mesh)}
@@ -297,3 +310,93 @@ def world_2x1(rank, out_dir):
                                    "dp_losses": losses,
                                    "dp_params_agree": same[0] == same[1]},
             bad)
+
+
+# ------------------------------------------------- in place vs functional --
+
+IN_PLACE_ARCHS = ("qwen3-0.6b", "mamba2-370m", "recurrentgemma-9b")
+
+
+def functional_sharded_step(params, opt, batch, loss_fn, cfg, mesh,
+                            split=None):
+    """`steps.sharded_train_step` in its functional form (as it was before
+    it updated in place): every gradient placed as a whole tree, then
+    `adamw_update` on the DTensors, new trees returned."""
+    local = steps.data_rows(batch, mesh)
+    if split is None:
+        loss, grads = accumulate_grads(steps._full(params), local, loss_fn)
+    else:
+        loss, grads = accumulate_grads(
+            tree_map(lambda t: t.to_local(), params), local, loss_fn)
+    dp = torch.tensor(float(shd.data_size(mesh)), dtype=torch.float32)
+    if "loss_mask" in local:
+        count = torch.as_tensor(local["loss_mask"]).float().sum()
+        total = steps._per_data_rank(count, mesh).full_tensor()
+        w = count * dp / torch.clamp(total, min=1.0)
+        loss = loss * w
+        grads = tree_map(lambda g: g * w, grads)
+    if split is None:
+        grads = tree_map(lambda g, p: steps._per_data_rank(g, mesh)
+                         .redistribute(mesh, p.placements) / dp, grads,
+                         params)
+    else:
+        grads = tree_map(lambda g, p, s: steps._split_grad(
+            g, p, mesh, split, s).redistribute(mesh, p.placements) / dp,
+            grads, params, split.sum_over_model)
+    new_p, new_o, met = adamw_update(grads, opt, params, cfg)
+    met = {k: v.full_tensor() for k, v in met.items()}
+    met["loss"] = steps._per_data_rank(loss, mesh).full_tensor() / dp
+    return new_p, new_o, met
+
+
+def in_place_vs_functional(arch_id, mesh) -> dict:
+    """Two train-cell steps (the second on a masked batch) against
+    `functional_sharded_step` on clones of the same placed inputs: every
+    local shard of the parameters and moments, the step and the metrics
+    bit-equal, and the cell's outputs the tensors it was given."""
+    arch = get_arch(arch_id, smoke=True)
+    fns = family_fns(arch)
+    p0 = fns["init"](torch.Generator().manual_seed(0), "cpu")
+    cell = build_cell(arch, ShapeSpec("t", "train", SEQ, BATCH), mesh,
+                      opt_cfg=OPT)
+    psh, osh, _ = cell.in_shardings
+    split = tpar.model_split(arch.family, arch.model, mesh, psh)
+    loss_fn = steps.split_loss(arch, split) if split else fns["loss"]
+    o0 = adamw_init(p0)
+    p = _place(clone(p0), mesh, psh)
+    o = AdamWState(mu=_place(o0.mu, mesh, osh.mu),
+                   nu=_place(o0.nu, mesh, osh.nu),
+                   step=_place(o0.step, mesh, osh.step))
+    rp, ro = clone(p), clone(o)
+    ptrs = [x.to_local().data_ptr() for x in tree_leaves({"p": p, "mu": o.mu, "nu": o.nu})]
+    dcfg = DataConfig(vocab=arch.model.vocab, seq_len=SEQ, global_batch=BATCH)
+    same_met = True
+    for step in range(STEPS):
+        batch = train_batch(arch, dcfg, step)
+        if step == 1:
+            m = np.ones_like(batch["labels"], dtype=np.float32)
+            m[: BATCH // 2, SEQ // 3:] = 0.0
+            batch["loss_mask"] = m
+        p, o, met = cell.fn(p, o, batch)
+        rp, ro, rmet = functional_sharded_step(rp, ro, batch, loss_fn, OPT,
+                                               mesh, split)
+        same_met &= all(torch.equal(met[k], rmet[k]) for k in rmet)
+
+    def equal(a, b):
+        return all(torch.equal(x.to_local(), y.to_local())
+                   for x, y in zip(tree_leaves(a), tree_leaves(b)))
+
+    return {"params": equal(p, rp), "mu": equal(o.mu, ro.mu),
+            "nu": equal(o.nu, ro.nu), "step": equal(o.step, ro.step),
+            "metrics": same_met,
+            "in_place": [x.to_local().data_ptr() for x in
+                         tree_leaves({"p": p, "mu": o.mu, "nu": o.nu})] == ptrs}
+
+
+def world_in_place(rank, d, m, out_dir):
+    mesh = make_host_mesh(d, m, device_type="cpu")
+    res = {a: in_place_vs_functional(a, mesh) for a in IN_PLACE_ARCHS}
+    every = [None] * dist.get_world_size()
+    dist.all_gather_object(every, res)
+    if rank == 0:
+        torch.save(every, os.path.join(out_dir, f"inplace_{d}x{m}.pt"))

@@ -1,8 +1,8 @@
 """The multi-rank checks of `test_torch_tensor_parallel.py`: the train
-and prefill cells of the dense family, the moe family (expert-parallel)
-and the vlm's LM, split over "model" (`distributed.tensor_parallel`), and
-the MoE layer alone under the split, on ``gloo`` worlds of spawned CPU
-ranks (`_torch_dist_checks.spawn`).  Every rank runs the same checks;
+and prefill cells of the dense family, the moe family (expert-parallel),
+the vlm's LM and the hybrid family, split over "model"
+(`distributed.tensor_parallel`), and the MoE layer and the RG-LRU block
+alone under the split, on ``gloo`` worlds of spawned CPU ranks (`_torch_dist_checks.spawn`).  Every rank runs the same checks;
 rank 0 writes what they found to ``<out>/<world>.pt``.  This module
 imports torch and the port only (no JAX): the weights come converted
 from the reference's init in a file the test process wrote.
@@ -40,12 +40,29 @@ WORLDS = {"1x2": (1, 2), "2x2": (2, 2), "1x4": (1, 4)}
 # KV-group rule and the expert split together at 1 x 4) and internvl2-76b
 # (16 image-embedding rows)
 EP_ARCHS = ("deepseek-moe-16b", "dbrx-132b", "internvl2-76b")
+# the smoke recurrentgemma-9b (2 super-blocks, d 128, 4 heads, MQA: the
+# KV-group rule runs with r = M) at its vocabulary 251 (replicated) and
+# at 256 (split over "model")
+HY_CASES = ("recurrentgemma-9b", "recurrentgemma-9b:256")
 
 
 def smoke_arch(vocab: int):
     arch = get_arch("qwen3-0.6b", smoke=True)
     return dataclasses.replace(arch, model=dataclasses.replace(
         arch.model, vocab=vocab))
+
+
+def case_arch(case):
+    """The smoke config of a case: a vocabulary of the smoke qwen3, an
+    arch id, or ``"<arch id>:<vocabulary>"``."""
+    if isinstance(case, int):
+        return smoke_arch(case)
+    arch_id, _, vocab = case.partition(":")
+    arch = get_arch(arch_id, smoke=True)
+    if vocab:
+        arch = dataclasses.replace(arch, model=dataclasses.replace(
+            arch.model, vocab=int(vocab)))
+    return arch
 
 
 def _record(fn, *args):
@@ -95,9 +112,10 @@ def join_shares(parts: list):
 
 def _experts_local(p) -> dict:
     """The expert count of this rank's shard of each stacked expert leaf."""
-    return {k: tuple(v.to_local().shape)[1] for k, v in p["blocks"]["moe"]
-            .items() if k in ("wi", "wg", "wo")} if "moe" in p["blocks"] \
-        else {}
+    moe_p = p.get("blocks", {}).get("moe")
+    return {} if moe_p is None else {
+        k: tuple(v.to_local().shape)[1] for k, v in moe_p.items()
+        if k in ("wi", "wg", "wo")}
 
 
 def check_train(arch, mesh, params) -> dict:
@@ -108,11 +126,14 @@ def check_train(arch, mesh, params) -> dict:
                       opt_cfg=chk.OPT)
     psh, osh, _ = cell.in_shardings
     o0 = adamw_init(params)
-    p = chk._place(params, mesh, psh)
+    # both steps update their inputs in place, and a placed leaf may
+    # share its storage with the tensor it was placed from: the cell and
+    # the reference each get a copy (the prefill check reuses ``params``)
+    p = chk._place(chk.clone(params), mesh, psh)
     o = AdamWState(mu=chk._place(o0.mu, mesh, osh.mu),
                    nu=chk._place(o0.nu, mesh, osh.nu),
                    step=chk._place(o0.step, mesh, osh.step))
-    rp, ro = params, o0
+    rp, ro = chk.clone(params), chk.clone(o0)
     out = {"loss_rel": 0.0, "experts_local": _experts_local(p)}
     for step in range(chk.STEPS):
         batch = batch_at(arch, step)
@@ -153,9 +174,10 @@ def check_prefill(arch, mesh, params) -> dict:
         ref = join_shares([cell.fn(params, {k: v.chunk(d)[i] for k, v in
                                            batch.items()})
                            for i in range(d)])
+    logits, states = got if isinstance(got, tuple) else (got, None)
     return {"placed": cells._placed_as(out, cell.out_shardings),
             "close": cells._close(got, ref), "collectives": coll,
-            "tokens": batch["tokens"], "logits": got[0], "states": got[1]}
+            "tokens": batch["tokens"], "logits": logits, "states": states}
 
 
 def check_nll(mesh) -> dict:
@@ -249,32 +271,85 @@ def check_moe_layer(mesh) -> dict:
     return res
 
 
+def check_rglru_block(mesh) -> dict:
+    """`rglru.rglru_block_apply` under the split on this rank (its
+    channels of the recurrent width) against the whole block on the same
+    input: the smoke recurrentgemma-9b block with random gate biases and
+    decays, ``(out * w).sum()`` for random ``w``.  The output, and the
+    gradients of the input and of every leaf (the rank's slice of a split
+    one, all of ``ln``), each relative to the whole block's largest
+    magnitude."""
+    from repro_torch.models import rglru
+    m, me = mesh.size(1), mesh.get_coordinate()[1]
+    cfg = get_arch("recurrentgemma-9b", smoke=True).model
+    dr = cfg.d_model
+    gen = torch.Generator().manual_seed(4)
+    params = rglru.rglru_block_init(gen, cfg, "cpu")
+    for k in ("ln", "b_a", "b_x", "lam"):
+        params[k] = torch.randn(params[k].shape, generator=gen) * 0.5
+    rng = np.random.default_rng(6)
+    x = torch.from_numpy(rng.standard_normal((2, 32, dr))
+                         .astype(np.float32))
+    w = torch.from_numpy(rng.standard_normal((2, 32, dr))
+                         .astype(np.float32))
+    split = tpar.ModelSplit(cfg=cfg, group=mesh.get_group("model"), size=m,
+                            index=me)
+    ch = slice(me * dr // m, (me + 1) * dr // m)
+    cols = ("w_in", "w_gate", "w_a", "w_x", "conv")
+    rows = ("w_out",)
+    vecs = ("b_a", "b_x", "lam")
+
+    def mine(k, t):
+        if k in cols:
+            return t[:, ch]
+        if k in rows or k in vecs:
+            return t[ch]
+        return t
+
+    names = ["x"] + sorted(params)
+    whole = {k: v.clone().requires_grad_() for k, v in params.items()}
+    xw = x.clone().requires_grad_()
+    ow = rglru.rglru_block_apply(whole, xw, cfg)
+    gw = torch.autograd.grad((ow * w).sum(),
+                             [xw] + [whole[k] for k in names[1:]])
+    loc = {k: mine(k, v).clone().requires_grad_() for k, v in params.items()}
+    xl = x.clone().requires_grad_()
+    ol = rglru.rglru_block_apply(loc, xl, cfg, tp=split)
+    gl = torch.autograd.grad((ol * w).sum(),
+                             [xl] + [loc[k] for k in names[1:]])
+    return {"out_rel": chk._rel(ol.detach(), ow.detach()),
+            "grad_rel": {n: chk._rel(a, b if n == "x" else mine(n, b))
+                         for n, a, b in zip(names, gl, gw)}}
+
+
 def world_tp(rank, name, params_path, out_dir):
     d, m = WORLDS[name]
     mesh = make_host_mesh(d, m, device_type="cpu")
     weights = torch.load(params_path, weights_only=False)
-    res = {"nll": check_nll(mesh), "moe_layer": check_moe_layer(mesh)}
+    res = {"nll": check_nll(mesh), "moe_layer": check_moe_layer(mesh),
+           "rglru_block": check_rglru_block(mesh)}
     for vocab in VOCABS:
         arch = smoke_arch(vocab)
         res[vocab] = {"train": check_train(arch, mesh, weights[vocab]),
                       "prefill": check_prefill(arch, mesh, weights[vocab])}
-    for arch_id in EP_ARCHS:
-        arch = get_arch(arch_id, smoke=True)
-        res[arch_id] = {"train": check_train(arch, mesh, weights[arch_id]),
-                        "prefill": check_prefill(arch, mesh,
-                                                 weights[arch_id])}
+    for case in EP_ARCHS + HY_CASES:
+        arch = case_arch(case)
+        res[case] = {"train": check_train(arch, mesh, weights[case]),
+                     "prefill": check_prefill(arch, mesh, weights[case])}
     every = [None] * dist.get_world_size()
     dist.all_gather_object(every, {
         v: {"train": {k: x for k, x in res[v]["train"].items()
                       if k != "collectives"},
             "prefill": {k: res[v]["prefill"][k] for k in
                         ("placed", "close")},
-            "nll": res["nll"], "moe_layer": res["moe_layer"]}
-        for v in VOCABS + EP_ARCHS})
+            "nll": res["nll"], "moe_layer": res["moe_layer"],
+            "rglru_block": res["rglru_block"]}
+        for v in VOCABS + EP_ARCHS + HY_CASES})
     if rank == 0:
         res["ranks"] = every
         torch.save(res, os.path.join(out_dir, f"{name}.pt"))
 
 
-__all__ = ["SEQ", "BATCH", "VOCABS", "WORLDS", "EP_ARCHS", "smoke_arch",
-           "batch_at", "prefill_batch", "join_shares", "world_tp"]
+__all__ = ["SEQ", "BATCH", "VOCABS", "WORLDS", "EP_ARCHS", "HY_CASES",
+           "smoke_arch", "case_arch", "batch_at", "prefill_batch",
+           "join_shares", "world_tp"]

@@ -1304,7 +1304,8 @@ def test_train_step_card_vs_cpu(cuda_device, arch_id):
     out = {}
     ops.reset_launch_counts()
     for dev in ("cpu", cuda_device):
-        p = tree_map(lambda t: t.to(dev), params)
+        # a copy: the step updates its parameters in place
+        p = tree_map(lambda t: t.to(dev, copy=True), params)
         _, st, m = train_step(p, adamw_init(p), batches[0], loss_fn, opt)
         out[str(dev)] = (float(m["loss"]),
                          [x.cpu() for x in tree_leaves(st.mu)])
@@ -1372,10 +1373,15 @@ def test_one_rank_nccl_mesh_on_card(cuda_device):
         with deterministic(cuda_device):
             p = tree_map(lambda t: t.to(cuda_device), params)
             st = adamw_init(p)
-            dp = tree_map(place, p, psh)
-            dst = AdamWState(mu=tree_map(place, st.mu, osh.mu),
-                             nu=tree_map(place, st.nu, osh.nu),
-                             step=place(st.step, osh.step))
+            # both steps update in place, and a one-rank placement may
+            # share the storage of what it placed: the cell gets copies
+            dp = tree_map(lambda t, pl: place(t.clone(), pl), p, psh)
+            dst = AdamWState(
+                mu=tree_map(lambda t, pl: place(t.clone(), pl), st.mu,
+                            osh.mu),
+                nu=tree_map(lambda t, pl: place(t.clone(), pl), st.nu,
+                            osh.nu),
+                step=place(st.step.clone(), osh.step))
             for b in batches[:2]:
                 p, st, m = train_step(p, st, b, loss_fn, opt)
                 dp, dst, dm = cell.fn(dp, dst, b)

@@ -57,6 +57,10 @@ DTYPES = {jnp.dtype(jnp.float32): torch.float32,
           jnp.dtype(jnp.bool_): torch.bool}
 
 
+def _clone(tree):
+    return tsteps.zip_map(torch.clone, tree)
+
+
 @pytest.fixture(autouse=True)
 def _threads():
     prev = torch.get_num_threads()
@@ -239,11 +243,14 @@ def test_cells_at_1x1_equal_direct_calls(arch_id, one_rank_mesh):
     def place(t, pl):
         return distribute_tensor(t, one_rank_mesh, pl, src_data_rank=None)
 
-    got = train.fn(tree_map(place, params, psh), AdamWState(
-        mu=tree_map(place, opt.mu, osh.mu), nu=tree_map(place, opt.nu,
-                                                        osh.nu),
-        step=place(opt.step, osh.step)), batch)
-    ref = tsteps.train_step(params, opt, batch, fns["loss"], opt_cfg)
+    # both steps update their inputs in place, and a placed leaf may
+    # share its storage with the tensor it was placed from: clones
+    got = train.fn(tree_map(place, _clone(params), psh), AdamWState(
+        mu=tree_map(place, _clone(opt.mu), osh.mu),
+        nu=tree_map(place, _clone(opt.nu), osh.nu),
+        step=place(opt.step.clone(), osh.step)), batch)
+    ref = tsteps.train_step(_clone(params), _clone(opt), batch, fns["loss"],
+                            opt_cfg)
     _bits_equal([x.full_tensor() for x in tree_leaves(got[0])],
                 tree_leaves(ref[0]))
     assert all(torch.equal(got[2][k], ref[2][k]) for k in ref[2])
@@ -304,11 +311,14 @@ def test_sharded_step_with_no_counted_label(one_rank_mesh):
     def place(t, pl):
         return distribute_tensor(t, one_rank_mesh, pl, src_data_rank=None)
 
-    got = train.fn(tree_map(place, params, psh), AdamWState(
-        mu=tree_map(place, opt.mu, osh.mu), nu=tree_map(place, opt.nu,
-                                                        osh.nu),
-        step=place(opt.step, osh.step)), batch)
-    ref = tsteps.train_step(params, opt, batch, fns["loss"], opt_cfg)
+    # both steps update their inputs in place, and a placed leaf may
+    # share its storage with the tensor it was placed from: clones
+    got = train.fn(tree_map(place, _clone(params), psh), AdamWState(
+        mu=tree_map(place, _clone(opt.mu), osh.mu),
+        nu=tree_map(place, _clone(opt.nu), osh.nu),
+        step=place(opt.step.clone(), osh.step)), batch)
+    ref = tsteps.train_step(_clone(params), _clone(opt), batch, fns["loss"],
+                            opt_cfg)
     assert float(got[2]["loss"]) == float(ref[2]["loss"]) == 0.0
     assert all(torch.equal(got[2][k], ref[2][k]) for k in ref[2])
     _bits_equal([x.full_tensor() for x in tree_leaves(got[0])],

@@ -65,6 +65,7 @@ import pytest
 import torch
 
 from repro.configs.registry import get_arch as jget_arch
+from repro.models import rglru as jrg
 from repro.models import transformer as jtfm
 from repro_torch.configs.registry import get_arch
 from repro_torch.convert import params_from_jax, to_numpy
@@ -84,16 +85,20 @@ JAX_TOL = dict(atol=1e-5, rtol=1e-5)
 
 def _jax_cfg(vocab):
     """The reference's config of a case: a vocabulary of the smoke qwen3,
-    or a moe / vlm architecture's smoke config."""
+    a moe / vlm architecture's smoke config, or a hybrid case's (the
+    smoke recurrentgemma-9b, at a vocabulary after its ``:``)."""
     if vocab in tpc.EP_ARCHS:
         return jget_arch(vocab, smoke=True).model
+    if vocab in tpc.HY_CASES:
+        arch_id, _, v = vocab.partition(":")
+        jc = jget_arch(arch_id, smoke=True).model
+        return dataclasses.replace(jc, vocab=int(v)) if v else jc
     jc = jget_arch("qwen3-0.6b", smoke=True).model
     return dataclasses.replace(jc, vocab=vocab)
 
 
 def _arch(case):
-    return get_arch(case, smoke=True) if case in tpc.EP_ARCHS \
-        else tpc.smoke_arch(case)
+    return tpc.case_arch(case)
 
 
 @pytest.fixture(scope="module")
@@ -101,8 +106,9 @@ def reference():
     """The reference's weights of every case, as JAX trees and
     converted."""
     out = {}
-    for case in tpc.VOCABS + tpc.EP_ARCHS:
-        jp = jtfm.lm_init(jax.random.PRNGKey(0), _jax_cfg(case))
+    for case in tpc.VOCABS + tpc.EP_ARCHS + tpc.HY_CASES:
+        init = jrg.rg_init if case in tpc.HY_CASES else jtfm.lm_init
+        jp = init(jax.random.PRNGKey(0), _jax_cfg(case))
         out[case] = (jp, params_from_jax(jax.device_get(jp)))
     return out
 
@@ -121,6 +127,7 @@ def worlds(tmp_path_factory, reference):
 
 CASES = [(w, v) for w in tpc.WORLDS for v in tpc.VOCABS]
 EP_CASES = [(w, a) for w in tpc.WORLDS for a in tpc.EP_ARCHS]
+HY_CASES = [(w, c) for w in tpc.WORLDS for c in tpc.HY_CASES]
 
 
 @pytest.mark.parametrize("world,vocab", CASES)
@@ -374,3 +381,92 @@ def test_place_rows_counts_no_global_tensor():
         torch.distributed.destroy_process_group()
     # the argument (16 MiB) and its contiguous half (8 MiB), nothing more
     assert counts.peak_bytes == 24 * 2 ** 20
+
+
+# ------------------------------------------------------- the hybrid family --
+
+def _check_hybrid_collectives(worlds, world, case):
+    """The hybrid cell's collective record: every collective issued by the
+    port, none from the gather-once path; the only all-gathers are the
+    KV-group rule's (MQA: r = M, a group's columns of wq / wk / wv) and
+    one of the conv output ``xc`` ([d_model, rows, N], over "model") a
+    RG-LRU block each forward (the smoke config does not remat); the
+    [..., d_model] all-reduces over "model": one after each RG-LRU block,
+    each FFN and the attention, each pass (exactly, where the vocabulary
+    is replicated)."""
+    cfg = _arch(case).model
+    d, m = tpc.WORLDS[world]
+    n_super = max(1, cfg.n_layers // 3)
+    for what, passes in (("train", 2), ("prefill", 1)):
+        record = worlds[world][case][what]["collectives"]
+        assert record and all(c["op_name"].startswith("repro_torch/")
+                              for c in record), what
+        assert not [c for c in record
+                    if dr.from_gather_once(c["op_name"])], what
+        gathers = [c for c in record if c["kind"] == "all-gather"]
+        xc = [c for c in gathers if len(c["shape"]) == 3]
+        weights = [c for c in gathers if len(c["shape"]) != 3]
+        assert xc and all(c["group"] == m and c["shape"][0] == cfg.d_model
+                          and c["shape"][1:] == [tpc.BATCH // d, tpc.SEQ]
+                          and "tensor_parallel.py" in c["op_name"]
+                          for c in xc), (what, xc)
+        assert len(xc) == 2 * n_super, (what, len(xc))
+        assert weights and _weight_gathers_ok(weights, world, cfg) == [], \
+            what
+        leaves = [c for c in record if c["kind"] == "all-reduce"
+                  and c["group"] == m and "tensor_parallel.py" in
+                  c["op_name"] and c["shape"][-1] == cfg.d_model]
+        assert len(leaves) >= 5 * n_super * passes, what
+        if cfg.vocab % m:                 # vocabulary replicated
+            assert len(leaves) == 5 * n_super * passes, what
+
+
+@pytest.mark.parametrize("world,case", HY_CASES)
+def test_hybrid_train_cell_matches_train_step(worlds, world, case):
+    _check_train(worlds, world, case)
+
+
+@pytest.mark.parametrize("world,case", HY_CASES)
+def test_hybrid_prefill_cell_matches_plain(worlds, world, case):
+    for rank, r in enumerate(worlds[world]["ranks"]):
+        assert r[case]["prefill"] == {"placed": True, "close": True}, rank
+
+
+@pytest.mark.parametrize("world,case", HY_CASES)
+def test_hybrid_no_whole_weight_gathered_over_model(worlds, world, case):
+    _check_hybrid_collectives(worlds, world, case)
+
+
+@pytest.mark.parametrize("world,case", HY_CASES)
+def test_hybrid_slice_matches_reference(worlds, reference, world, case):
+    """The train cell's first loss against ``repro.models.rglru.rg_loss``
+    (1e-5 relative) and the gathered prefill's last logits against its
+    ``rg_forward`` (atol = rtol = 1e-5), on the same weights."""
+    jp, _ = reference[case]
+    jc = _jax_cfg(case)
+    arch = _arch(case)
+    batch = tpc.batch_at(arch, 0)
+    want = float(jrg.rg_loss(jp, {k: jnp.asarray(v) for k, v in
+                                  batch.items()}, jc))
+    res = worlds[world][case]
+    assert abs(res["train"]["loss0"] - want) <= 1e-5 * abs(want)
+    pre = res["prefill"]
+    jl = jrg.rg_forward(jp, jnp.asarray(pre["tokens"].numpy()), jc)[0]
+    np.testing.assert_allclose(pre["logits"].numpy(),
+                               np.asarray(jl)[:, -1], **JAX_TOL)
+
+
+@pytest.mark.parametrize("world", list(tpc.WORLDS))
+def test_rglru_block_split_matches_whole(worlds, world):
+    """`rglru_block_apply` under the split against the whole block: the
+    output within 1e-6, the gradients of the input and of every leaf
+    (``w_a``, ``conv`` and ``lam`` included) within 1e-5 of their max.
+    Without the gather of ``xc`` before the gate products it fails."""
+    for rank, r in enumerate(worlds[world]["ranks"]):
+        got = r[tpc.VOCABS[0]]["rglru_block"]
+        assert got["out_rel"] <= 1e-6, (rank, got)
+        assert set(got["grad_rel"]) == {
+            "x", "ln", "w_in", "w_gate", "conv", "w_a", "b_a", "w_x", "b_x",
+            "lam", "w_out"}
+        for name, err in got["grad_rel"].items():
+            assert err <= 1e-5, (rank, name, got)

@@ -256,14 +256,47 @@ def test_run_with_restarts_replays_a_train_step_bit_for_bit(tmp_path):
     with tr.deterministic(CPU):
         for i, armed in enumerate((False, True)):
             failures["armed"] = armed
+            # each run its own copy: a train step updates in place
             outs.append(run_with_restarts(
-                step_fn, (params, adamw_init(params)),
+                step_fn, (tree_map(torch.clone, params), adamw_init(params)),
                 CheckpointManager(str(tmp_path / str(i))), n_steps=5,
                 ckpt_every=2))
     assert not failures["armed"]
     (pa, oa), (pb, ob) = outs
     assert _bits_equal(pa, pb) and _bits_equal(oa.mu, ob.mu) \
         and _bits_equal(oa.nu, ob.nu) and int(oa.step) == int(ob.step) == 5
+
+
+def test_run_with_restarts_replays_a_failure_before_the_first_checkpoint(
+        tmp_path):
+    """A step that fails at step 1, before the first checkpoint (step 2)
+    and after its in-place update has written the parameters and moments
+    that the run started from: the replay starts from step 0's state, and
+    the run ends bit-identical to an uninterrupted one."""
+    arch, fns, params, dcfg = _smoke("qwen3-0.6b")
+    opt = OptConfig(lr=1e-3, warmup_steps=2, total_steps=10)
+    failures = {"armed": False}
+
+    def step_fn(step, state):
+        p, o, _ = train_step(*state, tr.train_batch(arch, dcfg, step),
+                             fns["loss"], opt)
+        if step == 1 and failures["armed"]:
+            failures["armed"] = False
+            raise RuntimeError("simulated failure after the update")
+        return p, o
+
+    outs = []
+    with tr.deterministic(CPU):
+        for i, armed in enumerate((False, True)):
+            failures["armed"] = armed
+            outs.append(run_with_restarts(
+                step_fn, (tree_map(torch.clone, params), adamw_init(params)),
+                CheckpointManager(str(tmp_path / str(i))), n_steps=4,
+                ckpt_every=2))
+    assert not failures["armed"]
+    (pa, oa), (pb, ob) = outs
+    assert _bits_equal(pa, pb) and _bits_equal(oa.mu, ob.mu) \
+        and _bits_equal(oa.nu, ob.nu) and int(oa.step) == int(ob.step) == 4
 
 
 # --------------------------------------------------------- remat, impl ----
